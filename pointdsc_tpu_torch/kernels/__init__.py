@@ -1,0 +1,36 @@
+"""Hand-written CUDA kernels of the eval forward and their wrappers.
+
+Each wrapper keeps a plain integer ``launches`` that it raises by one where
+it launches its kernel, and nowhere else; ``reset_launches`` and
+``launch_counts`` read them all. CUDA code is built and loaded only inside a
+launch, never at import (kernels/_build.py).
+"""
+
+from pointdsc_tpu_torch.kernels.conf_mlp import confidence_head
+from pointdsc_tpu_torch.kernels.nms import nms_local_max
+from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
+from pointdsc_tpu_torch.kernels.sc_attention import (
+    build_compat_cache_int8,
+    fused_sc_attention_cached,
+)
+from pointdsc_tpu_torch.kernels.scoring import seed_inlier_counts
+from pointdsc_tpu_torch.kernels.seed_knn import seed_knn_exact
+
+WRAPPERS = {
+    "compat_cache_int8": build_compat_cache_int8,
+    "sc_attention_cached": fused_sc_attention_cached,
+    "confidence_head": confidence_head,
+    "nms_local_max": nms_local_max,
+    "seed_knn_exact": seed_knn_exact,
+    "seed_inlier_counts": seed_inlier_counts,
+    "fused_post_refinement": fused_post_refinement,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

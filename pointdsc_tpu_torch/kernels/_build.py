@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels (``kernels/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, at first use, into
+``pointdsc_tpu_torch/_build/`` (git-ignored), and loaded with ``ctypes``.
+The file name carries a hash of the source and flags, so an edited source
+is rebuilt and a stale library is never loaded. ``build_all`` starts one
+``nvcc`` per source, all at once.
+
+Every C entry takes its pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launch; ``launch`` raises when
+that is not 0 (a refused launch never runs, and a later synchronize would
+not report it). A kernel runs on PyTorch's current stream of its tensors'
+device; a temporary the wrapper passed may be freed as soon as the wrapper
+returns, because the caching allocator hands its memory only to work queued
+later on the same stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+SOURCES = ("compat_cache", "sc_attention", "conf_mlp", "nms", "seed_knn", "scoring", "refine")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# C signatures: (argtypes, restype) per entry point
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "compat_cache": {"compat_cache_int8": [P, P, I, I, F, P]},
+    "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P]},
+    "conf_mlp": {"confidence_head": [P, P, P, P, P, P, P, P, I, P]},
+    "nms": {"nms_local_max": [P, P, I, I, F, P]},
+    "seed_knn": {"seed_knn_exact": [P, P, P, P, I, I, I, I, P]},
+    "scoring": {"seed_inlier_counts": [P, P, P, I, I, I, F, P]},
+    "refine": {"fused_post_refinement": [P, P, P, P, I, I, F, I, P]},
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (process or None, tmp path, final path)."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return None, None, out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, tmp, out
+
+
+def _finish_build(name, proc, tmp, out):
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def build_all() -> float:
+    """Build every kernel library (one nvcc per source, all in parallel) and
+    return the wall seconds it took."""
+    t0 = time.perf_counter()
+    started = [(name, *_start_build(name)) for name in SOURCES]
+    try:
+        for name, proc, tmp, out in started:
+            _finish_build(name, proc, tmp, out)
+    finally:
+        for _, proc, _, _ in started:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        _finish_build(name, *_start_build(name))
+        lib = ctypes.CDLL(_lib_path(name))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call C entry ``entry`` of library ``name`` with ``args`` and the
+    current stream of ``device`` (a CUDA torch.device), with that device
+    current; raise if the launch failed."""
+    import torch
+
+    fn = getattr(library(name), entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {entry} failed with cudaError {err}")

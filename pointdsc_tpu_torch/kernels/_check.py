@@ -1,0 +1,35 @@
+"""Argument checks shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+
+def expect(t: torch.Tensor, name: str, *, dtype=None, ndim=None, last=None,
+           shape=None, device=None) -> None:
+    """Raise ValueError unless t is a contiguous tensor of the given dtype,
+    rank, last dimension, shape and device."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if ndim is not None and t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if last is not None and t.shape[-1] != last:
+        raise ValueError(f"{name} must have last dim {last}, got {tuple(t.shape)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")

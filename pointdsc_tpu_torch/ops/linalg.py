@@ -1,0 +1,94 @@
+"""Closed-form dominant eigenpair of batched symmetric 4x4 matrices
+(PyTorch counterpart of ``pointdsc_tpu/ops/linalg.py:102-199``).
+
+Kept as the same closed form, not ``torch.linalg.eigh``: the Newton steps,
+the adjugate column and the degenerate fallback to e0 decide the numbers
+that the JAX package gives, and the port is held to them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _det3_of(m, rows, cols):
+    """3x3 determinant of the submatrix m[..., rows, cols] (static indices)."""
+    r0, r1, r2 = rows
+    c0, c1, c2 = cols
+    a, b, c = m[..., r0, c0], m[..., r0, c1], m[..., r0, c2]
+    d, e, f = m[..., r1, c0], m[..., r1, c1], m[..., r1, c2]
+    g, h, i = m[..., r2, c0], m[..., r2, c1], m[..., r2, c2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def _det4(m):
+    """Determinant of batched 4x4 matrices by cofactor expansion (row 0)."""
+    cols = (0, 1, 2, 3)
+    out = 0.0
+    sign = 1.0
+    for j in range(4):
+        rest = tuple(c for c in cols if c != j)
+        out = out + sign * m[..., 0, j] * _det3_of(m, (1, 2, 3), rest)
+        sign = -sign
+    return out
+
+
+def _adjugate4_sym(m):
+    """Adjugate of batched symmetric 4x4 matrices (upper triangle computed,
+    mirrored): adj(A)_ij = (-1)^(i+j) * minor_ji."""
+    idx = (0, 1, 2, 3)
+    entries = {}
+    for i in range(4):
+        for j in range(i, 4):
+            rows = tuple(r for r in idx if r != j)
+            cols = tuple(c for c in idx if c != i)
+            entries[(i, j)] = ((-1.0) ** (i + j)) * _det3_of(m, rows, cols)
+    rows_out = []
+    for i in range(4):
+        row = [entries[(min(i, j), max(i, j))] for j in range(4)]
+        rows_out.append(torch.stack(row, dim=-1))
+    return torch.stack(rows_out, dim=-2)
+
+
+def dominant_eigvec4x4(A: torch.Tensor, newton_iters: int = 14):
+    """Largest eigenvalue + unit eigenvector of batched symmetric 4x4 A.
+
+    Shift by trace/4, scale by the Frobenius norm, run Newton from x0 = 1 on
+    the characteristic quartic (monotone from above), and take the
+    largest-diagonal column of adj(B - lambda I). Degenerate inputs
+    (multiple largest eigenvalue, zero matrix) fall back to e0.
+    Returns (eigval [...], eigvec [..., 4]).
+    """
+    assert A.shape[-1] == 4 and A.shape[-2] == 4
+    A = 0.5 * (A + A.transpose(-1, -2))
+    mu = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / 4.0
+    eye = torch.eye(4, dtype=A.dtype, device=A.device)
+    B = A - mu[..., None, None] * eye
+    fro = torch.sqrt(torch.sum(B * B, dim=(-1, -2)))
+    scale = torch.clamp(fro, min=1e-30)
+    Bn = B / scale[..., None, None]
+
+    B2 = Bn @ Bn
+    tr2 = torch.diagonal(B2, dim1=-2, dim2=-1).sum(-1)
+    e3 = torch.sum(B2 * Bn, dim=(-1, -2)) / 3.0
+    e4 = _det4(Bn)
+    c2 = -0.5 * tr2
+
+    lam = torch.ones_like(tr2)
+    for _ in range(newton_iters):
+        lam2 = lam * lam
+        p = lam2 * lam2 + c2 * lam2 - e3 * lam + e4
+        dp = 4.0 * lam2 * lam + 2.0 * c2 * lam - e3
+        lam = lam - p / torch.clamp(dp, min=1e-12)
+
+    C = Bn - lam[..., None, None] * eye
+    adj = _adjugate4_sym(C)
+    diag = torch.abs(torch.diagonal(adj, dim1=-2, dim2=-1))
+    col = torch.argmax(diag, dim=-1)
+    v = torch.gather(adj, -1, col[..., None, None].expand(adj.shape[:-1] + (1,)))[..., 0]
+    nv = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    fallback = torch.zeros_like(v)
+    fallback[..., 0] = 1.0
+    tiny = 1e-20
+    v = torch.where(nv > tiny, v / torch.clamp(nv, min=tiny), fallback)
+    return lam * scale + mu, v
