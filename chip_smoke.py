@@ -7,10 +7,12 @@ Phases, in order (any failure raises and the exit code is not 0):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels with nvcc (one process per source, in parallel);
   3. hold each kernel's public wrapper against its plain PyTorch version on
-     the card at the main path's shapes (N = 5120, C = 128, S = 512, the last
-     5% of points padded), and time both with CUDA events;
-  4. load the Synthetic snapshot and run the main path through ``register``
-     (the fused path, which launches the kernels) with every launch count set
+     the card at the main paths' shapes (N = 5120, C = 128, S = 512, the last
+     5% of points padded; the split pair of encoder-layer kernels at
+     N = 12288), and time both with CUDA events;
+  4. load the Synthetic snapshot in the running-max configuration
+     (``offset_softmax=False``) and run it through ``register`` (the fused
+     path, which launches the kernels) with every launch count set
      to 0 just before and read just after: 3 synthetic pairs, and a 4th pair
      through a copy of the model whose logit bias is raised so that a share
      of the confidences is positive and NMS picks the seeds by score (the
@@ -20,8 +22,23 @@ Phases, in order (any failure raises and the exit code is not 0):
      NMS and an [S, N] inlier count on the run's own confidences and seed
      transforms;
   5. hold the first 3 results against the JAX package's golden file;
-  6. check that every kernel was launched on the main path;
-  7. time the fused forward (median of 10 after warm-up, CUDA events).
+  6. check that every kernel of that path was launched on it;
+  7. time the fused forward (median of 10 after warm-up, CUDA events);
+  8. the default configuration (offset softmax, whole-layer kernels) through
+     ``Evaluator.run_dataset`` with the regime guard live, counts set to 0
+     before each run and read after: 3 Synthetic pairs at N = 5120 (one
+     kernel per layer) and 2 pairs at N = 12288 through the SyntheticKITTI
+     snapshot (sigma_d 1.2; pairs of half-width 50 m, noise 0.05 m, inlier
+     radius 0.6 m, the data that snapshot was trained on: the pair of kernels
+     per layer, and the NMS top-M prefilter). The pairs are ones on which the
+     snapshots stay inside the offset softmax's regime (the slack depends on
+     the pair; tools/regime_scan.py). Each result is held against the dense
+     path, the 5120 ones against a second golden file of the JAX dense path;
+  9. one pair through ``half_precision=True`` (the per-op bf16 encoder around
+     the offset attention kernel), against the f32 dense path;
+ 10. one pair through a copy whose key projections are scaled by 100: the
+     guard must switch it to the running-max kernel;
+ 11. time the default forward at both sizes as in 7.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -37,15 +54,25 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "snapshot", "PointDSC_Synthetic_release")
+SNAPSHOT_KITTI = os.path.join(ROOT, "snapshot", "PointDSC_SyntheticKITTI_release")
 GOLDEN = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata", "golden_n5120.npz")
+GOLDEN_DEFAULT = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata", "golden_n5120_seed1.npz")
 N, C, PAIRS = 5120, 128, 3
+N_KITTI, PAIRS_KITTI = 12288, 2
+# the data the SyntheticKITTI snapshot was trained on
+KITTI_DATA = dict(scene_scale=50.0, noise=0.05, inlier_threshold=0.6)
+# pairs on which the snapshots stay inside the offset softmax's regime
+DEFAULT_DATA = dict(seed=1, inlier_ratio=0.4)        # Synthetic, N = 5120
+DEFAULT_DATA_KITTI = dict(seed=0, inlier_ratio=0.2)  # SyntheticKITTI, N = 12288
 S, K = N // 10, 40
 PAD_FRACTION = 0.05
 DEVICE = "cuda"
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core
+# FLOP/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 
 # f32 operations per element of each kernel's work, counted from its source
 OPS_PER_CACHE_ENTRY = 28  # two 3-dots (10), two gram distances (8), one-sqrt diff (5), scale+round (5)
@@ -89,9 +116,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, ops: float, tensor_ops: float = 0.0) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over their
+    peak: ``ops`` at the f32 CUDA-core rate, ``tensor_ops`` (products with
+    bf16 operands and f32 accumulation) at the dense bf16 tensor-core rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
+    t_ops = (ops / F32_FLOP_PER_S + tensor_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -120,6 +150,53 @@ def kernel_inputs(torch, dev):
                 seeds=seeds, init=init)
 
 
+def layer_inputs(torch, dev, n, sigma_d, **data):
+    """One encoder layer's inputs at N = n, C = 128: a synthetic pair's cache
+    (the last 5% of points padded), activations and weights from a seeded
+    generator. The q and k projections are scaled so that the logits have a
+    standard deviation of ~3 and the offsets sit near 40 nats: a sharp
+    softmax inside the regime, where a wrong p would show."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+    from pointdsc_tpu_torch.kernels import encoder_layer as kenc
+    from pointdsc_tpu_torch.kernels import sc_attention as katt
+
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1, **data)[0]
+    src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
+    tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
+    mask = (torch.arange(n) < n - int(n * PAD_FRACTION))[None].to(dev)
+    gen = torch.Generator().manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def bn(ch):
+        return (1.0 + rnd(ch, scale=0.1), rnd(ch, scale=0.1), rnd(ch, scale=0.1),
+                1.0 + rnd(ch, scale=0.1).abs())
+
+    w, qk = C ** -0.5, (3.0 / 64.0) ** 0.5
+    pcn = (rnd(C, C, scale=w), rnd(C, scale=0.1), bn(C))
+    nl = (rnd(C, C, scale=qk), rnd(C, scale=0.1), rnd(C, C, scale=qk), rnd(C, scale=0.1),
+          rnd(C, C, scale=w), rnd(C, scale=0.1), rnd(C // 2, C, scale=w), rnd(C // 2, scale=0.1),
+          bn(C // 2), rnd(C // 2, C // 2, scale=w), rnd(C // 2, scale=0.1), bn(C // 2),
+          rnd(C, C // 2, scale=w), rnd(C, scale=0.1))
+    return dict(x=rnd(1, n, C), weights=kenc.fold_layer(pcn, nl), mask=mask,
+                cache=katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask),
+                kbias=katt.key_bias(mask, 1, n, dev))
+
+
+def layer_counts(n):
+    """(bytes, f32 operations, operations of the two N^2 C products) of one
+    encoder layer's three parts at N = n: [PointCN + QKV, attention, MLP]."""
+    act = n * C * 4
+    w_a = (C * C + C + 3 * C * C + 3 * C) * 4
+    w_b = (C * C // 2 + C // 2 + C * C // 4 + C // 2 + C * C // 2 + C) * 4
+    ops_a = 2.0 * n * (C * C + 3 * C * C)
+    ops_b = 2.0 * n * (C * C // 2 + C * C // 4 + C * C // 2)
+    return dict(act=act, half=act // 2, w_a=w_a, w_b=w_b, ops_a=ops_a, ops_b=ops_b,
+                cache=n * n + n * 4, attn=4.0 * n * n * C,
+                attn_extra=float(OPS_PER_ATTN_PAIR_EXTRA) * n * n)
+
+
 def knn_sets_agree(torch, idx, ref, sim, k) -> bool:
     """Per seed, the two index sets agree except for candidates whose
     similarity lies within 1e-5 of the k-th largest: a near tie that two
@@ -136,12 +213,21 @@ def check_kernels(torch, dev) -> list[dict]:
     """Phase 3: every kernel's public wrapper against its plain version, on
     the card, on the same inputs.
 
-    ``library_ms`` is null for all seven: no single PyTorch call computes any
-    of them (the attention's compat factor multiplies the logits, which
-    ``scaled_dot_product_attention``'s additive mask cannot express; the
-    confidence head is three layers; the k-NN a product and a selection; the
-    refinement a loop)."""
+    ``library_ms`` is null for all eleven: no single PyTorch call computes any
+    of them (the attentions' compat factor multiplies the logits, which
+    ``scaled_dot_product_attention``'s additive mask cannot express, and the
+    encoder-layer kernels hold such an attention; the confidence head is
+    three layers; the k-NN a product and a selection; the refinement a loop).
+
+    ``bound_ms`` takes every operation at the peak of its operands' type.
+    Three kernels hold the two N^2 C attention products on bf16 operands with
+    f32 accumulation (the offset attention and the two layer kernels around
+    it): those products count at the dense bf16 tensor-core peak, the rest at
+    the f32 rate. They carry a second figure, ``bound_ms_f32_cores``, with
+    everything at the f32 CUDA-core peak: the most that these first versions,
+    which widen to f32 and use no tensor cores, could reach."""
     from pointdsc_tpu_torch.kernels import conf_mlp as kconf
+    from pointdsc_tpu_torch.kernels import encoder_layer as kenc
     from pointdsc_tpu_torch.kernels import nms as knms
     from pointdsc_tpu_torch.kernels import refine as kref
     from pointdsc_tpu_torch.kernels import sc_attention as katt
@@ -153,13 +239,20 @@ def check_kernels(torch, dev) -> list[dict]:
     q, k, v = x["qkv"]
     rows = []
 
-    def row(name, source, replaces, err, fn, plain_fn, bytes_moved, ops, **extra):
-        b, o = bound_ms(bytes_moved, ops)
+    def row(name, source, replaces, err, fn, plain_fn, bytes_moved, ops, tensor_ops=None,
+            reps=20, **extra):
+        # ops counts every operation; tensor_ops of them have bf16 operands
+        if tensor_ops is None:
+            b, o = bound_ms(bytes_moved, ops)
+        else:
+            b, o = bound_ms(bytes_moved, ops - tensor_ops, tensor_ops)
+            fb, fo = bound_ms(bytes_moved, ops)
+            extra.update(bound_ms_f32_cores=fb, bound_by_f32_cores=fo)
         rows.append(dict(name=name, route="cuda",
                          source=f"pointdsc_tpu_torch/kernels/csrc/{source}",
                          replaces=f"pointdsc_tpu/kernels/{replaces}", max_abs_err=err,
-                         ms=time_ms(fn), plain_ms=time_ms(plain_fn), bound_ms=b, bound_by=o,
-                         library_ms=None, **extra))
+                         ms=time_ms(fn, reps=reps), plain_ms=time_ms(plain_fn, reps=reps),
+                         bound_ms=b, bound_by=o, library_ms=None, **extra))
 
     # -- int8 cache. Tolerance: the kernel's fused multiply-adds round the
     # gram-form distances differently from cuBLAS's, so an entry whose
@@ -181,15 +274,93 @@ def check_kernels(torch, dev) -> list[dict]:
     # f32 throughout; the flash loop sums 5120 keys in 80 tiles with a
     # rescale per tile, the plain version in one matmul with one max.
     bias = geom[:, 8].contiguous()
-    out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask)
+    out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                         offset_softmax=False)
     ref = katt.sc_attention_cached_plain(q, k, v, cache, bias)
     err = float((out - ref).abs().max())
     check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4), f"attention max err {err}")
+    attn_bytes = 3 * N * C * 4 + N * N + N * 4 + N * C * 4
+    attn_ops = 4.0 * N * N * C + OPS_PER_ATTN_PAIR_EXTRA * N * N
     row("sc_attention_cached", "sc_attention.cu", "sc_attention.py:417", err,
-        lambda: katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask),
-        lambda: katt.sc_attention_cached_plain(q, k, v, cache, bias),
-        3 * N * C * 4 + N * N + N * 4 + N * C * 4,
-        4.0 * N * N * C + OPS_PER_ATTN_PAIR_EXTRA * N * N)
+        lambda: katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                               offset_softmax=False),
+        lambda: katt.sc_attention_cached_plain(q, k, v, cache, bias), attn_bytes, attn_ops)
+
+    # -- offset attention on the same cache, at the shapes and types the
+    # half-precision path gives it: bf16 q, k, v, and p rounded to bf16 before
+    # p v. Tolerance atol = rtol = 2e-3: a p whose f32 value sits on a bf16
+    # rounding boundary may round either way in the two versions (their
+    # exponents' arguments differ in the last bit), each such flip moving one
+    # of 5120 terms of a row by 2^-9 relative; measured ~1e-4. f32 inputs are
+    # rounded to bf16 by the wrapper: the same result, bit for bit.
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    out = katt.fused_sc_attention_cached(qh, kh, vh, cache, src, tgt, mask=mask)
+    ref = katt.sc_attention_cached_offset_plain(qh, kh, vh, cache, bias)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=2e-3, rtol=2e-3), f"offset attention max err {err}")
+    check(torch.equal(katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask), out),
+          "offset attention: f32 inputs are not the bf16 inputs' result")
+    row("sc_attention_cached_offset", "sc_attention.cu", "sc_attention.py:472", err,
+        lambda: katt.fused_sc_attention_cached(qh, kh, vh, cache, src, tgt, mask=mask),
+        lambda: katt.sc_attention_cached_offset_plain(qh, kh, vh, cache, bias),
+        attn_bytes - 3 * N * C * 2, attn_ops, tensor_ops=4.0 * N * N * C)
+
+    # -- the whole encoder layer in one launch, N = 5120. Tolerance
+    # atol = rtol = 2e-3: q, k, v and p are rounded to bf16 in both versions,
+    # whose f32 sums run in another order; a value on a rounding boundary may
+    # round either way, which moves one logit by 2^-9 relative or one of 5120
+    # terms of a row's sum by as much. Activations are ~1; measured ~1e-4.
+    lay = layer_inputs(torch, dev, N, 0.1)
+    x5, w5, c5, kb5 = lay["x"], lay["weights"], lay["cache"], lay["kbias"]
+    out = kenc.fused_encoder_layer(x5, c5, kb5, w5)
+    ref = kenc.fused_layer_plain(x5, c5, kb5, w5)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=2e-3, rtol=2e-3), f"fused encoder layer max err {err}")
+    cnt = layer_counts(N)
+    row("fused_encoder_layer", "encoder_layer.cu", "encoder_layer.py:109", err,
+        lambda: kenc.fused_encoder_layer(x5, c5, kb5, w5),
+        lambda: kenc.fused_layer_plain(x5, c5, kb5, w5),
+        2 * cnt["act"] + cnt["cache"] + cnt["w_a"] + cnt["w_b"],
+        cnt["ops_a"] + cnt["ops_b"] + cnt["attn"] + cnt["attn_extra"], tensor_ops=cnt["attn"])
+    del lay, x5, w5, c5, kb5, out, ref
+
+    # -- the split pair, N = 12288 (a pair at the SyntheticKITTI scale,
+    # sigma_d = 1.2). PointCN + QKV: h atol = rtol = 1e-5 (f32 dot products of
+    # 128 terms in another order); q, k, v equal in bf16 except at rounding
+    # boundaries (by one step, on <= 0.1% of entries); kscale rtol 1e-5.
+    lay = layer_inputs(torch, dev, N_KITTI, 1.2, **KITTI_DATA)
+    xk, wk, ck, kbk = lay["x"], lay["weights"], lay["cache"], lay["kbias"]
+    got = kenc.pcn_qkv(xk, wk)
+    ref = kenc.pcn_qkv_plain(xk, wk)
+    err = float((got[0] - ref[0]).abs().max())
+    check(torch.allclose(got[0], ref[0], atol=1e-5, rtol=1e-5), f"pcn_qkv h max err {err}")
+    flips = 0
+    for a, b in zip(got[1:4], ref[1:4]):
+        d = (a.float() - b.float()).abs()
+        check(bool((d <= b.float().abs() * 2.0 ** -7).all()), "pcn_qkv: q/k/v off by > 1 step")
+        flips += int((d > 0).sum())
+    check(flips <= 1e-3 * 3 * N_KITTI * C, f"pcn_qkv: {flips} bf16 entries differ")
+    check(torch.allclose(got[4], ref[4], atol=0, rtol=1e-5), "pcn_qkv: kscale differs")
+    cnt = layer_counts(N_KITTI)
+    row("pcn_qkv", "encoder_layer.cu", "encoder_layer.py:272", err,
+        lambda: kenc.pcn_qkv(xk, wk), lambda: kenc.pcn_qkv_plain(xk, wk),
+        2 * cnt["act"] + 3 * cnt["half"] + cnt["w_a"] + 4, cnt["ops_a"], reps=10,
+        bf16_entries_off_by_one=flips)
+
+    # -- attention + MLP + residual on the plain version's h, q, k, v, kscale.
+    # Tolerance atol = rtol = 2e-3, for the p rounding as above (12288 terms).
+    h, qb, kb_, vb, ks = ref
+    out = kenc.attn_mlp_residual(ks, qb, kb_, vb, ck, kbk, h, wk)
+    ref2 = kenc.attn_mlp_residual_plain(ks, qb, kb_, vb, ck, kbk, h, wk)
+    err = float((out - ref2).abs().max())
+    check(torch.allclose(out, ref2, atol=2e-3, rtol=2e-3), f"attn_mlp_residual max err {err}")
+    row("attn_mlp_residual", "encoder_layer.cu", "encoder_layer.py:326", err,
+        lambda: kenc.attn_mlp_residual(ks, qb, kb_, vb, ck, kbk, h, wk),
+        lambda: kenc.attn_mlp_residual_plain(ks, qb, kb_, vb, ck, kbk, h, wk),
+        2 * cnt["act"] + 3 * cnt["half"] + cnt["cache"] + cnt["w_b"] + 4,
+        cnt["ops_b"] + cnt["attn"] + cnt["attn_extra"], tensor_ops=cnt["attn"], reps=10)
+    del lay, xk, wk, ck, kbk, got, ref, ref2, out, h, qb, kb_, vb, ks
+    torch.cuda.empty_cache()
 
     # -- confidence head. Tolerance atol = rtol = 1e-5: f32 dot products of
     # 128 and 32 terms summed in another order than cuBLAS's.
@@ -305,6 +476,156 @@ def seed_checks(torch, out, model, cp, src, tgt, tag: str) -> None:
     check(bool(torch.all(fdiff <= near + 1e-3)), f"{tag}: seed fitness disagrees with the count")
 
 
+RUNNING_MAX_KERNELS = ("compat_cache_int8", "sc_attention_cached", "confidence_head",
+                       "nms_local_max", "seed_knn_exact", "seed_inlier_counts",
+                       "fused_post_refinement")
+
+
+class Recorded:
+    """An Evaluator whose forwards are recorded (transform and labels of every
+    call, the warm-up included), so that run_dataset's results can be held
+    against the dense path."""
+
+    def __init__(self, evaluator):
+        self.ev = evaluator
+        self.calls = []
+        inner = evaluator._forward
+
+        def forward(*args):
+            out = inner(*args)
+            self.calls.append(out)
+            return out
+
+        evaluator._forward = forward
+
+
+def run_cell(torch, pt, kernels, dev, tag, model, ds, expect, trans_atol, golden=None):
+    """Drive ``Evaluator.run_dataset`` over ds with the counts set to 0 just
+    before and read just after; hold every pair against the dense path (and
+    the golden file), print the guard's slack and the aggregate recall.
+    ``expect``: kernel name -> launches per forward. Returns the counts."""
+    import numpy as np
+
+    rec = Recorded(pt.Evaluator(model, fused_attention=True, device=DEVICE))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stats, agg = rec.ev.run_dataset(ds, verbose=False)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    forwards = len(rec.calls)  # the pairs and one warm-up per bucket
+    print(f"{tag}: launches over {forwards} forwards ({len(ds)} pairs + warm-up): "
+          f"{json.dumps(counts)}", flush=True)
+    print(f"{tag}: guard slack of the last probe {rec.ev.last_slack:.3f} nats, flipped "
+          f"{rec.ev.flipped}; registration recall {agg['pair_recall']:.1f}%, RE "
+          f"{agg['re']:.4f} deg, TE {agg['te']:.4f} cm, model_time "
+          f"{agg['model_time'] * 1e3:.3f} ms", flush=True)
+    check(forwards == len(ds) + 1, f"{tag}: {forwards} forwards for {len(ds)} pairs")
+    for name, count in counts.items():
+        want = expect.get(name, 0) * forwards
+        check(count == want, f"{tag}: {name} launched {count} times, expected {want}")
+    check(np.isfinite(stats).all() and stats.shape == (len(ds), 12), f"{tag}: bad stats")
+
+    for i in range(len(ds)):
+        p = ds[i]
+        trans, labels = rec.calls[forwards - len(ds) + i]
+        n = p["corr_pos"].shape[0]
+        cp, src, tgt = (torch.as_tensor(p[k])[None].to(dev)
+                        for k in ("corr_pos", "src_keypts", "tgt_keypts"))
+        check(trans.shape == (1, 4, 4) and bool(torch.isfinite(trans).all()),
+              f"{tag} pair {i}: bad final_trans")
+        dense = rec.ev.model(cp, src, tgt, mask=torch.ones((1, n), dtype=torch.bool, device=dev),
+                             fused=False)
+        terr = float((trans - dense.final_trans).abs().max())
+        agree = float((labels[:, :n] == dense.final_labels).float().mean())
+        print(f"{tag} pair {i}: fused-vs-dense final_trans max err {terr:.3e}, label agreement "
+              f"{agree:.4f}, success {stats[i, 0]:.0f}", flush=True)
+        check(terr <= trans_atol and agree > 0.99, f"{tag} pair {i}: disagrees with dense")
+        if golden is not None:
+            gerr = float(np.abs(trans[0].cpu().numpy() - golden["final_trans"][i]).max())
+            gagree = float(((labels[0, :n].cpu().numpy() > 0.5)
+                            == golden["final_labels"][i]).mean())
+            print(f"{tag} pair {i}: vs JAX golden final_trans max err {gerr:.3e}, label "
+                  f"agreement {gagree:.4f}", flush=True)
+            check(gerr <= 1e-3 and gagree > 0.99, f"{tag} pair {i}: disagrees with JAX golden")
+    return rec, counts
+
+
+def default_configuration(torch, pt, kernels, dev) -> dict:
+    """Phases 8 to 11. Returns the launches of the four kernels of these
+    paths, each from its own path's run."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+
+    tail = {"compat_cache_int8": 1, "confidence_head": 1, "nms_local_max": 1,
+            "seed_knn_exact": 1, "seed_inlier_counts": 1, "fused_post_refinement": 1}
+    launches = {}
+
+    # 8a. Synthetic snapshot, N = 5120: one kernel per layer. Against the
+    # dense path: final_trans atol 1e-3, labels > 0.99 (the JAX suite's
+    # fused-vs-dense bound), and the same against the JAX dense golden file.
+    model = pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    ds = SyntheticPairDataset(num_pairs=PAIRS, num_corr=N, **DEFAULT_DATA)
+    gold = np.load(GOLDEN_DEFAULT)
+    check(int(gold["n"]) == N and int(gold["seed"]) == DEFAULT_DATA["seed"], "wrong golden file")
+    rec, counts = run_cell(torch, pt, kernels, dev, "default N=5120", model, ds,
+                           {**tail, "fused_encoder_layer": 12}, 1e-3, golden=gold)
+    check(not rec.ev.flipped, "the guard flipped on the Synthetic snapshot")
+    launches["fused_encoder_layer"] = counts["fused_encoder_layer"]
+
+    # 8b. SyntheticKITTI snapshot, N = 12288: the pair of kernels per layer.
+    # Coordinates reach ~90 m, so f32 carries ~1e-5 m; the fused and the dense
+    # path refine to the same inlier set: rotation and translation agree to
+    # 5e-3 (metres for the translation column), labels > 0.99.
+    kitti = pt.load_pretrained(SNAPSHOT_KITTI, device=DEVICE)
+    check(kitti.sigma_d == 1.2 and kitti.inlier_threshold == 0.6, "not the KITTI configuration")
+    ds_k = SyntheticPairDataset(num_pairs=PAIRS_KITTI, num_corr=N_KITTI, **DEFAULT_DATA_KITTI,
+                                **KITTI_DATA)
+    rec_k, counts = run_cell(torch, pt, kernels, dev, "default N=12288", kitti, ds_k,
+                             {**tail, "pcn_qkv": 12, "attn_mlp_residual": 12}, 5e-3)
+    check(not rec_k.ev.flipped, "the guard flipped on the SyntheticKITTI snapshot")
+    launches["pcn_qkv"] = counts["pcn_qkv"]
+    launches["attn_mlp_residual"] = counts["attn_mlp_residual"]
+
+    # 9. half precision: the per-op bf16 encoder around the offset attention
+    # kernel, held against the f32 model's dense path. bf16 activations
+    # through twelve layers move the features by ~1e-2, but the refinement
+    # converges to the same inliers: final_trans atol 1e-3, labels > 0.99.
+    half = pt.load_pretrained(SNAPSHOT, device=DEVICE, half_precision=True)
+    one = SyntheticPairDataset(num_pairs=1, num_corr=N, **DEFAULT_DATA)
+    rec_h, counts = run_cell(torch, pt, kernels, dev, "half precision N=5120", half, one,
+                             {**tail, "sc_attention_cached_offset": 12}, 1e-3,
+                             golden={k: gold[k][:1] for k in ("final_trans", "final_labels")})
+    check(not rec_h.ev.flipped, "the guard flipped in half precision")
+    launches["sc_attention_cached_offset"] = counts["sc_attention_cached_offset"]
+
+    # 10. a copy with every key projection scaled by 100: far out of regime,
+    # the guard switches to the running-max kernel before any recorded
+    # forward; its result is the dense path's of the same weights (atol 5e-3,
+    # the JAX suite's bound for this case: logits a hundred times larger also
+    # magnify the int8 cache's quantisation)
+    bad = pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    with torch.no_grad():
+        for i in range(bad.encoder.num_layers):
+            proj = getattr(bad.encoder, f"NonLocal_layer_{i}").projection_k
+            proj.weight.mul_(100.0)
+            proj.bias.mul_(100.0)
+    rec_b, _ = run_cell(torch, pt, kernels, dev, "scaled keys N=5120", bad, one,
+                        {**tail, "sc_attention_cached": 12}, 5e-3)
+    check(rec_b.ev.flipped and rec_b.ev.model.offset_softmax is False,
+          "the guard did not flip on the scaled copy")
+
+    # 11. the default forward's time, as phase 7
+    for tag, m, data, n in (("default", model, ds[0], N), ("default", kitti, ds_k[0], N_KITTI),
+                            ("half_precision", half, ds[0], N)):
+        ms = time_ms(lambda: pt.register(data["corr_pos"], data["src_keypts"],
+                                         data["tgt_keypts"], model=m, device=DEVICE),
+                     reps=10, warmup=2)
+        print(json.dumps({"metric": "fused_forward_ms_per_pair", "config": tag, "n": n,
+                          "value": ms}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -337,9 +658,9 @@ def main() -> int:
         rows = check_kernels(torch, dev)
     print("kernels_vs_plain: ok", flush=True)
 
-    # 4. the main path: load_pretrained + register, fused
-    model = pt.load_pretrained(SNAPSHOT, device=DEVICE)
-    shifted = pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    # 4. the running-max path: load_pretrained + register, fused
+    model = pt.load_pretrained(SNAPSHOT, device=DEVICE, offset_softmax=False)
+    shifted = pt.load_pretrained(SNAPSHOT, device=DEVICE, offset_softmax=False)
     ds = SyntheticPairDataset(num_pairs=PAIRS + 1, num_corr=N, inlier_ratio=0.4, seed=0)
     pairs = [ds[i] for i in range(PAIRS + 1)]
     runs = [(model, p) for p in pairs[:PAIRS]] + [(shifted, pairs[PAIRS])]
@@ -393,9 +714,12 @@ def main() -> int:
         check(terr <= 1e-3 and agree > 0.99, f"pair {i}: disagrees with the JAX golden file")
         check(seed_overlap >= 0.98, f"pair {i}: seeds disagree with the JAX golden file")
 
-    # 6. every kernel ran on the main path
-    missing = [name for name, count in launches.items() if count <= 0]
-    check(not missing, f"kernels not launched on the main path: {missing}")
+    # 6. every kernel of the running-max path ran on it, and no other
+    missing = [name for name in RUNNING_MAX_KERNELS if launches[name] <= 0]
+    check(not missing, f"kernels not launched on the running-max path: {missing}")
+    stray = [name for name, count in launches.items()
+             if count and name not in RUNNING_MAX_KERNELS]
+    check(not stray, f"the running-max path launched {stray}")
 
     # 7. end-to-end time of the fused forward, one pair
     p = pairs[0]
@@ -404,8 +728,11 @@ def main() -> int:
     dense_in = [torch.as_tensor(p[k])[None].to(dev) for k in ("corr_pos", "src_keypts",
                                                                "tgt_keypts")]
     dense_ms = time_ms(lambda: model(*dense_in, fused=False), reps=10, warmup=2)
-    print(json.dumps({"metric": "fused_forward_ms_per_pair", "n": N, "value": fwd_ms,
-                      "dense_forward_ms": dense_ms}), flush=True)
+    print(json.dumps({"metric": "fused_forward_ms_per_pair", "config": "running_max", "n": N,
+                      "value": fwd_ms, "dense_forward_ms": dense_ms}), flush=True)
+
+    # 8-11. the default configuration, half precision, the guard's flip
+    launches.update(default_configuration(torch, pt, kernels, dev))
 
     for row in rows:
         row["launches"] = launches[row["name"]]

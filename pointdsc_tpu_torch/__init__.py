@@ -7,6 +7,7 @@ when CUDA is missing unless the caller asked for ``"cpu"``.
 """
 
 from pointdsc_tpu_torch.api import load_pretrained, register
+from pointdsc_tpu_torch.eval.runner import Evaluator
 from pointdsc_tpu_torch.models.pointdsc import PointDSC, PointDSCOutput
 
-__all__ = ["PointDSC", "PointDSCOutput", "load_pretrained", "register"]
+__all__ = ["Evaluator", "PointDSC", "PointDSCOutput", "load_pretrained", "register"]

@@ -1,4 +1,10 @@
-from pointdsc_tpu_torch.data.pipeline import make_corr_pos
+from pointdsc_tpu_torch.data.pipeline import (
+    bucket_size,
+    collate_batch,
+    make_corr_pos,
+    pad_to_bucket,
+)
 from pointdsc_tpu_torch.data.synthetic import SyntheticPairDataset
 
-__all__ = ["SyntheticPairDataset", "make_corr_pos"]
+__all__ = ["SyntheticPairDataset", "bucket_size", "collate_batch", "make_corr_pos",
+           "pad_to_bucket"]

@@ -7,11 +7,17 @@ launch, never at import (kernels/_build.py).
 """
 
 from pointdsc_tpu_torch.kernels.conf_mlp import confidence_head
+from pointdsc_tpu_torch.kernels.encoder_layer import (
+    attn_mlp_residual,
+    fused_encoder_layer,
+    pcn_qkv,
+)
 from pointdsc_tpu_torch.kernels.nms import nms_local_max
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
     build_compat_cache_int8,
     fused_sc_attention_cached,
+    sc_attention_cached_offset,
 )
 from pointdsc_tpu_torch.kernels.scoring import seed_inlier_counts
 from pointdsc_tpu_torch.kernels.seed_knn import seed_knn_exact
@@ -19,6 +25,10 @@ from pointdsc_tpu_torch.kernels.seed_knn import seed_knn_exact
 WRAPPERS = {
     "compat_cache_int8": build_compat_cache_int8,
     "sc_attention_cached": fused_sc_attention_cached,
+    "sc_attention_cached_offset": sc_attention_cached_offset,
+    "fused_encoder_layer": fused_encoder_layer,
+    "pcn_qkv": pcn_qkv,
+    "attn_mlp_residual": attn_mlp_residual,
     "confidence_head": confidence_head,
     "nms_local_max": nms_local_max,
     "seed_knn_exact": seed_knn_exact,

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into
 ``pointdsc_tpu_torch/_build/`` (git-ignored), and loaded with ``ctypes``.
-The file name carries a hash of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded. ``build_all`` starts one
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded. ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
@@ -28,7 +29,8 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("compat_cache", "sc_attention", "conf_mlp", "nms", "seed_knn", "scoring", "refine")
+SOURCES = ("compat_cache", "sc_attention", "encoder_layer", "conf_mlp", "nms", "seed_knn",
+           "scoring", "refine")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -38,7 +40,11 @@ NVCC_FLAGS = (
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "compat_cache": {"compat_cache_int8": [P, P, I, I, F, P]},
-    "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P]},
+    "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P],
+                     "sc_attention_cached_offset": [P, P, P, P, P, P, P, I, I, F, P]},
+    "encoder_layer": {"fused_encoder_layer": [P] * 19 + [I, I, F, F, P],
+                      "pcn_qkv": [P] * 10 + [I, I, F, P],
+                      "attn_mlp_residual": [P] * 14 + [I, I, F, P]},
     "conf_mlp": {"confidence_head": [P, P, P, P, P, P, P, P, I, P]},
     "nms": {"nms_local_max": [P, P, I, I, F, P]},
     "seed_knn": {"seed_knn_exact": [P, P, P, P, I, I, I, I, P]},
@@ -57,9 +63,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str):

@@ -1,5 +1,6 @@
-// Running-max (flash) attention over the int8 spatial-consistency cache,
-// CUDA C++ for sm_90a.
+// Attention over the int8 spatial-consistency cache, CUDA C++ for sm_90a:
+// the running-max (flash) kernel, and at the end of the file the
+// offset-softmax kernel.
 //
 // Replaces the TPU kernel pointdsc_tpu/kernels/sc_attention.py:417
 // (_sc_attention_cached_kernel, pallas_call at :590), the
@@ -28,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "offset_attention.cuh"
 
 namespace {
 
@@ -217,6 +220,73 @@ extern "C" int sc_attention_cached(const void* q, const void* k, const void* v,
   sc_attention_cached_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int8_t*>(compat), static_cast<const float*>(bias),
+      static_cast<float*>(out), n, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Offset-softmax attention over the same cache.
+//
+// Replaces the TPU kernel pointdsc_tpu/kernels/sc_attention.py:472
+// (_sc_attention_cached_offset_kernel, pallas_call at :582), the
+// fused_sc_attention_cached(offset_softmax=True) path:
+//
+//   p_ij = exp(max(compat_ij / 127 * q_i.k_j / sqrt(C) + bias_j - o_i, -80)),
+//   p_ij = 0 where bias_j < 0,   o_i = ||q_i|| * kscale,
+//   out_i = sum_j p_ij v_j / (sum_j p_ij + 1e-30)
+//
+// kscale = max_j ||k_j|| / sqrt(C) is one f32 per pair in device memory,
+// reduced by the wrapper and read here by pointer, so no host read sits
+// between the layers. q, k, v are bf16 (the half-precision encoder's own
+// type; the wrapper rounds f32 inputs, as the JAX wrapper does off the CPU),
+// and p is rounded to bf16 before the p v product, as the TPU kernel rounds
+// it to its v's type. The loop is offset_attention.cuh's; the bound is the
+// running-max kernel's (the same two N^2 C products and the same cache
+// stream), less the max pass and the rescale.
+
+namespace {
+
+__global__ void __launch_bounds__(oa::THREADS, 2)
+sc_attention_offset_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const int8_t* __restrict__ compat, const float* __restrict__ bias,
+                           const float* __restrict__ kscale, float* __restrict__ out, int n,
+                           float qk_scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * oa::BQ;
+  const size_t base = static_cast<size_t>(b) * n;
+  float acc[4][4];
+  oa::attention_rows(q + base * oa::C, k + base * oa::C, v + base * oa::C, compat + base * n,
+                     bias + base, kscale[b], n, q0, qk_scale, smem, acc);
+  const int ry = threadIdx.x >> 5, cx = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * ry + r;
+    if (q0 + row >= n) continue;
+    const float l = smem[oa::OFF_L + row] + 1e-30f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(base + q0 + row) * oa::C + cx + 32 * j] = acc[r][j] / l;
+  }
+}
+
+}  // namespace
+
+extern "C" int sc_attention_cached_offset(const void* q, const void* k, const void* v,
+                                          const void* compat, const void* bias,
+                                          const void* kscale, void* out, int batch, int n,
+                                          float qk_scale, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sc_attention_offset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(oa::SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + oa::BQ - 1) / oa::BQ, batch);
+  sc_attention_offset_kernel<<<grid, oa::THREADS, oa::SMEM_BYTES,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(compat),
+      static_cast<const float*>(bias), static_cast<const float*>(kscale),
       static_cast<float*>(out), n, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,14 @@ of ``pointdsc_tpu/models/blocks.py:31-80,148-166,254-386``).
 
 Submodule names follow the flax parameter tree (``PointCN_layer_{i}``,
 ``projection_q``, ``fc_message_bn0``, ...) so that a flax checkpoint maps
-onto the state dict key by key (compat/weights.py).
+onto the state dict key by key (compat/weights.py). The whole-layer hook
+(``fused_layer_fn``) reads the same parameters raw, so the state dict is the
+same whichever path runs.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's ``half_precision``:
+each Dense casts its input, weight and bias to bf16 and returns bf16; a
+BatchNorm computes its per-channel affine in f32 and applies it in its
+input's dtype, so the activation chain stays bf16 from the first PointCN on.
 """
 
 from __future__ import annotations
@@ -33,7 +40,20 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.weight / torch.sqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * a
-        return x * a + b
+        return x * a.to(x.dtype) + b.to(x.dtype)
+
+    def raw(self):
+        """(scale, bias, mean, var), the order of the JAX holder."""
+        return self.weight, self.bias, self.running_mean, self.running_var
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """``layer(x)``; with ``compute_dtype`` the product and the bias add run
+    and round in that type (two roundings, as flax's Dense with a dtype)."""
+    if compute_dtype is None:
+        return layer(x)
+    return x.to(compute_dtype) @ layer.weight.to(compute_dtype).t() \
+        + layer.bias.to(compute_dtype)
 
 
 class PointCNLayer(nn.Module):
@@ -44,20 +64,26 @@ class PointCNLayer(nn.Module):
         self.Dense_0 = nn.Linear(in_features, num_channels)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(num_channels)
 
-    def forward(self, x):
-        return F.relu(self.MaskedBatchNorm_0(self.Dense_0(x)))
+    def forward(self, x, compute_dtype=None):
+        return F.relu(self.MaskedBatchNorm_0(dense(self.Dense_0, x, compute_dtype)))
+
+    def raw(self):
+        """(w1, b1, bn1) for the whole-layer hook."""
+        return self.Dense_0.weight, self.Dense_0.bias, self.MaskedBatchNorm_0.raw()
 
 
 def dense_sc_attention(q, k, v, compat, mask=None):
     """softmax(compat * q k^T / sqrt(C) + key mask) v over a materialised
     [B, N, N] compat matrix (the reference's attention, single head)."""
     c = q.shape[-1]
-    logits = torch.einsum("bnc,bmc->bnm", q, k) / (c ** 0.5)
+    # bf16 streams (half precision): products of bf16 values summed in f32,
+    # the weights rounded to v's type before the second product, as in JAX
+    logits = torch.einsum("bnc,bmc->bnm", q.float(), k.float()) / (c ** 0.5)
     scores = compat * logits
     if mask is not None:
         scores = torch.where(mask[:, None, :], scores, torch.full_like(scores, _NEG_INF))
-    weight = torch.softmax(scores, dim=-1)
-    return torch.einsum("bnm,bmc->bnc", weight, v)
+    weight = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    return torch.einsum("bnm,bmc->bnc", weight, v.float())
 
 
 class NonLocalBlock(nn.Module):
@@ -79,23 +105,40 @@ class NonLocalBlock(nn.Module):
         self.fc_message_bn1 = MaskedBatchNorm(c // 2)
         self.fc_message_2 = nn.Linear(c // 2, c)
 
-    def forward(self, feat, compat, mask=None, attention_fn: Callable | None = None):
-        q = self.projection_q(feat)
-        k = self.projection_k(feat)
-        v = self.projection_v(feat)
+    def forward(self, feat, compat, mask=None, attention_fn: Callable | None = None,
+                compute_dtype=None):
+        cdt = compute_dtype
+        q = dense(self.projection_q, feat, cdt)
+        k = dense(self.projection_k, feat, cdt)
+        v = dense(self.projection_v, feat, cdt)
         if attention_fn is not None:
+            # the kernels take f32 or bf16 streams and return f32
             message = attention_fn(q, k, v, mask)
         else:
             message = dense_sc_attention(q, k, v, compat, mask)
-        message = F.relu(self.fc_message_bn0(self.fc_message_0(message)))
-        message = F.relu(self.fc_message_bn1(self.fc_message_1(message)))
-        message = self.fc_message_2(message)
-        return feat + message
+        message = F.relu(self.fc_message_bn0(dense(self.fc_message_0, message, cdt)))
+        message = F.relu(self.fc_message_bn1(dense(self.fc_message_1, message, cdt)))
+        message = dense(self.fc_message_2, message, cdt)
+        return feat + message.to(feat.dtype)
+
+    def raw(self):
+        """The 14 entries of the JAX holder ``_NonLocalParams``, Dense
+        weights as PyTorch keeps them ([out, in])."""
+        return (self.projection_q.weight, self.projection_q.bias,
+                self.projection_k.weight, self.projection_k.bias,
+                self.projection_v.weight, self.projection_v.bias,
+                self.fc_message_0.weight, self.fc_message_0.bias, self.fc_message_bn0.raw(),
+                self.fc_message_1.weight, self.fc_message_1.bias, self.fc_message_bn1.raw(),
+                self.fc_message_2.weight, self.fc_message_2.bias)
 
 
 class NonLocalNet(nn.Module):
     """Input lift + num_layers x (PointCN -> NonLocal); the compat matrix (or
-    the attention_fn closing over its int8 cache) is shared by all layers."""
+    the attention_fn closing over its int8 cache) is shared by all layers.
+
+    ``fused_layer_fn(x, pcn_params, nl_params)`` runs each pair as the
+    whole-layer kernels (kernels/encoder_layer.py) on the layer's raw
+    parameters; nothing between the layers reads a value back to the host."""
 
     def __init__(self, in_dim: int = 6, num_layers: int = 12, num_channels: int = 128):
         super().__init__()
@@ -105,10 +148,21 @@ class NonLocalNet(nn.Module):
             setattr(self, f"PointCN_layer_{i}", PointCNLayer(num_channels, num_channels))
             setattr(self, f"NonLocal_layer_{i}", NonLocalBlock(num_channels))
 
-    def forward(self, corr_feat, compat, mask=None, attention_fn=None):
+    def layer_params(self, i: int):
+        """(pcn_params, nl_params) of layer i, raw."""
+        return (getattr(self, f"PointCN_layer_{i}").raw(),
+                getattr(self, f"NonLocal_layer_{i}").raw())
+
+    def forward(self, corr_feat, compat, mask=None, attention_fn=None, fused_layer_fn=None,
+                compute_dtype=None):
         x = self.layer0(corr_feat)
+        if fused_layer_fn is not None:
+            for i in range(self.num_layers):
+                x = fused_layer_fn(x, *self.layer_params(i))
+            return x
         for i in range(self.num_layers):
-            x = getattr(self, f"PointCN_layer_{i}")(x)
+            x = getattr(self, f"PointCN_layer_{i}")(x, compute_dtype)
             x = getattr(self, f"NonLocal_layer_{i}")(x, compat, mask=mask,
-                                                     attention_fn=attention_fn)
+                                                     attention_fn=attention_fn,
+                                                     compute_dtype=compute_dtype)
         return x

@@ -6,11 +6,21 @@ Two paths give the same result within the JAX suite's fused-vs-dense bound:
 * ``fused=False`` (dense): the [B, N, N] compat matrix and the src distance
   matrix are materialised; attention, NMS and hypothesis scoring are plain
   PyTorch. This is the oracle of the fused path.
-* ``fused=True``: the JAX ``fused_attention=True, offset_softmax=False``
-  configuration. The compat matrix exists only as the int8 cache; seven
-  CUDA kernels (cache build, running-max attention, confidence head, NMS
-  flags, seed k-NN, scoring, post-refinement) run on a CUDA input, their
-  plain versions on a CPU input.
+* ``fused=True`` (JAX ``fused_attention=True``): the compat matrix exists
+  only as the int8 cache, and the cache build, confidence head, NMS flags,
+  seed k-NN, scoring and post-refinement are CUDA kernels on a CUDA input
+  (their plain versions on a CPU input). The encoder takes one of three
+  forms, chosen by the constructor's flags as in JAX
+  (``pointdsc_tpu/models/pointdsc.py:126-180``):
+
+  - ``offset_softmax=True, half_precision=False`` (the default): each
+    encoder layer is one whole-layer kernel up to N = 6144 and a pair of
+    kernels above it (kernels/encoder_layer.py), BatchNorms folded;
+  - ``offset_softmax=True, half_precision=True``: the encoder runs op by op
+    with bf16 Dense products and the offset attention kernel;
+  - ``offset_softmax=False``: op by op in f32 with the running-max attention
+    kernel, exact for any weights. ``models/regime.py`` selects it for a
+    checkpoint outside the offset softmax's validity regime.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch.nn as nn
 
 from pointdsc_tpu_torch._device import full_f32_matmul, resolve_device
 from pointdsc_tpu_torch.kernels.conf_mlp import confidence_head, confidence_head_plain
+from pointdsc_tpu_torch.kernels.encoder_layer import make_fused_layer_fn
 from pointdsc_tpu_torch.kernels.nms import pick_seeds_nms_prefiltered
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
@@ -57,6 +68,7 @@ class PointDSC(nn.Module):
                  num_iterations: int = 10, ratio: float = 0.1,
                  inlier_threshold: float = 0.10, sigma_d: float = 0.10, k: int = 40,
                  nms_radius: float = 0.10, refine_iters: int = 20,
+                 offset_softmax: bool = True, half_precision: bool = False,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -68,6 +80,11 @@ class PointDSC(nn.Module):
         self.k = k
         self.nms_radius = nms_radius
         self.refine_iters = refine_iters
+        self.offset_softmax = offset_softmax
+        self.half_precision = half_precision
+        # folded BatchNorms of the whole-layer kernels, reused across forwards
+        # (kernels/encoder_layer.py::folded_weights says what invalidates it)
+        self._fold_cache: dict = {}
         self.sigma = nn.Parameter(torch.ones(1))
         self.encoder = NonLocalNet(in_dim, num_layers, num_channels)
         self.classification_0 = nn.Linear(num_channels, 32)
@@ -104,23 +121,36 @@ class PointDSC(nn.Module):
             mask = torch.ones((bs, num_corr), dtype=torch.bool, device=corr_pos.device)
 
         # ---- Step 1: spatial consistency, shared by all attention layers
+        attention_fn, fused_layer_fn = None, None
         if fused:
             cache = build_compat_cache_int8(src_keypts, tgt_keypts, self.sigma_d, mask=mask_arg)
+            offset = self.offset_softmax
 
             def attention_fn(q, k, v, _mask):
                 return fused_sc_attention_cached(q.contiguous(), k.contiguous(),
                                                  v.contiguous(), cache, src_keypts,
-                                                 tgt_keypts, mask=mask_arg)
+                                                 tgt_keypts, mask=mask_arg,
+                                                 offset_softmax=offset)
 
+            # the whole-layer kernels implement only the offset softmax in
+            # f32 activations; the other configurations keep the encoder op
+            # by op around the attention kernel
+            if offset and not self.half_precision:
+                fused_layer_fn = make_fused_layer_fn(cache, mask=mask_arg,
+                                                     fold_cache=self._fold_cache)
             compat, src_dist = None, None
         else:
-            attention_fn = None
             compat, src_dist = spatial_consistency(src_keypts, tgt_keypts, self.sigma_d,
                                                    mask=mask)
 
-        corr_features = self.encoder(corr_pos, compat, mask=mask, attention_fn=attention_fn)
+        corr_features = self.encoder(
+            corr_pos, compat, mask=mask, attention_fn=attention_fn,
+            fused_layer_fn=fused_layer_fn,
+            compute_dtype=torch.bfloat16 if self.half_precision else None)
         feat_sq = torch.sum(corr_features * corr_features, dim=-1, keepdim=True)
         normed_features = corr_features / torch.sqrt(feat_sq + 1e-12)
+        # a half-precision encoder hands on bf16; everything after it is f32
+        corr_features, normed_features = corr_features.float(), normed_features.float()
 
         # ---- Step 2: confidence head + seed NMS
         head = [t for layer in (self.classification_0, self.classification_1,

@@ -1,8 +1,13 @@
 """Where the time of one fused eval forward goes, on a CUDA card.
 
-    python -m pointdsc_tpu_torch.tools.profile_forward [--n 5120] [--out FILE]
+    python -m pointdsc_tpu_torch.tools.profile_forward [--config default|running_max]
+        [--snapshot synthetic|kitti] [--n N] [--out FILE]
 
-Loads the Synthetic snapshot, runs one synthetic pair (seed 0, inlier ratio
+Loads a snapshot (``synthetic``: PointDSC_Synthetic_release, N = 5120,
+unit-scale pairs; ``kitti``: PointDSC_SyntheticKITTI_release, N = 12288, the
+50 m pairs it was trained on) in one configuration (``default``: the offset
+softmax's whole-layer kernels; ``running_max``: the per-op encoder around the
+running-max attention kernel), runs one synthetic pair (seed 0, inlier ratio
 0.4) through ``register`` and reports, as one JSON object (printed, and
 written to ``--out``):
 
@@ -36,7 +41,12 @@ from pointdsc_tpu_torch.data import SyntheticPairDataset
 from pointdsc_tpu_torch.models import pointdsc as model_mod
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SNAPSHOT = os.path.join(ROOT, "snapshot", "PointDSC_Synthetic_release")
+# name -> (snapshot directory, its N, the synthetic data it was trained on)
+SNAPSHOTS = {
+    "synthetic": ("PointDSC_Synthetic_release", 5120, {}),
+    "kitti": ("PointDSC_SyntheticKITTI_release", 12288,
+              dict(scene_scale=50.0, noise=0.05, inlier_threshold=0.6)),
+}
 
 
 def _wall_ms(fn, reps, warmup=2):
@@ -129,13 +139,18 @@ def _device_profile(run, forwards=3):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=5120)
+    ap.add_argument("--config", choices=("default", "running_max"), default="default")
+    ap.add_argument("--snapshot", choices=sorted(SNAPSHOTS), default="synthetic")
+    ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA card")
-    model = pt.load_pretrained(SNAPSHOT, device="cuda")
-    ex = SyntheticPairDataset(num_pairs=1, num_corr=args.n, inlier_ratio=0.4, seed=0)[0]
+    name, n, ds_kw = SNAPSHOTS[args.snapshot]
+    n = args.n or n
+    model = pt.load_pretrained(os.path.join(ROOT, "snapshot", name), device="cuda",
+                               offset_softmax=args.config == "default")
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=0, **ds_kw)[0]
 
     def run():
         return pt.register(ex["corr_pos"], ex["src_keypts"], ex["tgt_keypts"], model=model,
@@ -145,7 +160,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     result = {
-        "card": card, "n": args.n,
+        "card": card, "n": n, "config": args.config, "snapshot": name,
         "forward_ms": _wall_ms(run, reps=10),
         "stages_ms": _stage_times(model, run),
         "device": _device_profile(run),

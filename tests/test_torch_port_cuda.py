@@ -16,6 +16,7 @@ import torch
 from pointdsc_tpu_torch import kernels, load_pretrained
 from pointdsc_tpu_torch.data import SyntheticPairDataset
 from pointdsc_tpu_torch.kernels import conf_mlp as kconf
+from pointdsc_tpu_torch.kernels import encoder_layer as kenc
 from pointdsc_tpu_torch.kernels import nms as knms
 from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
@@ -68,9 +69,144 @@ def test_sc_attention(dev, n):
     q, k, v = (torch.randn((B, n, 128), generator=gen).to(dev) for _ in range(3))
     geom = katt.pack_geometry(src, tgt, mask)
     cache = katt.compat_cache_plain(geom, katt.cache_coef(0.1))
-    out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask)
+    out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                         offset_softmax=False)
     ref = katt.sc_attention_cached_plain(q, k, v, cache, geom[:, 8].contiguous())
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("n", [1000, 2048])
+def test_sc_attention_offset(dev, n, half):
+    """The offset kernel on the same cache. It takes bf16 q, k, v and rounds p
+    to bf16 before p v; a p whose f32 value sits on a rounding boundary may
+    round either way in the two versions (the exponent's argument differs in
+    its last bit), each such flip moving one of ~n terms by 2^-9 relative:
+    atol = rtol = 2e-3. On the card the wrapper rounds f32 inputs to bf16, so
+    they are held against the plain version of the rounded inputs."""
+    src, tgt, mask, _ = pair(n, dev)
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn((B, n, 128), generator=gen).to(dev) for _ in range(3))
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    if half:
+        q, k, v = qh, kh, vh
+    geom = katt.pack_geometry(src, tgt, mask)
+    cache = katt.compat_cache_plain(geom, katt.cache_coef(0.1))
+    out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask)
+    ref = katt.sc_attention_cached_offset_plain(qh, kh, vh, cache, geom[:, 8].contiguous())
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+    # padded keys carry exactly zero weight: garbage in their v rows changes nothing
+    v2 = v.clone()
+    v2[1, n - n // 10:] = 1e6
+    out2 = katt.fused_sc_attention_cached(q, k, v2, cache, src, tgt, mask=mask)
+    assert torch.equal(out2, out)
+
+
+def layer_case(n, dev, masked, seed=3):
+    """x, cache, kbias and folded weights of one layer at C = 128, B = 2. The
+    q and k projections are scaled so that the logits have a standard
+    deviation of ~3 (a sharp softmax, offsets near 40 nats: in regime)."""
+    src, tgt, mask, _ = pair(n, dev)
+    gen = torch.Generator().manual_seed(seed)
+    c = 128
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def bn(ch):
+        return (1.0 + rnd(ch, scale=0.1), rnd(ch, scale=0.1), rnd(ch, scale=0.1),
+                1.0 + rnd(ch, scale=0.1).abs())
+
+    s, qk = c ** -0.5, (3.0 / 64.0) ** 0.5
+    pcn = (rnd(c, c, scale=s), rnd(c, scale=0.1), bn(c))
+    nl = (rnd(c, c, scale=qk), rnd(c, scale=0.1), rnd(c, c, scale=qk), rnd(c, scale=0.1),
+          rnd(c, c, scale=s), rnd(c, scale=0.1), rnd(c // 2, c, scale=s), rnd(c // 2, scale=0.1),
+          bn(c // 2), rnd(c // 2, c // 2, scale=s), rnd(c // 2, scale=0.1), bn(c // 2),
+          rnd(c, c // 2, scale=s), rnd(c, scale=0.1))
+    weights = kenc.fold_layer(pcn, nl)
+    x = rnd(B, n, c)
+    cache = katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
+    kbias = katt.key_bias(mask, B, n, dev) if masked else None
+    return x, cache, kbias, weights
+
+
+def assert_bf16_equal_but_boundaries(got, want, max_share=1e-3):
+    """bf16 arrays equal bit for bit except where the f32 pre-image sat on a
+    rounding boundary (the two versions sum 128 products in another order):
+    those differ by one bf16 step."""
+    diff = (got.float() - want.float()).abs()
+    step = want.float().abs().clamp_min(1e-30) * 2.0 ** -7
+    assert bool((diff <= step).all())
+    assert float((diff > 0).float().mean()) <= max_share
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_pcn_qkv(dev, n):
+    """h atol = rtol = 1e-5 (f32 dot products of 128 terms in another order);
+    q, k, v equal in bf16 except at rounding boundaries (<= 0.1% of entries,
+    by one step); kscale rtol 1e-5."""
+    x, _, _, weights = layer_case(n, dev, False)
+    h, q, k, v, kscale = kenc.pcn_qkv(x, weights)
+    hp, qp, kp, vp, ksp = kenc.pcn_qkv_plain(x, weights)
+    torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
+    for got, want in ((q, qp), (k, kp), (v, vp)):
+        assert_bf16_equal_but_boundaries(got, want)
+    torch.testing.assert_close(kscale, ksp, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [512, 1024])
+def test_attn_mlp_residual(dev, n, masked):
+    """On the plain version's own h, q, k, v, kscale: atol = rtol = 2e-3 (p
+    rounded to bf16 may round either way at a boundary, see
+    test_sc_attention_offset; the MLP is f32)."""
+    x, cache, kbias, weights = layer_case(n, dev, masked)
+    h, q, k, v, kscale = kenc.pcn_qkv_plain(x, weights)
+    out = kenc.attn_mlp_residual(kscale, q, k, v, cache, kbias, h, weights)
+    ref = kenc.attn_mlp_residual_plain(kscale, q, k, v, cache, kbias, h, weights)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [512, 1024])
+def test_fused_encoder_layer(dev, n, masked):
+    """The one-launch kernel against its plain version and against the pair of
+    kernels (atol = rtol = 2e-3: a q, k or v that rounds the other way in
+    bf16 moves a logit by ~2^-9 relative), twice, so that the zeroing of
+    kscale before each launch is exercised."""
+    x, cache, kbias, weights = layer_case(n, dev, masked)
+    ref = kenc.fused_layer_plain(x, cache, kbias, weights)
+    for _ in range(2):
+        out = kenc.fused_encoder_layer(x, cache, kbias, weights)
+        torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+    h, q, k, v, kscale = kenc.pcn_qkv(x, weights)
+    pair_out = kenc.attn_mlp_residual(kscale, q, k, v, cache, kbias, h, weights)
+    torch.testing.assert_close(out, pair_out, atol=1e-5, rtol=1e-5)
+
+
+def test_new_wrappers_refuse(dev):
+    """Wrong dtype, C != 128, an N the encoder-layer kernels do not take."""
+    x, cache, kbias, weights = layer_case(512, dev, True)
+    with pytest.raises(ValueError):
+        kenc.fused_encoder_layer(x.double(), cache, kbias, weights)
+    with pytest.raises(ValueError):
+        kenc.fused_encoder_layer(x[:, :500].contiguous(), cache[:, :500, :500].contiguous(),
+                                 kbias[:, :500].contiguous(), weights)
+    with pytest.raises(ValueError):
+        kenc.pcn_qkv(x[:, :500].contiguous(), weights)
+    with pytest.raises(ValueError):
+        kenc.pcn_qkv(x[..., :64].contiguous(), weights)
+    h, q, k, v, kscale = kenc.pcn_qkv(x, weights)
+    with pytest.raises(ValueError):
+        kenc.attn_mlp_residual(kscale, q.float(), k, v, cache, kbias, h, weights)
+    with pytest.raises(ValueError):
+        kenc.attn_mlp_residual(kscale, q, k, v, cache.float(), kbias, h, weights)
+    src, tgt, mask, _ = pair(512, dev)
+    q64 = torch.randn((B, 512, 64), device=dev)
+    with pytest.raises(ValueError):
+        katt.fused_sc_attention_cached(q64, q64, q64, cache, src, tgt, mask=mask)
+    with pytest.raises(ValueError):
+        katt.fused_sc_attention_cached(x.half(), x.half(), x.half(), cache, src, tgt, mask=mask)
 
 
 @pytest.mark.parametrize("n", [1000, 2048])
@@ -175,7 +311,12 @@ def test_wrappers_launch_and_check(dev):
     kernels.reset_launches()
     cache = katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
     q = torch.randn((B, 512, 128), device=dev)
-    katt.fused_sc_attention_cached(q, q, q, cache, src, tgt, mask=mask)
+    katt.fused_sc_attention_cached(q, q, q, cache, src, tgt, mask=mask, offset_softmax=False)
+    katt.fused_sc_attention_cached(q, q, q, cache, src, tgt, mask=mask, offset_softmax=True)
+    x, _, kbias, weights = layer_case(512, dev, True)
+    kenc.fused_encoder_layer(x, cache, kbias, weights)
+    h, qb, kb, vb, kscale = kenc.pcn_qkv(x, weights)
+    kenc.attn_mlp_residual(kscale, qb, kb, vb, cache, kbias, h, weights)
     w = [torch.zeros(shape, device=dev) for shape in ((32, 128), (32,), (32, 32), (32,),
                                                        (1, 32), (1,))]
     kconf.confidence_head(q, *w)
@@ -185,10 +326,13 @@ def test_wrappers_launch_and_check(dev):
     kscore.seed_inlier_counts(gt[:, None].contiguous(), src, tgt, 0.1, mask=mask)
     kref.fused_post_refinement(gt, src, tgt, mask, 0.1, 20)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {name: 1 for name in kernels.WRAPPERS}
+    counts = kernels.launch_counts()
+    assert counts.pop("compat_cache_int8") == 2  # this test's and layer_case's
+    assert counts == {name: 1 for name in counts}
     q64 = torch.randn((B, 512, 64), device=dev)
     with pytest.raises(ValueError):
-        katt.fused_sc_attention_cached(q64, q64, q64, cache, src, tgt, mask=mask)
+        katt.fused_sc_attention_cached(q64, q64, q64, cache, src, tgt, mask=mask,
+                                       offset_softmax=False)
 
 
 def test_forward_on_card_matches_cpu(dev):

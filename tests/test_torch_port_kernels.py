@@ -72,7 +72,8 @@ def test_sc_attention_cached(rng, n, masked):
     (qj, qt), (kj, kt), (vj, vt) = (both(rng.normal(size=(1, n, 128))) for _ in range(3))
     ref = j_att.fused_sc_attention_cached(qj, kj, vj, cj, sj, tj, mask=mj,
                                           offset_softmax=False)
-    out = t_att.fused_sc_attention_cached(qt, kt, vt, ct, st, tt, mask=mt)
+    out = t_att.fused_sc_attention_cached(qt, kt, vt, ct, st, tt, mask=mt,
+                                          offset_softmax=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
@@ -200,7 +201,8 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     st, tt = torch.from_numpy(src.astype(np.float32)), torch.from_numpy(tgt.astype(np.float32))
     cache = t_att.build_compat_cache_int8(st, tt, 0.1)
     q = torch.randn(1, 256, 128)
-    t_att.fused_sc_attention_cached(q, q, q, cache, st, tt)
+    t_att.fused_sc_attention_cached(q, q, q, cache, st, tt, offset_softmax=False)
+    t_att.fused_sc_attention_cached(q, q, q, cache, st, tt, offset_softmax=True)
     t_nms.nms_local_max(st, torch.randn(1, 256), 0.1)
     t_score.seed_inlier_counts(torch.eye(4).expand(1, 8, 4, 4).contiguous(), st, tt, 0.1)
     head = [torch.zeros(shape) for shape in ((32, 128), (32,), (32, 32), (32,), (1, 32), (1,))]
@@ -208,7 +210,7 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     t_knn.seed_knn_exact(q, torch.arange(8)[None], 4)
     t_ref.fused_post_refinement(torch.eye(4)[None], st, tt, torch.ones(1, 256, dtype=torch.bool),
                                 0.1, 3)
-    assert len(kernels.WRAPPERS) == 7
+    assert len(kernels.WRAPPERS) == 11
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 
 

@@ -5,10 +5,13 @@ kernels' plain versions on the CPU) against JAX's
 ``fused_attention=True, offset_softmax=False`` path; plus the golden file
 that the card's run is held to.
 
-Run as a script, this file rewrites the golden file from the JAX package's
-dense path (~1 min on the CPU):
+Run as a script, this file rewrites a golden file from the JAX package's
+dense path (~1 min on the CPU): the one of seed 0, or with
+``--seed 1`` the one of the pairs on which the snapshot stays inside the
+offset softmax's regime, which the card's default-configuration run is held
+to:
 
-    python -m tests.test_torch_port_model
+    python -m tests.test_torch_port_model [--seed 1]
 """
 
 import os
@@ -51,7 +54,7 @@ def models():
     (cp, src, tgt), _ = inputs(False)
     variables = load_model_weights(jm, os.path.join(SNAP, "models", "model_best.pkl"),
                                    (jnp.asarray(cp), jnp.asarray(src), jnp.asarray(tgt)))
-    tm = PointDSC(device="cpu")
+    tm = PointDSC(device="cpu", offset_softmax=False)
     tm.load_state_dict(from_flax_variables(jax.tree_util.tree_map(np.asarray, dict(variables))),
                        strict=True)
     return jm, variables, tm
@@ -170,4 +173,9 @@ def write_golden(path=GOLDEN, pairs=3, n=5120, seed=0, inlier_ratio=0.4):
 
 
 if __name__ == "__main__":
-    write_golden()
+    import sys
+
+    if sys.argv[1:] == ["--seed", "1"]:
+        write_golden(path=GOLDEN.replace(".npz", "_seed1.npz"), seed=1)
+    else:
+        write_golden()

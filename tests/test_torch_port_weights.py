@@ -146,8 +146,13 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import pointdsc_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, 'pointdsc_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'pointdsc_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('eval.runner', 'eval.protocol', 'eval.metrics', 'utils.timer',\n"
+        "             'models.regime', 'kernels.encoder_layer', 'tools.regime_scan',\n"
+        "             'tools.profile_forward'):\n"
+        "    assert 'pointdsc_tpu_torch.' + name in names, name\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('pointdsc_tpu', 'jax', 'jaxlib', 'flax'))\n"
@@ -168,7 +173,11 @@ def test_port_sources_name_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "pointdsc_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    assert len(files) > 30
+    assert len(files) > 40
+    rel = {os.path.relpath(f, os.path.join(ROOT, "pointdsc_tpu_torch")) for f in files}
+    for name in ("eval/runner.py", "eval/protocol.py", "eval/metrics.py", "utils/timer.py",
+                 "models/regime.py", "kernels/encoder_layer.py", "tools/regime_scan.py"):
+        assert name in rel, name
     bad = []
     for path in files:
         with open(path) as f:
