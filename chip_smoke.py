@@ -39,6 +39,30 @@ Phases, in order (any failure raises and the exit code is not 0):
  10. one pair through a copy whose key projections are scaled by 100: the
      guard must switch it to the running-max kernel;
  11. time the default forward at both sizes as in 7.
+Then training (``train/trainer.py``), at the reference training shape: 12
+layers, C = 128, k = 40, bs 16, 1000 correspondences padded to 1024:
+ 12. hold the five training kernels' public entries (attention forward with
+     the row LSE, backward dQ, backward dK and dV, SM-loss sums, SM-loss
+     gradients) and the eval attention without a cache against their plain
+     versions at bs 16 / N = 1024 with 24 padded points, the attention trio
+     also at one sample of N = 12288; time them;
+ 13. the eval forward with ``fused_cache_compat=False`` (the forward kernel of
+     the trainable attention without the LSE store) against the dense path;
+ 14. one train step, fused against dense, from the same weights and batch:
+     loss terms and every parameter's gradient, held to a tolerance at depth
+     2 (full width) and printed at depth 12, where the train-mode forward is
+     too ill-conditioned for two exact implementations to stay together;
+ 15. the ``Trainer`` on the synthetic loader, fused: two epochs of 12 steps
+     (the same batches) through ``train_epoch``, ``evaluate`` and
+     ``save_checkpoint`` with the counts set to 0 before and read after; the
+     second epoch's mean loss must
+     be finite and below the first's, every step's gradients finite;
+ 16. ms per step (median, host clock closed by a synchronise), peak memory
+     and launches per step, fused and dense;
+ 17. two fused steps in the KITTI regime (N = 12288, bs 2, sigma_d 1.2) with
+     their peak memory; the dense step is tried for its memory figure only,
+     and an out-of-memory error is reported as a finding;
+ 18. the Trainer's checkpoint through ``load_pretrained`` and ``register``.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -47,6 +71,7 @@ without one or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -82,6 +107,15 @@ OPS_PER_ATTN_PAIR_EXTRA = 8  # scale, compat multiply, bias add, max, exp, sum p
 OPS_PER_CONF_ROW = 2 * (128 * 32 + 32 * 32 + 32) + 2 * 32 + 1  # three layers, biases, ReLUs
 OPS_PER_KNN_PAIR = 2 * C + 1  # the 128-term dot product and one compare of the selection
 OPS_PER_REFINE_POINT = 63  # warp (18), residual (5), test and weight (5), Gram terms (35)
+OPS_PER_COMPAT_PAIR = 25  # two 3-dots (10), two gram distances (10), diff, square, divide, 1 -, max
+OPS_PER_ATTN_BWD_PAIR_EXTRA = 9  # scale, compat multiply, bias, - lse, exp, dP - D, 3 multiplies
+OPS_PER_SM_PAIR = 14  # u (3), clip and diagonal (3), pm and gtM (3), two squared terms (5)
+OPS_PER_SM_BWD_PAIR = 24  # the forward's M terms (9), g (8), gate (4), dsigma term (3)
+
+# the reference training shape and the KITTI regime of tools/train_synthetic.py
+TRAIN_BS, TRAIN_NODE, TRAIN_N = 16, 1000, 1024
+TRAIN_STEPS_PER_EPOCH = 12
+KITTI_BS = 2
 
 
 def check(ok, message: str) -> None:
@@ -626,6 +660,454 @@ def default_configuration(torch, pt, kernels, dev) -> dict:
     return launches
 
 
+TRAIN_KERNELS = ("sc_attention_forward", "sc_attention_backward_dq", "sc_attention_backward_dkv",
+                 "sm_loss_sums", "sm_loss_grads")
+
+
+def train_batch(bs, node, seed=3, inlier_ratio=0.35, **data):
+    """A collated numpy batch of bs synthetic pairs of ``node`` correspondences,
+    padded to their bucket with a mask (data/pipeline.py)."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset, collate_batch
+
+    ds = SyntheticPairDataset(num_pairs=bs, num_corr=node, inlier_ratio=inlier_ratio, seed=seed,
+                              **data)
+    return collate_batch([ds[i] for i in range(bs)])
+
+
+def check_train_kernels(torch, dev) -> list[dict]:
+    """Phase 12: the training kernels' public entries against their plain
+    versions at bs 16 / N = 1024 (24 padded points per sample), the attention
+    trio also at one sample of N = 12288 in the KITTI regime.
+
+    ``library_ms`` is null for all: the compat factor multiplies the logits,
+    which ``scaled_dot_product_attention``'s additive mask cannot express, and
+    the SM loss never forms M, which every PyTorch call that could compute it
+    would. All operands are f32, so every operation counts at the f32 rate."""
+    from pointdsc_tpu_torch.kernels import sc_attention as katt
+    from pointdsc_tpu_torch.kernels import sm_loss as ksm
+    from pointdsc_tpu_torch.ops.compatibility import feature_similarity
+    from pointdsc_tpu_torch.train.losses import spectral_matching_loss
+
+    rows = []
+
+    def row(name, source, replaces, err, fn, plain_fn, bytes_moved, ops, reps=20, **extra):
+        b, o = bound_ms(bytes_moved, ops)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"pointdsc_tpu_torch/kernels/csrc/{source}",
+                         replaces=f"pointdsc_tpu/kernels/{replaces}", max_abs_err=err,
+                         ms=time_ms(fn, reps=reps), plain_ms=time_ms(plain_fn, reps=reps),
+                         bound_ms=b, bound_by=o, library_ms=None, **extra))
+
+    def attention_case(bs, n, sigma_d, batch, seed):
+        src, tgt = (torch.as_tensor(batch[k]).to(dev) for k in ("src_keypts", "tgt_keypts"))
+        mask = torch.as_tensor(batch["mask"]).to(dev)
+        gen = torch.Generator().manual_seed(seed)
+        q, k, v, d_out = (torch.randn((bs, n, C), generator=gen).to(dev) for _ in range(4))
+        geom = katt.pack_geometry(src, tgt, mask)
+        ref, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, sigma_d)
+        dvec = torch.sum(d_out * ref, dim=-1)
+        bwd = (q, k, v, geom, ref_lse, dvec, d_out, sigma_d)
+        return dict(fwd=(q, k, v, geom, sigma_d), bwd=bwd, ref=ref, ref_lse=ref_lse,
+                    ref_grads=katt.sc_attention_backward_plain(*bwd))
+
+    def attention_errors(case, tag):
+        """Tolerances: compat is the same bit for bit in kernel and plain
+        version (rounded operations in one order), the 128-term logits and the
+        N-term sums run in another order: out and lse atol = rtol = 1e-4, the
+        gradients (terms of either sign) 2e-4 at N = 1024 and 5e-4 at
+        N = 12288."""
+        tol = 2e-4 if case["ref"].shape[1] <= 2048 else 5e-4
+        out, lse = katt.sc_attention_forward(*case["fwd"])
+        e_out = float((out - case["ref"]).abs().max())
+        e_lse = float((lse - case["ref_lse"]).abs().max())
+        check(torch.allclose(out, case["ref"], atol=1e-4, rtol=1e-4)
+              and torch.allclose(lse, case["ref_lse"], atol=1e-4, rtol=1e-4),
+              f"{tag}: attention forward max err out {e_out}, lse {e_lse}")
+        dq = katt.sc_attention_backward_dq(*case["bwd"])
+        dk, dv = katt.sc_attention_backward_dkv(*case["bwd"])
+        errs = {}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), case["ref_grads"]):
+            errs[name] = float((got - ref).abs().max())
+            check(torch.allclose(got, ref, atol=tol, rtol=tol),
+                  f"{tag}: attention backward {name} max err {errs[name]}")
+        print(f"{tag}: attention kernels vs plain: out {e_out:.3e}, lse {e_lse:.3e}, dq "
+              f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e}", flush=True)
+        return max(e_out, e_lse), errs["dq"], max(errs["dk"], errs["dv"])
+
+    def attention_counts(bs, n):
+        """(bytes, operations) of forward, dQ and dK, dV."""
+        act, vec, pairs = bs * n * C * 4, bs * n * 4, float(bs) * n * n
+        geom = 16 * vec
+        extra_f = OPS_PER_COMPAT_PAIR + OPS_PER_ATTN_PAIR_EXTRA
+        extra_b = OPS_PER_COMPAT_PAIR + OPS_PER_ATTN_BWD_PAIR_EXTRA
+        return ((4 * act + geom + vec, pairs * (4 * C + extra_f)),
+                (5 * act + geom + 2 * vec, pairs * (6 * C + extra_b)),
+                (6 * act + geom + 2 * vec, pairs * (8 * C + extra_b)))
+
+    # -- the attention trio at the training shape, and at the KITTI scale
+    main = attention_case(TRAIN_BS, TRAIN_N, 0.1, train_batch(TRAIN_BS, TRAIN_NODE), seed=4)
+    e_f, e_q, e_kv = attention_errors(main, f"bs {TRAIN_BS} N={TRAIN_N}")
+    big = attention_case(1, N_KITTI, 1.2, train_batch(1, N_KITTI, **KITTI_DATA), seed=5)
+    b_f, b_q, b_kv = attention_errors(big, f"bs 1 N={N_KITTI}")
+    cm, cb = attention_counts(TRAIN_BS, TRAIN_N), attention_counts(1, N_KITTI)
+    entries = (
+        ("sc_attention_forward", "sc_attention.py:649", e_f, b_f,
+         lambda c: katt.sc_attention_forward(*c["fwd"]),
+         lambda c: katt.sc_attention_forward_plain(*c["fwd"])),
+        ("sc_attention_backward_dq", "sc_attention.py:710", e_q, b_q,
+         lambda c: katt.sc_attention_backward_dq(*c["bwd"]),
+         lambda c: katt.sc_attention_backward_plain(*c["bwd"])),
+        ("sc_attention_backward_dkv", "sc_attention.py:742", e_kv, b_kv,
+         lambda c: katt.sc_attention_backward_dkv(*c["bwd"]),
+         lambda c: katt.sc_attention_backward_plain(*c["bwd"])),
+    )
+    for i, (name, replaces, err, err_big, fn, plain_fn) in enumerate(entries):
+        # the plain backward computes dq, dk and dv at once: its time stands
+        # beside both backward kernels
+        big_bound, _ = bound_ms(*cb[i])
+        row(name, "sc_attention_train.cu", replaces, err, lambda: fn(main),
+            lambda: plain_fn(main), *cm[i],
+            n12288=dict(max_abs_err=err_big, ms=time_ms(lambda: fn(big), reps=5, warmup=1),
+                        plain_ms=time_ms(lambda: plain_fn(big), reps=5, warmup=1),
+                        bound_ms=big_bound))
+    del main, big
+    torch.cuda.empty_cache()
+
+    # -- the eval attention without a cache, at its path's shape (one pair of
+    # N = 5120): the forward kernel without the LSE store, so out is the
+    # trainable forward's bit for bit. Tolerance as above.
+    x = kernel_inputs(torch, dev)
+    q, k, v = x["qkv"]
+    geom = katt.pack_geometry(x["src"], x["tgt"], x["mask"])
+    out = katt.fused_sc_attention(q, k, v, x["src"], x["tgt"], 0.1, mask=x["mask"])
+    ref, _ = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4), f"fused_sc_attention max err {err}")
+    check(torch.equal(out, katt.sc_attention_forward(q, k, v, geom, 0.1)[0]),
+          "fused_sc_attention is not the trainable forward's out")
+    (bytes_f, ops_f), _, _ = attention_counts(1, N)
+    row("fused_sc_attention", "sc_attention_train.cu", "sc_attention.py:82", err,
+        lambda: katt.fused_sc_attention(q, k, v, x["src"], x["tgt"], 0.1, mask=x["mask"]),
+        lambda: katt.sc_attention_forward_plain(q, k, v, katt.pack_geometry(
+            x["src"], x["tgt"], x["mask"]), 0.1), bytes_f - N * 4, ops_f)
+    del x, q, k, v, geom, out, ref
+
+    # -- SM loss at the training shape: unit features, the batch's labels and
+    # mask, sigma off its initial 1 so that both sides of the clamp are live.
+    # Tolerances: the sums (N^2 non-negative terms, added per tile then over
+    # tiles) rtol 1e-5; dF 1e-5 of its largest entry; dsigma rtol 1e-4. A pair
+    # whose u lies within rounding of 0 or 1 may fall on either side of the
+    # gate in the two versions: one term of weight ~1/N^2.
+    batch = train_batch(TRAIN_BS, TRAIN_NODE)
+    gen = torch.Generator().manual_seed(6)
+    f = torch.nn.functional.normalize(torch.randn((TRAIN_BS, TRAIN_N, C), generator=gen),
+                                      dim=-1).to(dev)
+    gt = torch.as_tensor(batch["gt_labels"]).to(dev)
+    mask = torch.as_tensor(batch["mask"]).to(dev)
+    strips = ksm.pack_labels(gt, mask)
+    wp, wn = ksm.balance_weights(strips, balanced=False)
+    sigma = torch.full((TRAIN_BS,), 1.07, device=dev)
+    scalars = torch.stack([sigma, wp, wn, torch.zeros_like(wp)], dim=-1).contiguous()
+    got, ref = ksm.sm_loss_sums(f, strips, scalars), ksm.sm_loss_sums_plain(f, strips, scalars)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    check(all(torch.allclose(a, b, atol=0, rtol=1e-5) for a, b in zip(got, ref)),
+          f"SM-loss sums max err {err}")
+    pairs = float(TRAIN_BS) * TRAIN_N * TRAIN_N
+    act, strip_bytes = TRAIN_BS * TRAIN_N * C * 4, strips.numel() * 4 + scalars.numel() * 4
+    tiles = -(-TRAIN_N // ksm.TILE)
+    row("sm_loss_sums", "sm_loss.cu", "sm_loss.py:87", err,
+        lambda: ksm.sm_loss_sums(f, strips, scalars),
+        lambda: ksm.sm_loss_sums_plain(f, strips, scalars),
+        act + strip_bytes + TRAIN_BS * tiles * tiles * 8, pairs * (2 * C + OPS_PER_SM_PAIR))
+    (df, ds), (rdf, rds) = ksm.sm_loss_grads(f, strips, scalars), \
+        ksm.sm_loss_grads_plain(f, strips, scalars)
+    err = float((df - rdf).abs().max())
+    check(err <= 1e-5 * float(rdf.abs().max()), f"SM-loss dF max err {err}")
+    check(torch.allclose(ds, rds, atol=0, rtol=1e-4),
+          f"SM-loss dsigma max err {float((ds - rds).abs().max())}")
+    row("sm_loss_grads", "sm_loss.cu", "sm_loss.py:108", err,
+        lambda: ksm.sm_loss_grads(f, strips, scalars),
+        lambda: ksm.sm_loss_grads_plain(f, strips, scalars),
+        2 * act + strip_bytes + TRAIN_BS * tiles * 4, pairs * (4 * C + OPS_PER_SM_BWD_PAIR),
+        dsigma_max_abs_err=float((ds - rds).abs().max()))
+
+    # the public entry against the dense chain it replaces, value and gradients
+    grads = []
+    for fused in (True, False):
+        ff = f.clone().requires_grad_()
+        sg = torch.tensor([1.07], device=dev, requires_grad=True)
+        if fused:
+            loss = ksm.fused_spectral_matching_loss(ff, sg, gt, mask, False)
+        else:
+            loss = spectral_matching_loss(feature_similarity(ff, sg, mask=mask), gt, mask,
+                                          balanced=False)
+        loss.backward()
+        grads.append((loss.detach(), ff.grad, sg.grad))
+    (lf, dff, dsf), (ld, dfd, dsd) = grads
+    print(f"fused_spectral_matching_loss vs the dense chain: loss {float(lf):.6f} / "
+          f"{float(ld):.6f}, dF max err {float((dff - dfd).abs().max()):.3e} of "
+          f"{float(dfd.abs().max()):.3e}, dsigma {float(dsf):.6e} / {float(dsd):.6e}", flush=True)
+    check(torch.allclose(lf, ld, atol=0, rtol=1e-5)
+          and float((dff - dfd).abs().max()) <= 1e-5 * float(dfd.abs().max())
+          and torch.allclose(dsf, dsd, atol=0, rtol=1e-4),
+          "fused_spectral_matching_loss disagrees with the dense chain")
+    return rows
+
+
+def no_cache_forward(torch, pt, kernels, dev) -> int:
+    """Phase 13: the eval forward with ``fused_cache_compat=False`` on one
+    Synthetic pair at N = 5120: twelve launches of the no-cache attention and
+    no cache build, held against the dense path as in phase 4 (the f32 compat
+    tile is closer to the dense path's than the int8 cache)."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+
+    model = pt.load_pretrained(SNAPSHOT, device=DEVICE, fused_cache_compat=False)
+    p = SyntheticPairDataset(num_pairs=1, num_corr=N, **DEFAULT_DATA)[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = pt.register(p["corr_pos"], p["src_keypts"], p["tgt_keypts"], model=model,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"no-cache forward launches: {json.dumps(counts)}", flush=True)
+    check(counts["fused_sc_attention"] == 12 and counts["compat_cache_int8"] == 0
+          and counts["fused_encoder_layer"] == 0, "the no-cache forward took another path")
+    cp, src, tgt = (torch.as_tensor(p[k])[None].to(dev)
+                    for k in ("corr_pos", "src_keypts", "tgt_keypts"))
+    with torch.no_grad():
+        dense = model(cp, src, tgt, fused=False)
+    terr = float((out.final_trans - dense.final_trans).abs().max())
+    agree = float((out.final_labels == dense.final_labels).float().mean())
+    print(f"no-cache forward: fused-vs-dense final_trans max err {terr:.3e}, label agreement "
+          f"{agree:.4f}", flush=True)
+    check(terr <= 1e-3 and agree > 0.99, "the no-cache forward disagrees with dense")
+    return counts["fused_sc_attention"]
+
+
+def training(torch, pt, kernels, dev) -> dict:
+    """Phases 14 to 18. Returns the launches of the five training kernels
+    over the Trainer's run of phase 15."""
+    import tempfile
+    import time
+
+    from pointdsc_tpu_torch.data import Loader, SyntheticPairDataset
+    from pointdsc_tpu_torch.train.config import default_config
+    from pointdsc_tpu_torch.train.trainer import Trainer
+
+    def make(fused, dataset="3DMatch", model=None, **over):
+        cfg = default_config(dataset)
+        cfg.fused_attention = cfg.fused_sm_loss = fused
+        cfg.tboard_dir, cfg.verbose = "", False
+        for key, value in over.items():
+            setattr(cfg, key, value)
+        trainer = Trainer(cfg, model=model, device=DEVICE)
+        return trainer, trainer.init_state(steps_per_epoch=TRAIN_STEPS_PER_EPOCH, seed=0)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # 14. one step, fused against dense, same weights and batch. The two
+    # differ in the compat matrix (gram-form distances in the kernels, the
+    # difference form in the dense path: ~1e-4 of compat after the division by
+    # sigma_d^2) and in summation order. The train-mode forward of the full
+    # depth is ill-conditioned: through twelve layers (logits of tens of nats,
+    # batch statistics) a difference of one f32 rounding grows by a factor of
+    # 2 to 4 per layer, so the dense path moves by ~1e-3 of its own loss when
+    # its input moves by 1e-6. The check is therefore made at depth 2 (full
+    # width, random weights of seed 0): loss terms rtol 1e-4, each parameter's
+    # gradient within 2e-3 of (its largest entry + 1e-2 of the largest entry
+    # of all): a bias in front of a training BatchNorm has a true gradient of
+    # zero, and what it holds is rounding of the terms that cancel. At depth
+    # 12, on the Synthetic snapshot's weights, the same numbers are printed
+    # beside the dense path's own movement under a 1e-6 input perturbation,
+    # and decide nothing beyond being finite.
+    batch = train_batch(TRAIN_BS, TRAIN_NODE)
+
+    def one_step(fused, layers, eps=0.0):
+        model = None if layers != 12 else pt.load_pretrained(SNAPSHOT, device=DEVICE)
+        trainer, state = make(fused, model=model, num_layers=layers)
+        dev_batch = trainer.to_device(batch)
+        dev_batch["corr_pos"] = dev_batch["corr_pos"] * (1.0 + eps)
+        state, metrics = trainer.train_step(state, dev_batch, 1)
+        return ({k: float(v) for k, v in metrics.items()},
+                {name: p.grad.clone() for name, p in state.model.named_parameters()})
+
+    def compare(a, b):
+        """Largest loss-term and gradient differences of two steps, relative."""
+        (ma, ga), (mb, gb) = a, b
+        scale = 1e-2 * max(float(g.abs().max()) for g in gb.values())
+        worst, worst_name = 0.0, ""
+        for name, g in gb.items():
+            rel = float((ga[name] - g).abs().max()) / (float(g.abs().max()) + scale)
+            if rel > worst:
+                worst, worst_name = rel, name
+        loss_rel = max(abs(ma[k] - mb[k]) / abs(mb[k]) for k in ("class_loss", "sm_loss"))
+        return loss_rel, worst, worst_name
+
+    for layers in (2, 12):
+        fused_step, dense_step = one_step(True, layers), one_step(False, layers)
+        mf, md = fused_step[0], dense_step[0]
+        loss_rel, worst, worst_name = compare(fused_step, dense_step)
+        line = (f"train step fused vs dense, {layers} layers: class_loss {mf['class_loss']:.6f} / "
+                f"{md['class_loss']:.6f}, sm_loss {mf['sm_loss']:.6f} / {md['sm_loss']:.6f}, "
+                f"trans_loss {mf['trans_loss']:.6f} / {md['trans_loss']:.6f}; largest relative "
+                f"gradient difference {worst:.3e} ({worst_name}, of {len(dense_step[1])} "
+                "parameters)")
+        check(mf["grad_finite"] == 1.0 and md["grad_finite"] == 1.0, "a gradient is not finite")
+        if layers == 2:
+            print(line, flush=True)
+            check(loss_rel <= 1e-4, f"loss terms fused vs dense differ by {loss_rel:.3e}")
+            check(worst <= 2e-3, f"gradient of {worst_name} differs by {worst:.3e}")
+        else:
+            own_loss, own_grad, _ = compare(one_step(False, layers, eps=1e-6), dense_step)
+            print(f"{line}; the dense path against itself with its input scaled by 1 + 1e-6: "
+                  f"loss terms {own_loss:.3e}, gradients {own_grad:.3e} (fused vs dense loss "
+                  f"terms {loss_rel:.3e})", flush=True)
+        del fused_step, dense_step
+    torch.cuda.empty_cache()
+
+    # 15. the Trainer, fused, on the synthetic loader: two epochs of 12 steps,
+    # evaluate, save_checkpoint. Counts set to 0 just before, read just after.
+    ds = SyntheticPairDataset(num_pairs=TRAIN_BS * TRAIN_STEPS_PER_EPOCH, num_corr=TRAIN_NODE,
+                              inlier_ratio=0.35, seed=17)
+    val = SyntheticPairDataset(num_pairs=TRAIN_BS * 2, num_corr=TRAIN_NODE, inlier_ratio=0.35,
+                               seed=9999)
+    # no shuffle: both epochs see the same batches, so their mean losses compare
+    loader = Loader(ds, TRAIN_BS, shuffle=False, num_workers=4)
+    val_loader = Loader(val, TRAIN_BS, num_workers=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, state = make(True, verbose=True, tboard_dir=os.path.join(tmp, "tb"),
+                              snapshot_dir=tmp, save_dir=os.path.join(tmp, "models"),
+                              training_max_iter=TRAIN_STEPS_PER_EPOCH, val_max_iter=2)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for epoch in (1, 2):
+            state = trainer.train_epoch(loader, state, epoch)
+        res = trainer.evaluate(val_loader, state)
+        path = trainer.save_checkpoint(state, "best")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        trainer.cfg.save(os.path.join(tmp, "config.json"))
+        trainer.logger.close()
+        # the same eval batches through the dense eval step on the same
+        # half-trained weights: a finding, not a check (the fused eval step
+        # runs the offset softmax with no regime guard, as the JAX Trainer's)
+        dense_trainer, _ = make(False, model=state.model, val_max_iter=2)
+        res_dense = dense_trainer.evaluate(val_loader, state)
+        print("eval step fused vs dense after the steps: " + ", ".join(
+            f"{k} {res[k]:.6f} / {res_dense[k]:.6f}"
+            for k in ("class_loss", "sm_loss", "trans_loss", "reg_recall", "f1")), flush=True)
+        with open(trainer.logger.path) as fh:
+            events = [json.loads(line) for line in fh]
+        steps = 2 * TRAIN_STEPS_PER_EPOCH
+        print(f"trainer launches over {steps} steps + 2 eval batches: {json.dumps(counts)}",
+              flush=True)
+        losses = [e["value"] for e in events if e["tag"] == "Train/loss"]
+        finite = [e["value"] for e in events if e["tag"] == "Train/grad_finite"]
+        print(f"trainer: mean loss of epoch 1 {losses[0]:.6f}, of epoch 2 {losses[1]:.6f}; "
+              f"grad_finite {finite}; step {state.step}; "
+              f"lr {state.scheduler.get_last_lr()[0]:.6e}; "
+              f"eval {json.dumps(res)}; {wall:.1f} s in all", flush=True)
+        check(len(losses) == 2 and all(map(math.isfinite, losses)) and losses[1] < losses[0],
+              "the training loss is not finite and falling")
+        check(finite == [1.0, 1.0], "a step had non-finite gradients")
+        check(all(math.isfinite(v) for v in res.values()), "evaluate returned a non-finite metric")
+        check(state.step == steps and abs(state.scheduler.get_last_lr()[0]
+                                          - 1e-4 * 0.99 ** 2) < 1e-12, "step or schedule count")
+        # per train step: 12 forward + 12 dQ + 12 dK,dV launches and one SM
+        # forward and backward; per eval batch the cache, 12 whole-layer
+        # kernels and the SM forward; scoring and seed k-NN once in each
+        expect = {"sc_attention_forward": 12 * steps, "sc_attention_backward_dq": 12 * steps,
+                  "sc_attention_backward_dkv": 12 * steps, "sm_loss_sums": steps + 2,
+                  "sm_loss_grads": steps, "compat_cache_int8": 2, "fused_encoder_layer": 24,
+                  "seed_knn_exact": steps + 2, "seed_inlier_counts": steps + 2}
+        for name, count in counts.items():
+            check(count == expect.get(name, 0),
+                  f"trainer: {name} launched {count} times, expected {expect.get(name, 0)}")
+
+        # 18. the checkpoint through load_pretrained and register
+        model = pt.load_pretrained(tmp, device=DEVICE)
+        for key, value in state.model.state_dict().items():
+            check(torch.equal(value, model.state_dict()[key]), f"checkpoint: {key} differs")
+        p = SyntheticPairDataset(num_pairs=1, num_corr=TRAIN_N, inlier_ratio=0.35, seed=5)[0]
+        out = pt.register(p["corr_pos"], p["src_keypts"], p["tgt_keypts"], model=model,
+                          device=DEVICE)
+        check(out.final_trans.shape == (1, 4, 4) and bool(torch.isfinite(out.final_trans).all())
+              and out.final_labels.shape == (1, TRAIN_N), "checkpoint: bad registration output")
+        print(f"checkpoint {os.path.basename(path)} ({os.path.getsize(path)} bytes): loaded by "
+              "load_pretrained, state dict equal, register gives a finite transform", flush=True)
+    del trainer, state, model
+    torch.cuda.empty_cache()
+
+    # 16. ms per step, peak memory and launches per step, fused and dense
+    # (host clock around a step that ends in a synchronise; median of 10
+    # after 3 warm-ups)
+    for fused in (True, False):
+        trainer, state = make(fused)
+        dev_batch = trainer.to_device(batch)
+        for _ in range(3):
+            state, _ = trainer.train_step(state, dev_batch, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            state, _ = trainer.train_step(state, dev_batch, 1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v / 10 for k, v in kernels.launch_counts().items() if v}
+        print(json.dumps({"metric": "train_step_ms", "config": "fused" if fused else "dense",
+                          "bs": TRAIN_BS, "n": TRAIN_N, "value": statistics.median(times),
+                          "peak_memory_gib": peak_gib(), "launches_per_step": per_step}),
+              flush=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+
+    # 17. the KITTI regime: two fused steps through train_epoch, then one
+    # dense step for its memory figure only (an out-of-memory error is a
+    # finding, not a failure)
+    kitti = dict(num_node=N_KITTI, batch_size=KITTI_BS, inlier_threshold=0.6, sigma_d=1.2,
+                 training_max_iter=2)
+    ds_k = SyntheticPairDataset(num_pairs=2 * KITTI_BS, num_corr=N_KITTI, inlier_ratio=0.35,
+                                seed=17, **KITTI_DATA)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, state = make(True, "KITTI", verbose=True, tboard_dir=tmp, **kitti)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = trainer.train_epoch(Loader(ds_k, KITTI_BS, num_workers=2), state, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer.logger.close()
+        with open(trainer.logger.path) as fh:
+            events = {e["tag"]: e["value"] for e in map(json.loads, fh)}
+    print(json.dumps({"metric": "kitti_regime_fused", "bs": KITTI_BS, "n": N_KITTI, "steps": 2,
+                      "mean_loss": events["Train/loss"], "grad_finite": events["Train/grad_finite"],
+                      "s_per_step": wall / 2, "peak_memory_gib": peak_gib()}), flush=True)
+    check(math.isfinite(events["Train/loss"]) and events["Train/grad_finite"] == 1.0
+          and state.step == 2, "the KITTI-regime steps failed")
+    del trainer, state
+    torch.cuda.empty_cache()
+    trainer, state = make(False, "KITTI", **kitti)
+    kbatch = trainer.to_device(train_batch(KITTI_BS, N_KITTI, seed=17, **KITTI_DATA))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, metrics = trainer.train_step(state, kbatch, 1)
+        torch.cuda.synchronize()
+        print(json.dumps({"finding": "kitti_regime_dense", "fits": True,
+                          "loss": float(metrics["loss"]), "peak_memory_gib": peak_gib()}),
+              flush=True)
+    except torch.cuda.OutOfMemoryError:
+        print(json.dumps({"finding": "kitti_regime_dense", "fits": False,
+                          "peak_memory_gib_before_the_error": peak_gib()}), flush=True)
+    del trainer, state, kbatch
+    torch.cuda.empty_cache()
+    return {name: counts[name] for name in TRAIN_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -645,6 +1127,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 3
     dev = torch.device(DEVICE)
+    # phases 3 to 13 are eval forwards: no autograd graph (training turns it on again)
+    torch.set_grad_enabled(False)
 
     # 1. the card
     print(card_line(), flush=True)
@@ -734,8 +1218,20 @@ def main() -> int:
     # 8-11. the default configuration, half precision, the guard's flip
     launches.update(default_configuration(torch, pt, kernels, dev))
 
+    # 12-13. the training kernels and the no-cache eval attention against
+    # their plain versions; the eval forward without a cache
+    torch.set_grad_enabled(True)
+    with full_f32_matmul():
+        rows += check_train_kernels(torch, dev)
+    print("train_kernels_vs_plain: ok", flush=True)
+    launches["fused_sc_attention"] = no_cache_forward(torch, pt, kernels, dev)
+
+    # 14-18. training
+    launches.update(training(torch, pt, kernels, dev))
+
     for row in rows:
         row["launches"] = launches[row["name"]]
+        check(row["launches"] > 0, f"{row['name']} was launched no time on its main path")
         print(json.dumps({"name": row["name"], "launches": row["launches"], "ms": row["ms"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

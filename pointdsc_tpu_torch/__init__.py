@@ -1,7 +1,7 @@
 """PointDSC on PyTorch and CUDA (H100), beside the JAX package.
 
-The eval forward of ``pointdsc_tpu`` with its TPU kernels rewritten as
-hand-written CUDA kernels for sm_90a (``kernels/csrc``). Imports torch and
+The eval forward and the training path of ``pointdsc_tpu`` with their TPU
+kernels rewritten as hand-written CUDA kernels for sm_90a (``kernels/csrc``). Imports torch and
 numpy only. Entry points take ``device`` (default ``"cuda"``) and raise
 when CUDA is missing unless the caller asked for ``"cpu"``.
 """
@@ -9,5 +9,6 @@ when CUDA is missing unless the caller asked for ``"cpu"``.
 from pointdsc_tpu_torch.api import load_pretrained, register
 from pointdsc_tpu_torch.eval.runner import Evaluator
 from pointdsc_tpu_torch.models.pointdsc import PointDSC, PointDSCOutput
+from pointdsc_tpu_torch.train.trainer import Trainer
 
-__all__ = ["Evaluator", "PointDSC", "PointDSCOutput", "load_pretrained", "register"]
+__all__ = ["Evaluator", "PointDSC", "PointDSCOutput", "Trainer", "load_pretrained", "register"]

@@ -1,6 +1,10 @@
-"""Minimal pure-Python msgpack reader for flax checkpoints.
+"""Minimal pure-Python msgpack reader and writer for flax checkpoints.
 
-Reads what ``flax.serialization.to_bytes`` writes, without flax or msgpack:
+``dumps`` writes what ``flax.serialization.msgpack_restore`` reads: nested
+dicts with string keys, lists, str, int, float, bool, None and numpy arrays
+(extension type 1, a packed ``[shape, dtype_name, bytes]``).
+
+``loads`` reads what ``flax.serialization.to_bytes`` writes, without flax or msgpack:
 maps, arrays, str, bin, ints, floats, nil and bool, plus flax's extension
 types 1 (ndarray: a packed ``[shape, dtype_name, bytes]``) and 3 (numpy
 scalar, the same packing). Arrays come back as read-only numpy arrays over
@@ -111,3 +115,61 @@ def loads(data: bytes):
 def load(path: str):
     with open(path, "rb") as f:
         return loads(f.read())
+
+
+def _pack_len(n: int, fix_base, fix_max: int, codes) -> bytes:
+    """Header of a str/array/map/bin of n items: the fix form where one
+    exists, else the shortest sized form of ``codes`` ((byte, fmt), ...)."""
+    if fix_base is not None and n <= fix_max:
+        return bytes([fix_base | n])
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"object of {n} items is too large for msgpack")
+
+
+def _pack(obj, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, (int, np.integer)):
+        out.append(b"\xd3" + struct.pack(">q", int(obj)))
+    elif isinstance(obj, (float, np.floating)):
+        out.append(b"\xcb" + struct.pack(">d", float(obj)))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out.append(_pack_len(len(raw), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))))
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        out.append(_pack_len(len(obj), None, 0, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))))
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_len(len(obj), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I"))))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, dict):
+        out.append(_pack_len(len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I"))))
+        for key, value in obj.items():
+            if not isinstance(key, str):
+                raise TypeError(f"msgpack map keys must be str here, got {type(key).__name__}")
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise TypeError("object arrays cannot be serialised")
+        payload: list = []
+        _pack([list(obj.shape), obj.dtype.name, obj.tobytes("C")], payload)
+        body = b"".join(payload)
+        out.append(_pack_len(len(body), None, 0, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I"))))
+        out.append(struct.pack(">b", _EXT_NDARRAY))
+        out.append(body)
+    else:
+        raise TypeError(f"cannot serialise {type(obj).__name__}")
+
+
+def dumps(obj) -> bytes:
+    """Encode a state dict (see the module docstring) as msgpack bytes."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)

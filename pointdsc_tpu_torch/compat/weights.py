@@ -1,5 +1,5 @@
 """Weight bridge: flax variables and reference torch checkpoints -> the
-port's state dict.
+port's state dict, and the state dict back to flax variables.
 
 The port's module tree carries the flax names (models/blocks.py), so a flax
 leaf maps onto one state-dict key:
@@ -43,6 +43,31 @@ def from_flax_variables(variables: dict) -> dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (_LEAF[leaf],))
             state[key] = torch.from_numpy(arr)
     return state
+
+
+def to_flax_variables(state: dict) -> dict:
+    """The inverse of ``from_flax_variables``: a state dict of the port ->
+    {'params': ..., 'batch_stats': ...} tree of float32 numpy arrays in the
+    flax layout (Dense kernels [in, out])."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf in ("running_mean", "running_var"):
+            collection, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight":
+            collection, name = "params", "kernel" if arr.ndim == 2 else "scale"
+            if arr.ndim == 2:
+                arr = np.ascontiguousarray(arr.T)
+        elif leaf in ("bias", "sigma"):
+            collection, name = "params", leaf
+        else:
+            raise KeyError(f"unknown state-dict key {key}")
+        node = out[collection]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = arr
+    return out
 
 
 def _conv1d(w):  # [out, in, 1] -> [in, out]

@@ -1,4 +1,5 @@
 from pointdsc_tpu_torch.data.pipeline import (
+    Loader,
     bucket_size,
     collate_batch,
     make_corr_pos,
@@ -6,5 +7,5 @@ from pointdsc_tpu_torch.data.pipeline import (
 )
 from pointdsc_tpu_torch.data.synthetic import SyntheticPairDataset
 
-__all__ = ["SyntheticPairDataset", "bucket_size", "collate_batch", "make_corr_pos",
+__all__ = ["Loader", "SyntheticPairDataset", "bucket_size", "collate_batch", "make_corr_pos",
            "pad_to_bucket"]

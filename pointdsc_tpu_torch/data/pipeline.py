@@ -1,11 +1,12 @@
-"""Input encodings and shape buckets (the port's own copy of
-``pointdsc_tpu/data/pipeline.py``: ``make_corr_pos``, ``bucket_size``,
-``pad_to_bucket``, ``collate_batch``), numpy only."""
+"""Input encodings, shape buckets and the batch loader (the port's own copy
+of ``pointdsc_tpu/data/pipeline.py``: ``make_corr_pos``, ``bucket_size``,
+``pad_to_bucket``, ``collate_batch``, ``Loader``), numpy and threads only."""
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import math
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -67,3 +68,46 @@ def collate_batch(samples: list[dict]) -> dict:
     return {
         k: np.stack([s[k] for s in padded], axis=0) for k in padded[0].keys()
     }
+
+
+class Loader:
+    """Minimal prefetching loader: dataset[i] -> sample dict, batched and
+    padded to a bucket with a mask. A thread pool builds up to four batches
+    ahead (the samples' numpy work releases the interpreter lock).
+    ``drop_last`` gives ``len(dataset) // batch_size`` iterations, as the
+    reference's loop runs."""
+
+    PREFETCH = 4
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, num_workers: int = 8,
+                 seed: int = 0, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return math.ceil(n / self.batch_size)
+
+    def __iter__(self) -> Iterator[dict]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        n_batches = len(self)
+
+        def fetch(batch_idx):
+            idxs = order[batch_idx * self.batch_size:(batch_idx + 1) * self.batch_size]
+            return collate_batch([self.dataset[int(i)] for i in idxs])
+
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            pending = [pool.submit(fetch, b) for b in range(min(self.PREFETCH, n_batches))]
+            for b in range(n_batches):
+                nxt = b + self.PREFETCH
+                if nxt < n_batches:
+                    pending.append(pool.submit(fetch, nxt))
+                yield pending.pop(0).result()

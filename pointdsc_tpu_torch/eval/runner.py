@@ -58,6 +58,7 @@ class Evaluator:
         self.last_slack: float | None = None  # of the latest probe, in nats
         self.flipped = False
 
+    @torch.no_grad()
     def _forward(self, corr_pos, src_keypts, tgt_keypts, mask):
         out = self.model(corr_pos, src_keypts, tgt_keypts, mask=mask, testing=True,
                          fused=self._fused_attention)

@@ -29,8 +29,8 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("compat_cache", "sc_attention", "encoder_layer", "conf_mlp", "nms", "seed_knn",
-           "scoring", "refine")
+SOURCES = ("compat_cache", "sc_attention", "sc_attention_train", "encoder_layer", "conf_mlp",
+           "nms", "seed_knn", "scoring", "refine", "sm_loss")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -42,6 +42,11 @@ SIGNATURES = {
     "compat_cache": {"compat_cache_int8": [P, P, I, I, F, P]},
     "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P],
                      "sc_attention_cached_offset": [P, P, P, P, P, P, P, I, I, F, P]},
+    "sc_attention_train": {"sc_attention_train_fwd": [P] * 6 + [I, I, F, F, P],
+                           "sc_attention_train_bwd_dq": [P] * 8 + [I, I, F, F, P],
+                           "sc_attention_train_bwd_dkv": [P] * 9 + [I, I, F, F, P]},
+    "sm_loss": {"sm_loss_fwd": [P] * 4 + [I, I, P],
+                "sm_loss_bwd": [P] * 5 + [I, I, P]},
     "encoder_layer": {"fused_encoder_layer": [P] * 19 + [I, I, F, F, P],
                       "pcn_qkv": [P] * 10 + [I, I, F, P],
                       "attn_mlp_residual": [P] * 14 + [I, I, F, P]},

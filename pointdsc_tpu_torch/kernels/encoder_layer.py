@@ -19,13 +19,13 @@ and N.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
 from pointdsc_tpu_torch.kernels._check import expect, on_cuda
 from pointdsc_tpu_torch.kernels.sc_attention import (
     C_KERNEL,
+    inv_sqrt_c,
     key_bias,
     offset_attention_math,
     qk_scale,
@@ -89,11 +89,6 @@ def folded_weights(pcn_params, nl_params, cache: dict | None):
     weights = fold_layer(pcn_params, nl_params)
     cache[slot] = (stamp, raw, weights)  # raw: keeps the ids and addresses from being reused
     return weights
-
-
-def inv_sqrt_c(c: int) -> float:
-    """1/sqrt(C) rounded once to float32, as JAX rounds the Python constant."""
-    return float(np.float32(1.0 / (c ** 0.5)))
 
 
 # ---------------------------------------------------------------- plain versions

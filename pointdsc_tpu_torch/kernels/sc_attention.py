@@ -1,12 +1,16 @@
-"""int8 spatial-consistency cache and the two attention kernels over it,
-offset softmax and running max (PyTorch wrappers of ``csrc/compat_cache.cu``
-and ``csrc/sc_attention.cu``; counterparts of
-``pointdsc_tpu/kernels/sc_attention.py:40-60,236-414,417-640``).
+"""Spatial-consistency attention kernels (PyTorch wrappers of
+``csrc/compat_cache.cu``, ``csrc/sc_attention.cu`` and
+``csrc/sc_attention_train.cu``; counterparts of
+``pointdsc_tpu/kernels/sc_attention.py``).
 
-The 12 encoder layers share one compat matrix: it is built once as int8
-(value = round(127 * compat)) and each layer streams it through the
-attention kernel. On a CPU tensor each wrapper runs its plain PyTorch
-version; on a CUDA tensor it launches its kernel or raises.
+Eval: the 12 encoder layers share one compat matrix, built once as int8
+(value = round(127 * compat)); each layer streams it through the offset or
+the running-max attention kernel. Without a cache (``fused_sc_attention``)
+and in training (``sc_attention_trainable``, a ``torch.autograd.Function``
+with a forward kernel that saves the row LSE and two backward kernels) the
+compat tile is recomputed from the packed geometry, so nothing [N, N] exists
+in either pass. On a CPU tensor each wrapper runs its plain PyTorch version;
+on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -88,6 +92,11 @@ def build_compat_cache_int8(src: torch.Tensor, tgt: torch.Tensor, sigma_d: float
 
 
 build_compat_cache_int8.launches = 0
+
+
+def inv_sqrt_c(c: int) -> float:
+    """1/sqrt(C) rounded once to float32, as JAX rounds the Python constant."""
+    return float(np.float32(1.0 / (c ** 0.5)))
 
 
 def qk_scale(c: int) -> float:
@@ -213,3 +222,185 @@ def sc_attention_cached_offset(q, k, v, compat, src, tgt, mask=None):
 # launches of the running-max kernel and of the offset kernel
 fused_sc_attention_cached.launches = 0
 sc_attention_cached_offset.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Attention from the geometry, no cache: forward (with the row LSE), backward
+
+
+def sigma_d_sq(sigma_d: float) -> float:
+    """sigma_d^2 evaluated in float32, as the TPU kernel does."""
+    sig = np.float32(sigma_d)
+    return float(sig * sig)
+
+
+def compat_from_geometry(geom: torch.Tensor, sig2: float) -> torch.Tensor:
+    """[B, N, N] compat = max(1 - (d_src - d_tgt)^2 / sigma_d^2, 0) from the
+    packed strip, distances in the JAX kernel's form sqrt(max(|a|^2 + |b|^2
+    - 2 a.b, 0)) on the packed squared norms. The 3-term inner product is
+    written out elementwise, each operation rounded once: the CUDA kernel
+    evaluates the same sequence, so both see the same compat bit for bit."""
+    def dist(g):  # rows x, y, z, squared norm
+        inner = (g[:, 0, :, None] * g[:, 0, None, :] + g[:, 1, :, None] * g[:, 1, None, :]
+                 + g[:, 2, :, None] * g[:, 2, None, :])
+        d2 = (g[:, 3, :, None] + g[:, 3, None, :]) - 2.0 * inner
+        return torch.sqrt(torch.clamp(d2, min=0.0))
+
+    diff = dist(geom[:, 0:4]) - dist(geom[:, 4:8])
+    # a tensor divisor: by a Python scalar PyTorch multiplies by the reciprocal
+    return torch.clamp(1.0 - diff * diff / geom.new_tensor(sig2), min=0.0)
+
+
+def sc_attention_forward_plain(q, k, v, geom, sigma_d):
+    """Plain version of the forward kernel: (out [B, N, C], lse [B, N]) with
+    s = compat * (q k^T / sqrt(C)) + bias, m clamped at -1e9,
+    out = p v / (l + 1e-30), lse = m + log(l + 1e-30)."""
+    compat = compat_from_geometry(geom, sigma_d_sq(sigma_d))
+    s = compat * (torch.einsum("bnc,bmc->bnm", q, k) * inv_sqrt_c(q.shape[-1])) \
+        + geom[:, 8][:, None, :]
+    m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=_NEG)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30)
+    return out, (m + torch.log(l + 1e-30))[..., 0]
+
+
+def sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d):
+    """Plain version of the two backward kernels: (dq, dk, dv) from the saved
+    LSE, with P = exp(s - lse), dS = P (dO V^T - D), dlogits = dS * compat /
+    sqrt(C). ``dvec`` [B, N] is D = rowsum(dO * O)."""
+    scale = inv_sqrt_c(q.shape[-1])
+    compat = compat_from_geometry(geom, sigma_d_sq(sigma_d))
+    s = compat * (torch.einsum("bnc,bmc->bnm", q, k) * scale) + geom[:, 8][:, None, :]
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bnc,bmc->bnm", d_out, v)
+    dlogits = p * (dp - dvec[..., None]) * compat * scale
+    dq = torch.einsum("bnm,bmc->bnc", dlogits, k)
+    dk = torch.einsum("bnm,bnc->bmc", dlogits, q)
+    dv = torch.einsum("bnm,bnc->bmc", p, d_out)
+    return dq, dk, dv
+
+
+def _check_qkv_geom(q, k, v, geom):
+    """Shapes of the no-cache kernels' inputs; float32 on a CUDA tensor (the
+    plain versions also take float64, for gradient checks)."""
+    expect(q, "q", ndim=3)
+    cuda = on_cuda(q)
+    dtype = torch.float32 if cuda else q.dtype
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        expect(t, name, dtype=dtype, shape=q.shape, device=q.device)
+    b, n, c = q.shape
+    expect(geom, "geom", dtype=dtype, shape=(b, 16, n), device=q.device)
+    if cuda and c != C_KERNEL:
+        raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={c}")
+    return cuda
+
+
+def _launch_forward(q, k, v, geom, sigma_d, with_lse: bool):
+    b, n, c = q.shape
+    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if with_lse else None
+    _build.launch("sc_attention_train", "sc_attention_train_fwd", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
+                  lse.data_ptr() if with_lse else None, b, n, sigma_d_sq(sigma_d),
+                  inv_sqrt_c(c))
+    return out, lse
+
+
+def sc_attention_forward(q, k, v, geom, sigma_d):
+    """Forward of the trainable attention: q, k, v [B, N, C] f32, geom
+    [B, 16, N] (``pack_geometry``) -> (out [B, N, C], lse [B, N])."""
+    if not _check_qkv_geom(q, k, v, geom):
+        return sc_attention_forward_plain(q, k, v, geom, sigma_d)
+    sc_attention_forward.launches += 1
+    return _launch_forward(q, k, v, geom, sigma_d, with_lse=True)
+
+
+def _check_backward(q, k, v, geom, lse, dvec, d_out):
+    cuda = _check_qkv_geom(q, k, v, geom)
+    expect(d_out, "d_out", dtype=q.dtype, shape=q.shape, device=q.device)
+    for name, t in (("lse", lse), ("dvec", dvec)):
+        expect(t, name, dtype=q.dtype, shape=q.shape[:2], device=q.device)
+    return cuda
+
+
+def sc_attention_backward_dq(q, k, v, geom, lse, dvec, d_out, sigma_d):
+    """dQ [B, N, C] of the trainable attention (a key loop per query tile)."""
+    if not _check_backward(q, k, v, geom, lse, dvec, d_out):
+        return sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d)[0]
+    b, n, c = q.shape
+    dq = torch.empty_like(q)
+    sc_attention_backward_dq.launches += 1
+    _build.launch("sc_attention_train", "sc_attention_train_bwd_dq", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), geom.data_ptr(),
+                  lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, n, sigma_d_sq(sigma_d),
+                  inv_sqrt_c(c))
+    return dq
+
+
+def sc_attention_backward_dkv(q, k, v, geom, lse, dvec, d_out, sigma_d):
+    """(dK, dV) of the trainable attention (a query loop per key tile)."""
+    if not _check_backward(q, k, v, geom, lse, dvec, d_out):
+        return sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d)[1:]
+    b, n, c = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    sc_attention_backward_dkv.launches += 1
+    _build.launch("sc_attention_train", "sc_attention_train_bwd_dkv", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), geom.data_ptr(),
+                  lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
+                  sigma_d_sq(sigma_d), inv_sqrt_c(c))
+    return dk, dv
+
+
+class _SCAttentionTrainable(torch.autograd.Function):
+    """Forward saves (q, k, v, geom, lse, out); backward recomputes P from the
+    LSE tile by tile. Geometry has no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geom, sigma_d):
+        q, k, v, geom = q.contiguous(), k.contiguous(), v.contiguous(), geom.contiguous()
+        out, lse = sc_attention_forward(q, k, v, geom, sigma_d)
+        ctx.save_for_backward(q, k, v, geom, lse, out)
+        ctx.sigma_d = sigma_d
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, geom, lse, out = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        dvec = torch.sum(d_out * out, dim=-1)
+        args = (q, k, v, geom, lse, dvec, d_out, ctx.sigma_d)
+        if on_cuda(q):
+            dq = sc_attention_backward_dq(*args)
+            dk, dv = sc_attention_backward_dkv(*args)
+        else:  # one pass of the plain version gives all three
+            dq, dk, dv = sc_attention_backward_plain(*args)
+        return dq, dk, dv, None, None
+
+
+def sc_attention_trainable(q, k, v, geom, sigma_d: float):
+    """Differentiable attention from the geometry: q, k, v [B, N, C] f32, geom
+    [B, 16, N] from ``pack_geometry`` -> [B, N, C]. Gradients reach q, k, v."""
+    return _SCAttentionTrainable.apply(q, k, v, geom, sigma_d)
+
+
+def fused_sc_attention(q, k, v, src, tgt, sigma_d: float, mask=None):
+    """Eval attention without a cache: q, k, v [B, N, C] (f32, or bf16, which
+    is widened), src/tgt [B, N, 3] -> [B, N, C] f32. The forward kernel of the
+    trainable attention with the LSE store switched off."""
+    expect(src, "src", shape=(*q.shape[:2], 3), device=q.device)
+    expect(tgt, "tgt", shape=src.shape, device=q.device)
+    if mask is not None:
+        expect(mask, "mask", dtype=torch.bool, shape=q.shape[:2], device=q.device)
+    q, k, v = (t.float().contiguous() for t in (q, k, v))
+    geom = pack_geometry(src, tgt, mask)
+    if not _check_qkv_geom(q, k, v, geom):
+        return sc_attention_forward_plain(q, k, v, geom, sigma_d)[0]
+    fused_sc_attention.launches += 1
+    return _launch_forward(q, k, v, geom, sigma_d, with_lse=False)[0]
+
+
+sc_attention_forward.launches = 0
+sc_attention_backward_dq.launches = 0
+sc_attention_backward_dkv.launches = 0
+fused_sc_attention.launches = 0

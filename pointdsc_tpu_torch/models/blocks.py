@@ -1,4 +1,4 @@
-"""Encoder blocks, eval mode, channels-last [B, N, C] (PyTorch counterparts
+"""Encoder blocks, channels-last [B, N, C] (PyTorch counterparts
 of ``pointdsc_tpu/models/blocks.py:31-80,148-166,254-386``).
 
 Submodule names follow the flax parameter tree (``PointCN_layer_{i}``,
@@ -11,6 +11,10 @@ same whichever path runs.
 each Dense casts its input, weight and bias to bf16 and returns bf16; a
 BatchNorm computes its per-channel affine in f32 and applies it in its
 input's dtype, so the activation chain stays bf16 from the first PointCN on.
+
+In training mode (``module.training``) a BatchNorm normalises with the
+statistics of the batch's valid entries and advances its running ones;
+``mask`` reaches it through every block for that.
 """
 
 from __future__ import annotations
@@ -20,14 +24,23 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _NEG_INF = -1e9
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over (batch, num_corr) in eval mode: running statistics,
-    eps 1e-5, affine. Masking matters only for training statistics, which
-    the port does not compute yet, so eval mode needs no mask."""
+    """BatchNorm1d over (batch, num_corr) with a validity mask: eps 1e-5,
+    affine, statistics in f32 whatever the input's type.
+
+    Eval mode normalises with the running statistics. Training mode takes
+    mean and variance over the valid entries only, the variance biased, and
+    advances running = 0.9 * running + 0.1 * new with that same biased
+    variance (``nn.BatchNorm1d`` would store the unbiased one).
+    ``update_stats=False`` normalises without advancing them: the second run
+    of a checkpointed layer."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -37,9 +50,26 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.weight / torch.sqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                update_stats: bool = True) -> torch.Tensor:
+        if self.training:
+            xs = x.float()
+            if mask is None:
+                mean = torch.mean(xs, dim=(0, 1))
+                var = torch.mean((xs - mean) ** 2, dim=(0, 1))
+            else:
+                m = mask[..., None].float()
+                count = torch.clamp(torch.sum(m), min=1.0)
+                mean = torch.sum(xs * m, dim=(0, 1)) / count
+                var = torch.sum(((xs - mean) ** 2) * m, dim=(0, 1)) / count
+            if update_stats:
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                    self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight / torch.sqrt(var + self.eps)
+        b = self.bias - mean * a
         return x * a.to(x.dtype) + b.to(x.dtype)
 
     def raw(self):
@@ -64,8 +94,9 @@ class PointCNLayer(nn.Module):
         self.Dense_0 = nn.Linear(in_features, num_channels)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(num_channels)
 
-    def forward(self, x, compute_dtype=None):
-        return F.relu(self.MaskedBatchNorm_0(dense(self.Dense_0, x, compute_dtype)))
+    def forward(self, x, mask=None, compute_dtype=None, update_stats=True):
+        return F.relu(self.MaskedBatchNorm_0(dense(self.Dense_0, x, compute_dtype), mask,
+                                             update_stats))
 
     def raw(self):
         """(w1, b1, bn1) for the whole-layer hook."""
@@ -106,7 +137,7 @@ class NonLocalBlock(nn.Module):
         self.fc_message_2 = nn.Linear(c // 2, c)
 
     def forward(self, feat, compat, mask=None, attention_fn: Callable | None = None,
-                compute_dtype=None):
+                compute_dtype=None, update_stats=True):
         cdt = compute_dtype
         q = dense(self.projection_q, feat, cdt)
         k = dense(self.projection_k, feat, cdt)
@@ -116,8 +147,10 @@ class NonLocalBlock(nn.Module):
             message = attention_fn(q, k, v, mask)
         else:
             message = dense_sc_attention(q, k, v, compat, mask)
-        message = F.relu(self.fc_message_bn0(dense(self.fc_message_0, message, cdt)))
-        message = F.relu(self.fc_message_bn1(dense(self.fc_message_1, message, cdt)))
+        message = F.relu(self.fc_message_bn0(dense(self.fc_message_0, message, cdt), mask,
+                                             update_stats))
+        message = F.relu(self.fc_message_bn1(dense(self.fc_message_1, message, cdt), mask,
+                                             update_stats))
         message = dense(self.fc_message_2, message, cdt)
         return feat + message.to(feat.dtype)
 
@@ -138,7 +171,12 @@ class NonLocalNet(nn.Module):
 
     ``fused_layer_fn(x, pcn_params, nl_params)`` runs each pair as the
     whole-layer kernels (kernels/encoder_layer.py) on the layer's raw
-    parameters; nothing between the layers reads a value back to the host."""
+    parameters; nothing between the layers reads a value back to the host.
+
+    ``remat=True`` checkpoints each pair (``torch.utils.checkpoint``): its
+    activations are recomputed in the backward pass, an attention kernel's
+    forward then runs twice, and the BatchNorms advance their running
+    statistics in the first run only."""
 
     def __init__(self, in_dim: int = 6, num_layers: int = 12, num_channels: int = 128):
         super().__init__()
@@ -154,15 +192,29 @@ class NonLocalNet(nn.Module):
                 getattr(self, f"NonLocal_layer_{i}").raw())
 
     def forward(self, corr_feat, compat, mask=None, attention_fn=None, fused_layer_fn=None,
-                compute_dtype=None):
+                compute_dtype=None, remat: bool = False):
         x = self.layer0(corr_feat)
         if fused_layer_fn is not None:
             for i in range(self.num_layers):
                 x = fused_layer_fn(x, *self.layer_params(i))
             return x
         for i in range(self.num_layers):
-            x = getattr(self, f"PointCN_layer_{i}")(x, compute_dtype)
-            x = getattr(self, f"NonLocal_layer_{i}")(x, compat, mask=mask,
-                                                     attention_fn=attention_fn,
-                                                     compute_dtype=compute_dtype)
+            pcn = getattr(self, f"PointCN_layer_{i}")
+            nl = getattr(self, f"NonLocal_layer_{i}")
+
+            def pair(x, update_stats=True, pcn=pcn, nl=nl):
+                x = pcn(x, mask, compute_dtype, update_stats)
+                return nl(x, compat, mask=mask, attention_fn=attention_fn,
+                          compute_dtype=compute_dtype, update_stats=update_stats)
+
+            if remat and torch.is_grad_enabled():
+                runs = []
+
+                def pair_once(x, pair=pair, runs=runs):
+                    runs.append(None)
+                    return pair(x, update_stats=len(runs) == 1)
+
+                x = checkpoint(pair_once, x, use_reentrant=False)
+            else:
+                x = pair(x)
         return x

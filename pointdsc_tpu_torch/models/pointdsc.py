@@ -1,5 +1,9 @@
-"""PointDSC eval forward in PyTorch (counterpart of
-``pointdsc_tpu/models/pointdsc.py:80-500`` at ``testing=True``).
+"""PointDSC in PyTorch (counterpart of ``pointdsc_tpu/models/pointdsc.py``).
+
+JAX's static flags map so: ``train`` is ``module.training``; ``testing``,
+``fused`` (``fused_attention``) and ``skip_M`` stay arguments. Grad mode is
+the caller's: ``register``, the ``Evaluator`` and the regime probe run under
+``torch.no_grad()``, the Trainer's train step does not.
 
 Two paths give the same result within the JAX suite's fused-vs-dense bound:
 
@@ -21,6 +25,19 @@ Two paths give the same result within the JAX suite's fused-vs-dense bound:
   - ``offset_softmax=False``: op by op in f32 with the running-max attention
     kernel, exact for any weights. ``models/regime.py`` selects it for a
     checkpoint outside the offset softmax's validity regime.
+
+  In training mode no cache is built and no whole-layer kernel runs (BN
+  folding needs running statistics): each layer's attention is
+  ``sc_attention_trainable``, whose forward and backward kernels recompute
+  the compat tile from the geometry, so gradients reach q, k, v and nothing
+  [B, N, N] is kept for the backward pass. ``fused_cache_compat=False``
+  runs the eval forward through the same forward kernel, without a cache.
+
+With ``testing=False`` (the Trainer's train and eval steps) the confidence
+head is plain PyTorch, seeds are the top-k confidences, there is no
+post-refinement, ``final_labels`` are the confidence logits, and ``M`` is the
+feature-similarity matrix unless ``skip_M`` (the fused SM loss then works from
+``normed_features`` and ``sigma``).
 """
 
 from __future__ import annotations
@@ -37,38 +54,46 @@ from pointdsc_tpu_torch.kernels.nms import pick_seeds_nms_prefiltered
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
     build_compat_cache_int8,
+    fused_sc_attention,
     fused_sc_attention_cached,
+    pack_geometry,
+    sc_attention_trainable,
 )
 from pointdsc_tpu_torch.kernels.scoring import seed_inlier_counts
 from pointdsc_tpu_torch.kernels.seed_knn import knn_bias, seed_knn_exact, seed_knn_plain
 from pointdsc_tpu_torch.models.blocks import NonLocalNet
-from pointdsc_tpu_torch.ops.compatibility import spatial_consistency
+from pointdsc_tpu_torch.ops.compatibility import feature_similarity, spatial_consistency
 from pointdsc_tpu_torch.ops.eig import power_iteration
-from pointdsc_tpu_torch.ops.nms import pick_seeds_nms
+from pointdsc_tpu_torch.ops.nms import pick_seeds_nms, pick_seeds_topk
 from pointdsc_tpu_torch.ops.procrustes import weighted_procrustes
 from pointdsc_tpu_torch.ops.se3 import transform
 
 
 class PointDSCOutput(NamedTuple):
     final_trans: torch.Tensor  # [B, 4, 4]
-    final_labels: torch.Tensor  # [B, N] 0/1 labels of the pre-refinement winner
+    # [B, N]: 0/1 labels of the pre-refinement winner (testing), else the logits
+    final_labels: torch.Tensor
     seed_trans: torch.Tensor  # [B, S, 4, 4]
     seed_fitness: torch.Tensor  # [B, S]
     confidence: torch.Tensor  # [B, N] classification logits
     normed_features: torch.Tensor  # [B, N, C] L2-normalised encoder output
     seeds: torch.Tensor  # [B, S] seed indices
+    M: torch.Tensor | None = None  # [B, N, N] feature similarity (not testing, not skip_M)
+    sigma: torch.Tensor | None = None  # the learned similarity bandwidth, (1,)
 
 
 class PointDSC(nn.Module):
-    """Spatial-consistency outlier rejection + SE(3) estimation network,
-    eval mode. Random weights come from ``generator`` (a torch.Generator);
-    trained ones from compat/weights.py or ``load_pretrained``."""
+    """Spatial-consistency outlier rejection + SE(3) estimation network.
+    Random weights come from ``generator`` (a torch.Generator); trained ones
+    from compat/weights.py or ``load_pretrained``. A new model is in eval
+    mode; the Trainer switches modes explicitly."""
 
     def __init__(self, in_dim: int = 6, num_layers: int = 12, num_channels: int = 128,
                  num_iterations: int = 10, ratio: float = 0.1,
                  inlier_threshold: float = 0.10, sigma_d: float = 0.10, k: int = 40,
                  nms_radius: float = 0.10, refine_iters: int = 20,
                  offset_softmax: bool = True, half_precision: bool = False,
+                 remat: bool = False, fused_cache_compat: bool = True,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -82,6 +107,8 @@ class PointDSC(nn.Module):
         self.refine_iters = refine_iters
         self.offset_softmax = offset_softmax
         self.half_precision = half_precision
+        self.remat = remat  # checkpoint each encoder layer (training memory)
+        self.fused_cache_compat = fused_cache_compat
         # folded BatchNorms of the whole-layer kernels, reused across forwards
         # (kernels/encoder_layer.py::folded_weights says what invalidates it)
         self._fold_cache: dict = {}
@@ -105,16 +132,14 @@ class PointDSC(nn.Module):
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
                 mod.bias.zero_()
 
-    @torch.no_grad()
     @full_f32_matmul()
     def forward(self, corr_pos, src_keypts, tgt_keypts, mask=None, testing: bool = True,
-                fused: bool = True) -> PointDSCOutput:
+                fused: bool = True, skip_M: bool = False) -> PointDSCOutput:
         """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool."""
-        if not testing:
-            raise NotImplementedError("the port runs the eval forward only (testing=True)")
+        train = self.training
         corr_pos = corr_pos.float().contiguous()
-        src_keypts = src_keypts.float().contiguous()
-        tgt_keypts = tgt_keypts.float().contiguous()
+        src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
+        tgt_keypts = tgt_keypts.detach().float().contiguous()
         bs, num_corr = corr_pos.shape[:2]
         mask_arg = mask
         if mask is None:
@@ -122,7 +147,8 @@ class PointDSC(nn.Module):
 
         # ---- Step 1: spatial consistency, shared by all attention layers
         attention_fn, fused_layer_fn = None, None
-        if fused:
+        compat, src_dist = None, None
+        if fused and not train and self.fused_cache_compat:
             cache = build_compat_cache_int8(src_keypts, tgt_keypts, self.sigma_d, mask=mask_arg)
             offset = self.offset_softmax
 
@@ -135,10 +161,21 @@ class PointDSC(nn.Module):
             # the whole-layer kernels implement only the offset softmax in
             # f32 activations; the other configurations keep the encoder op
             # by op around the attention kernel
-            if offset and not self.half_precision:
+            if offset and not self.half_precision and not self.remat:
                 fused_layer_fn = make_fused_layer_fn(cache, mask=mask_arg,
                                                      fold_cache=self._fold_cache)
-            compat, src_dist = None, None
+        elif fused and train:
+            geom = pack_geometry(src_keypts, tgt_keypts, mask_arg)
+            sigma_d = self.sigma_d
+
+            def attention_fn(q, k, v, _mask):
+                return sc_attention_trainable(q.float(), k.float(), v.float(), geom, sigma_d)
+        elif fused:
+            sigma_d = self.sigma_d
+
+            def attention_fn(q, k, v, _mask):
+                return fused_sc_attention(q, k, v, src_keypts, tgt_keypts, sigma_d,
+                                          mask=mask_arg)
         else:
             compat, src_dist = spatial_consistency(src_keypts, tgt_keypts, self.sigma_d,
                                                    mask=mask)
@@ -146,22 +183,30 @@ class PointDSC(nn.Module):
         corr_features = self.encoder(
             corr_pos, compat, mask=mask, attention_fn=attention_fn,
             fused_layer_fn=fused_layer_fn,
-            compute_dtype=torch.bfloat16 if self.half_precision else None)
+            compute_dtype=torch.bfloat16 if self.half_precision else None,
+            remat=self.remat)
         feat_sq = torch.sum(corr_features * corr_features, dim=-1, keepdim=True)
         normed_features = corr_features / torch.sqrt(feat_sq + 1e-12)
         # a half-precision encoder hands on bf16; everything after it is f32
         corr_features, normed_features = corr_features.float(), normed_features.float()
 
-        # ---- Step 2: confidence head + seed NMS
+        # ---- feature-similarity matrix, the dense SM loss's input
+        M = None
+        if not (testing or skip_M):
+            M = feature_similarity(normed_features, self.sigma, mask=mask)
+
+        # ---- Step 2: confidence head + seeds
         head = [t for layer in (self.classification_0, self.classification_1,
                                 self.classification_2) for t in (layer.weight, layer.bias)]
-        if fused:
+        if fused and testing:
             confidence = confidence_head(corr_features, *head)
         else:
             confidence = confidence_head_plain(corr_features, *head)
 
         num_seeds = max(1, int(num_corr * self.ratio))
-        if fused:
+        if not testing:
+            seeds = pick_seeds_topk(confidence.detach(), num_seeds, mask=mask)
+        elif fused:
             seeds = pick_seeds_nms_prefiltered(src_keypts, confidence, self.nms_radius,
                                                num_seeds, mask=mask)
         else:
@@ -171,19 +216,22 @@ class PointDSC(nn.Module):
         seed_trans, seed_fitness, final_trans, final_labels = self._seed_transforms(
             seeds, normed_features, src_keypts, tgt_keypts, mask, fused)
 
-        # ---- Step 5: post refinement; the labels stay those of the
-        # pre-refinement winner, as in the reference (PointDSC.py:182-193)
-        final_trans = self.post_refinement(final_trans, src_keypts, tgt_keypts, mask, fused)
+        if testing:
+            # ---- Step 5: post refinement; the labels stay those of the
+            # pre-refinement winner, as in the reference (PointDSC.py:182-193)
+            final_trans = self.post_refinement(final_trans, src_keypts, tgt_keypts, mask, fused)
+        else:
+            final_labels = confidence  # the classification loss's logits
         return PointDSCOutput(final_trans, final_labels, seed_trans, seed_fitness,
-                              confidence, normed_features, seeds)
+                              confidence, normed_features, seeds, M, self.sigma)
 
     def _seed_transforms(self, seeds, feats, src_keypts, tgt_keypts, mask, fused):
         bs, num_corr, c = feats.shape
         k = min(self.k, num_corr - 1)
         if fused:
-            knn_idx = seed_knn_exact(feats, seeds, k, mask=mask)  # [B, S, k]
+            knn_idx = seed_knn_exact(feats.detach(), seeds, k, mask=mask)  # [B, S, k]
         else:
-            knn_idx = seed_knn_plain(feats, seeds, k, knn_bias(mask, feats))
+            knn_idx = seed_knn_plain(feats.detach(), seeds, k, knn_bias(mask, feats))
 
         bundle = torch.cat([feats, src_keypts, tgt_keypts, mask.to(feats.dtype)[..., None]],
                            dim=-1)  # [B, N, C+7]
@@ -218,8 +266,9 @@ class PointDSC(nn.Module):
 
         denom = torch.clamp(torch.sum(mask, dim=-1), min=1)[:, None]
         if fused:
-            counts = seed_inlier_counts(seed_trans.contiguous(), src_keypts, tgt_keypts,
-                                        self.inlier_threshold, mask=mask)
+            # hypothesis selection is an argmax: no gradient passes the counts
+            counts = seed_inlier_counts(seed_trans.detach().contiguous(), src_keypts,
+                                        tgt_keypts, self.inlier_threshold, mask=mask)
             seed_fitness = counts / denom
         else:
             pred = torch.einsum("bsij,bnj->bsni", seed_trans[:, :, :3, :3], src_keypts) \

@@ -1,5 +1,5 @@
-"""Spatial-consistency matrix for the dense path (PyTorch counterpart of
-``pointdsc_tpu/ops/compatibility.py:18-50``)."""
+"""Spatial-consistency and feature-similarity matrices of the dense path
+(PyTorch counterpart of ``pointdsc_tpu/ops/compatibility.py:18-71``)."""
 
 from __future__ import annotations
 
@@ -27,3 +27,18 @@ def spatial_consistency(
         pair_mask = mask[..., :, None] & mask[..., None, :]
         compat = torch.where(pair_mask, compat, torch.zeros_like(compat))
     return compat, src_dist
+
+
+def feature_similarity(feats: torch.Tensor, sigma: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """M = clamp(1 - (1 - f_i . f_j) / sigma^2, 0, 1) with a zero diagonal,
+    over L2-normalised feats [..., N, C]; ``sigma`` is the learned scalar.
+    Invalid rows and columns are zeroed."""
+    inner = torch.einsum("...nc,...mc->...nm", feats, feats)
+    M = torch.clamp(1.0 - (1.0 - inner) / (sigma * sigma), 0.0, 1.0)
+    n = feats.shape[-2]
+    M = M * (1.0 - torch.eye(n, dtype=M.dtype, device=M.device))
+    if mask is not None:
+        pair_mask = mask[..., :, None] & mask[..., None, :]
+        M = torch.where(pair_mask, M, torch.zeros_like(M))
+    return M

@@ -1,5 +1,6 @@
-"""Seed selection by matrix-parallel NMS, the dense oracle (PyTorch
-counterpart of ``pointdsc_tpu/ops/nms.py:17-58``)."""
+"""Seed selection: matrix-parallel NMS, the dense oracle of the eval
+forward, and the plain top-k of training (PyTorch counterpart of
+``pointdsc_tpu/ops/nms.py:17-70``)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ def top_k_like_jax(key: torch.Tensor, k: int) -> torch.Tensor:
     promises no order on ties)."""
     order = torch.sort(_total_order_key(key.float()), dim=-1, descending=True,
                        stable=True).indices
-    return order[..., :k]
+    return order[..., :k].contiguous()
 
 
 def nms_key(scores: torch.Tensor, is_local_max: torch.Tensor,
@@ -57,3 +58,12 @@ def pick_seeds_nms(
     free = score_relation | (dists >= radius)
     is_local_max = torch.amin(free.to(scores.dtype), dim=-1)
     return top_k_like_jax(nms_key(scores, is_local_max, mask), max_num)
+
+
+def pick_seeds_topk(scores: torch.Tensor, max_num: int,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Train-time seed picking: the top ``max_num`` by confidence, ties as
+    ``jax.lax.top_k`` breaks them; invalid points sort last."""
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -float("inf")))
+    return top_k_like_jax(scores, max_num)

@@ -20,3 +20,8 @@ def integrate_trans(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, t[..., :, None]], dim=-1)  # [..., 3, 4]
     bottom = R.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def decompose_trans(trans: torch.Tensor):
+    """Split [..., 4, 4] into (R [..., 3, 3], t [..., 3, 1])."""
+    return trans[..., :3, :3], trans[..., :3, 3:4]

@@ -33,6 +33,13 @@ SNAP = os.path.join(ROOT, "snapshot", "PointDSC_Synthetic_release")
 N = 512
 
 
+@pytest.fixture(autouse=True)
+def no_grad():
+    """Grad mode is the caller's: these tests run the eval forward without."""
+    with torch.no_grad():
+        yield
+
+
 def inputs(masked, n=N, seed=3):
     """One synthetic pair; masked: 480 real points padded to 512. The
     snapshot's offset-softmax slack depends on the pair: seed 3 is in regime

@@ -22,6 +22,7 @@ from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
 from pointdsc_tpu_torch.kernels import scoring as kscore
 from pointdsc_tpu_torch.kernels import seed_knn as kknn
+from pointdsc_tpu_torch.kernels import sm_loss as ksm
 
 pytestmark = pytest.mark.cuda
 SNAP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -325,6 +326,16 @@ def test_wrappers_launch_and_check(dev):
     kknn.seed_knn_exact(torch.nn.functional.normalize(q, dim=-1), seeds, 8, mask=mask)
     kscore.seed_inlier_counts(gt[:, None].contiguous(), src, tgt, 0.1, mask=mask)
     kref.fused_post_refinement(gt, src, tgt, mask, 0.1, 20)
+    katt.fused_sc_attention(q, q, q, src, tgt, 0.1, mask=mask)
+    geom = katt.pack_geometry(src, tgt, mask)
+    out, lse = katt.sc_attention_forward(q, q, q, geom, 0.1)
+    dvec = torch.sum(out * q, dim=-1)
+    katt.sc_attention_backward_dq(q, q, q, geom, lse, dvec, q, 0.1)
+    katt.sc_attention_backward_dkv(q, q, q, geom, lse, dvec, q, 0.1)
+    strips = ksm.pack_labels(torch.ones((B, 512), device=dev), mask)
+    scalars = torch.tensor([[1.0, 0.5, 0.5, 0.0]] * B, device=dev)
+    ksm.sm_loss_sums(q, strips, scalars)
+    ksm.sm_loss_grads(q, strips, scalars)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts.pop("compat_cache_int8") == 2  # this test's and layer_case's
@@ -333,6 +344,12 @@ def test_wrappers_launch_and_check(dev):
     with pytest.raises(ValueError):
         katt.fused_sc_attention_cached(q64, q64, q64, cache, src, tgt, mask=mask,
                                        offset_softmax=False)
+    with pytest.raises(ValueError):
+        katt.sc_attention_trainable(q64, q64, q64, geom, 0.1)
+    with pytest.raises(ValueError):
+        ksm.sm_loss_sums(q64, strips, scalars)
+    with pytest.raises(ValueError):
+        katt.sc_attention_forward(q.double(), q.double(), q.double(), geom.double(), 0.1)
 
 
 def test_forward_on_card_matches_cpu(dev):
@@ -346,3 +363,123 @@ def test_forward_on_card_matches_cpu(dev):
     out = model.to(dev)(*(a.to(dev) for a in args), fused=True)
     torch.testing.assert_close(out.final_trans.cpu(), ref.final_trans, atol=1e-3, rtol=0)
     assert float((out.final_labels.cpu() == ref.final_labels).float().mean()) > 0.99
+
+
+# ------------------------------------------------------------ training kernels
+
+def train_attention_inputs(dev, n, seed=1):
+    """q, k, v, dO [B, n, 128] and the packed geometry of B pairs (the second
+    padded). Unit-variance q and k: logits of standard deviation ~1."""
+    src, tgt, mask, _ = pair(n, dev)
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, d_out = (torch.randn((B, n, 128), generator=gen).to(dev) for _ in range(4))
+    return q, k, v, d_out, katt.pack_geometry(src, tgt, mask), (src, tgt, mask)
+
+
+@pytest.mark.parametrize("n", [1000, 2048])
+def test_compat_from_geometry_is_the_kernels(dev, n):
+    """Constant q and k rows make every logit compat times one constant, so
+    the result shows compat alone: kernel and plain version then agree to the
+    order of the n-term sums (1e-5), which they could not if their compat
+    entries differed in the last bits (a difference is divided by 0.01)."""
+    q, k, v, _, geom, _ = train_attention_inputs(dev, n)
+    ones = torch.full_like(q, 0.25)
+    out, lse = katt.sc_attention_forward(ones, ones, v, geom, 0.1)
+    ref, ref_lse = katt.sc_attention_forward_plain(ones, ones, v, geom, 0.1)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1000, 2048])
+def test_sc_attention_train_forward(dev, n):
+    """out and lse, atol = rtol = 1e-4: compat is the same bit for bit (the
+    kernel evaluates the plain version's rounded operations), the 128-term
+    logits and the n-term sums run in another order."""
+    q, k, v, _, geom, (src, tgt, mask) = train_attention_inputs(dev, n)
+    out, lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
+    ref, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    nolse = katt.fused_sc_attention(q, k, v, src, tgt, 0.1, mask=mask)
+    assert torch.equal(nolse, out)
+
+
+@pytest.mark.parametrize("n", [1000, 2048])
+def test_sc_attention_train_backward(dev, n):
+    """dq, dk, dv from the plain version's lse, atol = rtol = 2e-4 (sums of n
+    terms of either sign, in another order)."""
+    q, k, v, d_out, geom, _ = train_attention_inputs(dev, n)
+    out, lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    dvec = torch.sum(d_out * out, dim=-1)
+    args = (q, k, v, geom, lse, dvec, d_out, 0.1)
+    ref = katt.sc_attention_backward_plain(*args)
+    got = (katt.sc_attention_backward_dq(*args), *katt.sc_attention_backward_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4, msg=lambda m: f"{name}: {m}")
+    # a padded key's P is exactly 0: no gradient reaches it
+    pad = n - n // 10
+    assert float(got[1][1, pad:].abs().max()) == 0.0 and float(got[2][1, pad:].abs().max()) == 0.0
+
+
+def test_sc_attention_trainable_function(dev):
+    """The Function on the card against itself on the CPU (plain versions)."""
+    n = 1000
+    q, k, v, d_out, geom, _ = train_attention_inputs(dev, n)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.detach().to(where).clone().requires_grad_() for t in (q, k, v)]
+        out = katt.sc_attention_trainable(*leaves, geom.to(where), 0.1)
+        out.backward(d_out.to(where))
+        grads[where] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+def sm_inputs(dev, n, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1).to(dev)
+    gt = (torch.rand((B, n), generator=gen) < 0.3).float().to(dev)
+    mask = torch.ones((B, n), dtype=torch.bool)
+    mask[1, n - n // 10:] = False
+    return f, gt, mask.to(dev)
+
+
+@pytest.mark.parametrize("balanced", [True, False])
+@pytest.mark.parametrize("n", [1000, 2048])
+def test_sm_loss_kernels(dev, n, balanced):
+    """Sums rtol 1e-5 (n^2 non-negative terms; the kernel adds per-tile
+    partial sums), dF atol 1e-6 relative to its largest entry, dsigma rtol
+    1e-4 (terms of either sign). A pair whose u lies within rounding of 0 or 1
+    may fall on either side of the gate in the two versions; its gradient
+    term is then O(1) x w, far below the tolerance."""
+    f, gt, mask = sm_inputs(dev, n)
+    strips = ksm.pack_labels(gt, mask)
+    wp, wn = ksm.balance_weights(strips, balanced)
+    sigma = torch.full((B,), 1.07, device=dev)
+    scalars = torch.stack([sigma, wp, wn, torch.zeros_like(wp)], dim=-1).contiguous()
+    got, ref = ksm.sm_loss_sums(f, strips, scalars), ksm.sm_loss_sums_plain(f, strips, scalars)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
+    (df, ds), (rdf, rds) = ksm.sm_loss_grads(f, strips, scalars), \
+        ksm.sm_loss_grads_plain(f, strips, scalars)
+    assert float((df - rdf).abs().max()) <= 1e-6 * float(rdf.abs().max()) + 1e-12
+    torch.testing.assert_close(ds, rds, atol=0, rtol=1e-4)
+
+
+def test_sm_loss_function_and_determinism(dev):
+    """The Function on the card against itself on the CPU, and twice on the
+    card: the loss and both gradients are the same bit for bit from run to
+    run (fixed-order sums, no atomics)."""
+    f, gt, mask = sm_inputs(dev, 1000)
+    runs = []
+    for where in ("cuda", "cuda", "cpu"):
+        ff = f.detach().to(where).clone().requires_grad_()
+        sigma = torch.tensor([0.9], device=where, requires_grad=True)
+        loss = ksm.fused_spectral_matching_loss(ff, sigma, gt.to(where), mask.to(where), True)
+        loss.backward()
+        runs.append((loss.detach().cpu(), ff.grad.cpu(), sigma.grad.cpu()))
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(runs[0][0], runs[2][0], atol=0, rtol=1e-5)
+    assert float((runs[0][1] - runs[2][1]).abs().max()) <= 1e-6 * float(runs[2][1].abs().max())
+    torch.testing.assert_close(runs[0][2], runs[2][2], atol=0, rtol=1e-4)

@@ -20,8 +20,16 @@ from pointdsc_tpu_torch.kernels import refine as t_ref
 from pointdsc_tpu_torch.kernels import sc_attention as t_att
 from pointdsc_tpu_torch.kernels import scoring as t_score
 from pointdsc_tpu_torch.kernels import seed_knn as t_knn
+from pointdsc_tpu_torch.kernels import sm_loss as t_sm
 
 SIZES = [512, 1024]
+
+
+@pytest.fixture(autouse=True)
+def no_grad():
+    """Grad mode is the caller's: these tests run the eval forward without."""
+    with torch.no_grad():
+        yield
 
 
 def both(a, dtype=np.float32):
@@ -210,7 +218,17 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     t_knn.seed_knn_exact(q, torch.arange(8)[None], 4)
     t_ref.fused_post_refinement(torch.eye(4)[None], st, tt, torch.ones(1, 256, dtype=torch.bool),
                                 0.1, 3)
-    assert len(kernels.WRAPPERS) == 11
+    t_att.fused_sc_attention(q, q, q, st, tt, 0.1)
+    geom = t_att.pack_geometry(st, tt)
+    out, lse = t_att.sc_attention_forward(q, q, q, geom, 0.1)
+    dvec = torch.sum(out * q, dim=-1)
+    t_att.sc_attention_backward_dq(q, q, q, geom, lse, dvec, q, 0.1)
+    t_att.sc_attention_backward_dkv(q, q, q, geom, lse, dvec, q, 0.1)
+    strips = t_sm.pack_labels(torch.ones(1, 256), torch.ones(1, 256, dtype=torch.bool))
+    scalars = torch.tensor([[1.0, 0.5, 0.5, 0.0]])
+    t_sm.sm_loss_sums(q, strips, scalars)
+    t_sm.sm_loss_grads(q, strips, scalars)
+    assert len(kernels.WRAPPERS) == 17
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 
 

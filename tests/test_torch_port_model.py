@@ -38,6 +38,13 @@ GOLDEN = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata", "golden_n5120.npz"
 N = 512
 
 
+@pytest.fixture(autouse=True)
+def no_grad():
+    """Grad mode is the caller's: these tests run the eval forward without."""
+    with torch.no_grad():
+        yield
+
+
 def inputs(masked):
     """One synthetic pair at N = 512; masked: 480 real points padded to 512."""
     ex = SyntheticPairDataset(num_pairs=1, num_corr=480 if masked else N, seed=7)[0]

@@ -151,7 +151,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "for name in ('eval.runner', 'eval.protocol', 'eval.metrics', 'utils.timer',\n"
         "             'models.regime', 'kernels.encoder_layer', 'tools.regime_scan',\n"
-        "             'tools.profile_forward'):\n"
+        "             'tools.profile_forward', 'train.config', 'train.losses',\n"
+        "             'train.trainer', 'kernels.sm_loss', 'utils.logging', 'utils.seed',\n"
+        "             'tools.train_synthetic', 'tools.profile_train_step'):\n"
         "    assert 'pointdsc_tpu_torch.' + name in names, name\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
@@ -173,10 +175,13 @@ def test_port_sources_name_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "pointdsc_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    assert len(files) > 40
+    assert len(files) > 50
     rel = {os.path.relpath(f, os.path.join(ROOT, "pointdsc_tpu_torch")) for f in files}
     for name in ("eval/runner.py", "eval/protocol.py", "eval/metrics.py", "utils/timer.py",
-                 "models/regime.py", "kernels/encoder_layer.py", "tools/regime_scan.py"):
+                 "models/regime.py", "kernels/encoder_layer.py", "tools/regime_scan.py",
+                 "train/config.py", "train/losses.py", "train/trainer.py", "kernels/sm_loss.py",
+                 "utils/logging.py", "utils/seed.py", "tools/train_synthetic.py",
+                 "tools/profile_train_step.py"):
         assert name in rel, name
     bad = []
     for path in files:
