@@ -63,6 +63,23 @@ layers, C = 128, k = 40, bs 16, 1000 correspondences padded to 1024:
      their peak memory; the dense step is tried for its memory figure only,
      and an out-of-memory error is reported as a finding;
  18. the Trainer's checkpoint through ``load_pretrained`` and ``register``.
+Then the registration path (``ops/icp.py``, ``descriptors/fpfh.py``,
+``tools/demo_registration.py``) on a seeded indoor-like scene that the script
+builds itself (``make_scene``; no demo data is needed):
+ 19. the nearest-neighbour kernel against its plain version at N = M = 20480,
+     at 5120 with a mask and with every base point masked (d2 bit for bit),
+     and the symmetric cache build against the full-grid kernel (byte for
+     byte) and its plain version at N = 5120 and 20480; time them;
+ 20. ``tools/demo_registration.main`` on the scene written as PLY (~200k raw
+     points a cloud, FPFH, 5000 correspondences, the Synthetic snapshot,
+     ICP) with the counts set to 0 before and read after: it must register
+     (RE < 15 deg, TE < 30 cm) with 20 nn-search launches; ICP from gt
+     perturbed by 3 deg / 5 cm; ICP and the information matrix on the card
+     against the plain search;
+ 21. ``Evaluator(use_icp=True)`` on the 3 pairs of phase 8, beside it
+     without ICP (recall, model_time, launches);
+ 22. the ICP crossover: kernel against plain search at N = M in ICP_SIZES;
+ 23. ``tools/exp_symcache.py``, the symmetric-cache experiment, at SYM_RUNS.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -111,11 +128,91 @@ OPS_PER_COMPAT_PAIR = 25  # two 3-dots (10), two gram distances (10), diff, squa
 OPS_PER_ATTN_BWD_PAIR_EXTRA = 9  # scale, compat multiply, bias, - lse, exp, dP - D, 3 multiplies
 OPS_PER_SM_PAIR = 14  # u (3), clip and diagonal (3), pm and gtM (3), two squared terms (5)
 OPS_PER_SM_BWD_PAIR = 24  # the forward's M terms (9), g (8), gate (4), dsigma term (3)
+OPS_PER_NN_PAIR = 9  # 3-dot (5), norm sum (1), 2x and subtract (2), compare (1)
+OPS_PER_NN_POINT = 5  # |p|^2 of each query and base point, in the packing
 
 # the reference training shape and the KITTI regime of tools/train_synthetic.py
 TRAIN_BS, TRAIN_NODE, TRAIN_N = 16, 1000, 1024
 TRAIN_STEPS_PER_EPOCH = 12
 KITTI_BS = 2
+
+# the registration path: the demo's scene (raw points per cloud), its sample
+# of correspondences (bucket 5120) and voxel, the nn-search sizes of phase 19,
+# the sizes of the ICP crossover and of the symmetric-cache experiment
+SCENE_POINTS, DEMO_NODE, DEMO_VOXEL = 200_000, 5000, 0.03
+NN_N, NN_N_MASKED = 20480, N
+ICP_SIZES = (2048, 5120, 8192, 20480)
+SYM_RUNS = ((20480, 256), (20480, 1024), (5120, 256))
+
+
+def _rot(axis, angle):
+    """3x3 rotation by ``angle`` radians about ``axis`` (Rodrigues)."""
+    import numpy as np
+
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def make_scene(seed=0, n_points=200_000, room=2.5, noise=0.005, overlap_cut=(2.0, 0.6),
+               angle_deg=25.0, shift=0.4):
+    """A seeded indoor-like scan pair: floor, two walls, boxes of random size
+    and yaw, spheres, in a room of side ``room`` metres, surfaces sampled
+    uniformly by area (~n_points per cloud before cropping). Each cloud is
+    sampled on its own with ``noise`` Gaussian noise; the source keeps
+    x <= overlap_cut[0], the target x >= overlap_cut[1] (~70% overlap), and
+    the target is moved by a rigid gt (rotation of angle_deg about a random
+    axis, translation of norm ``shift``). Returns (src [P, 3], tgt [Q, 3],
+    gt [4, 4]) with tgt ~ gt(src) on the overlap."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rects = [  # (origin, edge u, edge v): floor and two walls
+        (np.zeros(3), np.array([room, 0, 0]), np.array([0, 0.8 * room, 0])),
+        (np.zeros(3), np.array([0, 0.8 * room, 0]), np.array([0, 0, 0.4 * room])),
+        (np.zeros(3), np.array([room, 0, 0]), np.array([0, 0, 0.4 * room])),
+    ]
+    spheres = []
+    for _ in range(7):  # boxes: five faces each (not the bottom)
+        sx, sy, sz = rng.uniform(0.06, 0.28, 3) * room
+        cx, cy = rng.uniform(0.2, 0.8) * room, rng.uniform(0.2, 0.6) * room
+        R = _rot([0, 0, 1], rng.uniform(0, np.pi))
+        o = np.array([cx, cy, 0.0]) - R @ np.array([sx, sy, 0]) / 2
+        ex, ey, ez = R @ [sx, 0, 0], R @ [0, sy, 0], np.array([0, 0, sz])
+        rects += [(o + ez, ex, ey), (o, ex, ez), (o + ey, ex, ez), (o, ey, ez), (o + ex, ey, ez)]
+        if rng.uniform() < 0.5:  # a ball on some boxes
+            r = rng.uniform(0.032, 0.08) * room
+            spheres.append((np.array([cx, cy, sz + r]), r))
+    for _ in range(4):
+        r = rng.uniform(0.04, 0.14) * room
+        spheres.append((np.array([rng.uniform(0.16, 0.84) * room,
+                                  rng.uniform(0.16, 0.64) * room, r]), r))
+    areas = np.array([np.linalg.norm(np.cross(u, v)) for _, u, v in rects]
+                     + [4 * np.pi * r * r for _, r in spheres])
+    ax = rng.normal(size=3)
+    gt = np.eye(4)
+    gt[:3, :3] = _rot(ax, np.deg2rad(angle_deg))
+    d = rng.normal(size=3)
+    gt[:3, 3] = shift * d / np.linalg.norm(d)
+
+    def sample(gen):
+        counts = gen.multinomial(n_points, areas / areas.sum())
+        pts = []
+        for (o, u, v), c in zip(rects, counts[:len(rects)]):
+            a, b = gen.uniform(size=(2, c, 1))
+            pts.append(o + a * u + b * v)
+        for (cen, r), c in zip(spheres, counts[len(rects):]):
+            dirs = gen.normal(size=(c, 3))
+            pts.append(cen + r * dirs / np.linalg.norm(dirs, axis=1, keepdims=True))
+        pts = np.concatenate(pts)
+        return pts + gen.normal(scale=noise, size=pts.shape)
+
+    src = sample(np.random.default_rng([seed, 1]))
+    tgt = sample(np.random.default_rng([seed, 2]))
+    src = src[src[:, 0] <= overlap_cut[0]]
+    tgt = tgt[tgt[:, 0] >= overlap_cut[1]]
+    tgt = tgt @ gt[:3, :3].T + gt[:3, 3]
+    return src, tgt, gt
 
 
 def check(ok, message: str) -> None:
@@ -1108,6 +1205,311 @@ def training(torch, pt, kernels, dev) -> dict:
     return {name: counts[name] for name in TRAIN_KERNELS}
 
 
+def scene_keypoints(seed=0):
+    """The demo scene's raw clouds, gt and voxel-downsampled keypoints."""
+    from pointdsc_tpu_torch.descriptors import voxel_downsample
+
+    src, tgt, gt = make_scene(seed, n_points=SCENE_POINTS)
+    return src, tgt, gt, voxel_downsample(src, DEMO_VOXEL), voxel_downsample(tgt, DEMO_VOXEL)
+
+
+def plain_nn(query, base, base_mask=None):
+    """``kernels.nn_search.nearest_neighbors`` through its plain version, on
+    the tensors' own device: the [N, M] matrix in the kernel's operations."""
+    from pointdsc_tpu_torch.kernels import nn_search as knn
+
+    single = query.ndim == 2
+    qp, bp = knn.pack_points(query), knn.pack_points(base, base_mask)
+    d2, idx = knn.nearest_neighbors_plain(qp[None] if single else qp, bp[None] if single else bp)
+    return (d2[0], idx[0]) if single else (d2, idx)
+
+
+def plain_icp_path():
+    """A context in which ops/icp.py searches through the plain version."""
+    from unittest import mock
+
+    from pointdsc_tpu_torch.ops import icp as icp_mod
+
+    return mock.patch.object(icp_mod, "nearest_neighbors", plain_nn)
+
+
+def check_registration_kernels(torch, dev) -> list[dict]:
+    """Phase 19: the nearest-neighbour kernel and the symmetric cache build
+    against their plain versions on the card.
+
+    nearest_neighbors: the demo scene's keypoints at N = M = 20480 (source
+    points moved by gt onto the target), at 5120 with 30% of the base
+    masked, and with every base point masked. d2 equal bit for bit (the
+    kernel rounds each operation in the plain version's order); the index
+    equal, or where not, the d2 at both indices equal. ``library_ms`` is null:
+    ``torch.cdist(q, b).min(dim=1)`` computes the same function in two calls
+    (a matrix and a reduction); its time stands beside as ``cdist_min_ms``.
+
+    compat_cache_int8_sym: equal byte for byte to the full-grid kernel at
+    N = 5120 and 20480 (compat_value is exactly symmetric), and within +-1 on
+    <= 0.1% of entries of its plain version (cuBLAS's gram-form distances
+    round otherwise); timed at N = 20480, block 256. Its bound counts the
+    output written once (the N^2 bytes) and the N(N+1)/2 entries a symmetric
+    build must compute. ``library_ms`` is null: no PyTorch call builds it."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.kernels import nn_search as knn
+    from pointdsc_tpu_torch.kernels import sc_attention as katt
+    from pointdsc_tpu_torch.kernels import symcache as ksym
+
+    rows = []
+    _, _, gt, skp, tkp = scene_keypoints()
+    gen = np.random.default_rng(0)
+
+    def case(n, mask_share):
+        s = skp[gen.choice(len(skp), n, replace=len(skp) < n)]
+        t = tkp[gen.choice(len(tkp), n, replace=len(tkp) < n)]
+        q = torch.as_tensor(s @ gt[:3, :3].T.astype(np.float32) + gt[:3, 3].astype(np.float32))
+        mask = None if mask_share is None else torch.as_tensor(gen.uniform(size=n) >= mask_share)
+        return (q.float().contiguous().to(dev), torch.as_tensor(t).contiguous().to(dev),
+                None if mask is None else mask.to(dev))
+
+    errs = {}
+    for tag, (n, share) in (("full", (NN_N, None)), ("masked", (NN_N_MASKED, 0.3)),
+                            ("all_masked", (NN_N_MASKED, 1.0))):
+        q, b, m = case(n, share)
+        d2, idx = knn.nearest_neighbors(q, b, m)
+        rd, ri = plain_nn(q, b, m)
+        check(torch.equal(d2, rd), f"nn-search {tag}: d2 differs from the plain version's "
+                                   f"by {float((d2 - rd).abs().max())}")
+        diff = idx != ri
+        if bool(diff.any()):  # the d2 at both indices, the plain way
+            qp, bp = knn.pack_points(q[diff]), knn.pack_points(b, m)
+            at = lambda i: ((qp[:, 3] + bp[i, 3]) - 2.0 * ((qp[:, 0] * bp[i, 0] + qp[:, 1]
+                            * bp[i, 1]) + qp[:, 2] * bp[i, 2]))
+            check(torch.equal(at(idx[diff]), at(ri[diff])), f"nn-search {tag}: indices differ")
+        if share == 1.0:
+            check(bool((idx == 0).all()) and bool((d2 == 1e30).all()),
+                  "nn-search with every base point masked: not (1e30, 0)")
+        errs[tag] = dict(index_mismatches=int(diff.sum()), max_abs_err=float((d2 - rd).abs().max()))
+        if tag == "full":
+            fq, fb = q, b
+    print(f"nearest_neighbors vs plain: {json.dumps(errs)}", flush=True)
+    n = NN_N
+    b_, o_ = bound_ms(2 * n * 3 * 4 + n * (4 + 8), float(n) * n * OPS_PER_NN_PAIR
+                      + 2 * n * OPS_PER_NN_POINT)
+    rows.append(dict(
+        name="nearest_neighbors", route="cuda",
+        source="pointdsc_tpu_torch/kernels/csrc/nn_search.cu",
+        replaces="pointdsc_tpu/kernels/nn_search.py:38", max_abs_err=errs["full"]["max_abs_err"],
+        ms=time_ms(lambda: knn.nearest_neighbors(fq, fb)),
+        plain_ms=time_ms(lambda: plain_nn(fq, fb), reps=10),
+        bound_ms=b_, bound_by=o_, library_ms=None,
+        cdist_min_ms=time_ms(lambda: torch.cdist(fq, fb).min(dim=1), reps=10),
+        n=n, m=n, index_mismatches=errs["full"]["index_mismatches"],
+        masked_5120=errs["masked"], all_masked_5120=errs["all_masked"]))
+    del fq, fb
+    torch.cuda.empty_cache()
+
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+
+    for n in (N, NN_N):
+        ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.3, seed=7)[0]
+        src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
+        tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
+        full = katt.build_compat_cache_int8(src, tgt, 0.1)
+        sym = ksym.build_compat_cache_int8_sym(src, tgt, 0.1)
+        check(torch.equal(sym, full), f"symmetric cache differs from the full-grid one at N = {n}")
+        plain = ksym.compat_cache_sym_plain(katt.pack_geometry(src, tgt), katt.cache_coef(0.1))
+        d = (sym.int() - plain.int()).abs()
+        off1 = int((d == 1).sum())
+        check(int(d.max()) <= 1 and off1 <= 1e-3 * n * n,
+              f"symmetric cache vs plain at N = {n}: max {int(d.max())}, {off1} off by 1")
+        del full, sym, plain, d
+        torch.cuda.empty_cache()
+    ops = n * (n + 1) / 2 * OPS_PER_CACHE_ENTRY
+    b_, o_ = bound_ms(src.numel() * 4 * 2 + float(n) * n, ops)
+    rows.append(dict(
+        name="compat_cache_int8_sym", route="cuda",
+        source="pointdsc_tpu_torch/kernels/csrc/compat_cache_sym.cu",
+        replaces="tools/exp_symcache.py:49,73", max_abs_err=1.0 if off1 else 0.0,
+        ms=time_ms(lambda: ksym.build_compat_cache_int8_sym(src, tgt, 0.1), reps=10),
+        plain_ms=time_ms(lambda: ksym.compat_cache_sym_plain(katt.pack_geometry(src, tgt),
+                                                             katt.cache_coef(0.1)), reps=5),
+        bound_ms=b_, bound_by=o_, library_ms=None, n=n, block=256, off_by_one=off1,
+        full_grid_ms=time_ms(lambda: katt.build_compat_cache_int8(src, tgt, 0.1), reps=10)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rot_error_deg(a, b):
+    import numpy as np
+
+    r = a[:3, :3] @ b[:3, :3].T
+    return float(np.degrees(np.arccos(np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def registration_demo(torch, kernels, dev) -> int:
+    """Phase 20: the registration demo (``tools/demo_registration.main``) on
+    the seeded scene, written as PLY into a temporary directory: FPFH,
+    matching, the forward with the Synthetic snapshot (5000 correspondences,
+    bucket 5120), ICP on the whole keypoint clouds; counts set to 0 just
+    before and read just after. The pair must register by the repository's
+    rule (RE < 15 deg, TE < 30 cm), with the nn-search kernel launched once
+    per ICP iteration (20). Then, on the same keypoint clouds: ICP from gt
+    perturbed by 3 deg / 5 cm must come within 1 deg / 2 cm; ICP on the card
+    must agree with ICP through the plain search within 1e-5 in the
+    transform, and the information matrix within 1e-5 relative, its [5, 5]
+    count exactly. Returns the nn-search launches of the demo's run."""
+    import tempfile
+
+    import numpy as np
+
+    from pointdsc_tpu_torch.data.ply import write_ply_xyz
+    from pointdsc_tpu_torch.ops.icp import icp_point_to_point, information_matrix
+    from pointdsc_tpu_torch.tools import demo_registration
+
+    src, tgt, gt, skp, tkp = scene_keypoints()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ply_xyz(os.path.join(tmp, "src.ply"), src)
+        write_ply_xyz(os.path.join(tmp, "tgt.ply"), tgt)
+        os.chdir(ROOT)  # the demo reads snapshot/<name> from the working directory
+        try:
+            report = {}
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            trans = demo_registration.main(
+                ["--src_path", os.path.join(tmp, "src.ply"), "--tgt_path",
+                 os.path.join(tmp, "tgt.ply"), "--chosen_snapshot", "PointDSC_Synthetic_release",
+                 "--num_node", str(DEMO_NODE), "--voxel_size", str(DEMO_VOXEL), "--use_icp",
+                 "true", "--out_dir", os.path.join(tmp, "out"), "--device", DEVICE],
+                report=report)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            os.chdir(cwd)
+    sample = report["sample"]
+    warped = sample["src_keypts"] @ gt[:3, :3].T + gt[:3, 3]
+    ratio = float(np.mean(np.linalg.norm(warped - sample["tgt_keypts"], axis=1) < 0.1))
+    re, te = rot_error_deg(trans, gt), float(np.linalg.norm(trans[:3, 3] - gt[:3, 3]))
+    print(json.dumps({"phase": "registration_demo", "raw_points": [len(src), len(tgt)],
+                      "keypoints": list(report["keypoints"]), "correspondences": len(warped),
+                      "inlier_ratio": ratio, "regime_slack": report["slack"],
+                      "guard_flipped": report["flipped"], "stages_s": report["stages_s"],
+                      "icp_fitness_rmse": report["icp"], "re_deg": re, "te_m": te,
+                      "launches": {k: v for k, v in counts.items() if v}}), flush=True)
+    check(np.isfinite(trans).all() and re < 15.0 and te < 0.30,
+          f"the demo did not register the scene: RE {re:.3f} deg, TE {te:.4f} m")
+    check(counts["nearest_neighbors"] == 20, f"nn-search launched {counts['nearest_neighbors']} "
+                                             "times in the demo, expected 20")
+    attention = "sc_attention_cached" if report["flipped"] else "fused_encoder_layer"
+    for name in ("compat_cache_int8", attention, "confidence_head", "nms_local_max",
+                 "seed_knn_exact", "seed_inlier_counts", "fused_post_refinement"):
+        check(counts[name] > 0, f"the demo's forward did not launch {name}")
+
+    s = torch.as_tensor(skp, device=dev)
+    t = torch.as_tensor(tkp, device=dev)
+    gen = np.random.default_rng(1)
+    init = gt.copy()
+    axis = gen.normal(size=3)
+    init[:3, :3] = _rot(axis, np.deg2rad(3.0)) @ gt[:3, :3]
+    step = gen.normal(size=3)
+    init[:3, 3] += 0.05 * step / np.linalg.norm(step)
+    init_t = torch.as_tensor(init, dtype=torch.float32, device=dev)
+    got, fit, rmse = icp_point_to_point(s, t, init_t, 0.1)
+    with plain_icp_path():
+        ref, fit_p, rmse_p = icp_point_to_point(s, t, init_t, 0.1)
+    g = got.cpu().numpy()
+    re2, te2 = rot_error_deg(g, gt), float(np.linalg.norm(g[:3, 3] - gt[:3, 3]))
+    err = float((got - ref).abs().max())
+    gt_t = torch.as_tensor(gt, dtype=torch.float32, device=dev)
+    info = information_matrix(s, t, gt_t, 0.1)
+    with plain_icp_path():
+        info_p = information_matrix(s, t, gt_t, 0.1)
+    info_err = float((info - info_p).abs().max() / info_p.abs().max())
+    print(json.dumps({"phase": "icp_from_perturbed_gt", "re_deg": re2, "te_m": te2,
+                      "fitness": float(fit), "rmse": float(rmse), "vs_plain_max_abs_err": err,
+                      "info_rel_err": info_err, "info_55": float(info[5, 5]),
+                      "info_55_plain": float(info_p[5, 5])}), flush=True)
+    check(re2 < 1.0 and te2 < 0.02, f"ICP from gt perturbed by 3 deg / 5 cm: {re2} deg, {te2} m")
+    check(err <= 1e-5 and abs(float(fit) - float(fit_p)) <= 1e-6
+          and abs(float(rmse) - float(rmse_p)) <= 1e-6, f"ICP on the card vs plain: {err}")
+    check(info_err <= 1e-5 and float(info[5, 5]) == float(info_p[5, 5]),
+          f"information matrix on the card vs plain: {info_err}")
+    return counts["nearest_neighbors"]
+
+
+def evaluator_with_icp(torch, pt, kernels, dev) -> None:
+    """Phase 21: ``Evaluator(use_icp=True, icp_threshold=0.1)`` with the
+    default configuration on the three Synthetic pairs of phase 8 (N = 5120),
+    beside the same Evaluator without ICP: recall no lower, nn-search launched
+    20 times per forward (the pairs and the bucket's warm-up)."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+
+    model = pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    ds = SyntheticPairDataset(num_pairs=PAIRS, num_corr=N, **DEFAULT_DATA)
+    res = {}
+    for icp in (False, True):
+        ev = pt.Evaluator(model, fused_attention=True, use_icp=icp, icp_threshold=0.1,
+                          device=DEVICE)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        stats, agg = ev.run_dataset(ds, verbose=False)
+        torch.cuda.synchronize()
+        res[icp] = dict(recall=agg["pair_recall"], re=agg["re"], te=agg["te"],
+                        model_time_ms=agg["model_time"] * 1e3,
+                        nn_launches=kernels.launch_counts()["nearest_neighbors"])
+        check(stats.shape == (PAIRS, 12) and bool(torch.isfinite(torch.as_tensor(stats)).all()),
+              "Evaluator with ICP: bad stats")
+    print(json.dumps({"phase": "evaluator_use_icp", "n": N, "pairs": PAIRS,
+                      "without_icp": res[False], "with_icp": res[True]}), flush=True)
+    check(res[True]["recall"] >= res[False]["recall"], "ICP lowered the recall")
+    check(res[True]["nn_launches"] == 20 * (PAIRS + 1) and res[False]["nn_launches"] == 0,
+          f"nn-search launches {res[True]['nn_launches']} with ICP, expected {20 * (PAIRS + 1)}")
+
+
+def icp_crossover(torch, dev) -> None:
+    """Phase 22, a finding: ``icp_point_to_point`` (20 iterations) at
+    N = M in ICP_SIZES with the kernel and with the plain search, on the
+    same card (CUDA events, median of 5 after 1 warm-up), and one search
+    alone each way (median of 10): the data for a size gate like the TPU's
+    N * M >= 64M, which the port does not have."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.kernels.nn_search import nearest_neighbors
+    from pointdsc_tpu_torch.ops.icp import icp_point_to_point
+
+    _, _, gt, skp, tkp = scene_keypoints()
+    gen = np.random.default_rng(2)
+    init = torch.as_tensor(gt, dtype=torch.float32, device=dev)
+    out = []
+    for n in ICP_SIZES:
+        s = torch.as_tensor(skp[gen.choice(len(skp), n, replace=len(skp) < n)], device=dev)
+        t = torch.as_tensor(tkp[gen.choice(len(tkp), n, replace=len(tkp) < n)], device=dev)
+        kernel_ms = time_ms(lambda: icp_point_to_point(s, t, init, 0.1), reps=5, warmup=1)
+        with plain_icp_path():
+            plain_ms = time_ms(lambda: icp_point_to_point(s, t, init, 0.1), reps=5, warmup=1)
+        out.append(dict(n=n, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                        search_kernel_ms=time_ms(lambda: nearest_neighbors(s, t), reps=10),
+                        search_plain_ms=time_ms(lambda: plain_nn(s, t), reps=10)))
+        torch.cuda.empty_cache()
+    print(json.dumps({"finding": "icp_crossover", "iterations": 20, "card": card_line(),
+                      "sizes": out}), flush=True)
+
+
+def symcache_experiment(kernels) -> int:
+    """Phase 23: the experiment tool ``tools/exp_symcache.py`` at each of
+    SYM_RUNS (N, block), counts set to 0 before the first and read after it.
+    Returns the symmetric build's launches of that run."""
+    from pointdsc_tpu_torch.tools import exp_symcache
+
+    launches = None
+    for n, blk in SYM_RUNS:
+        os.environ.update(PROFILE_N=str(n), SYM_BLOCK=str(blk), PROFILE_ITERS="16")
+        kernels.reset_launches()
+        res = exp_symcache.main([])
+        if launches is None:
+            launches = kernels.launch_counts()["compat_cache_int8_sym"]
+        check(res["bitwise_equal"], f"symmetric cache differs at N = {n}, block {blk}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1228,6 +1630,18 @@ def main() -> int:
 
     # 14-18. training
     launches.update(training(torch, pt, kernels, dev))
+
+    # 19-23. the registration path: the nn-search and symmetric-cache kernels
+    # against their plain versions, the demo, the Evaluator with ICP, the ICP
+    # crossover, the symmetric-cache experiment
+    torch.set_grad_enabled(False)
+    with full_f32_matmul():
+        rows += check_registration_kernels(torch, dev)
+    print("registration_kernels_vs_plain: ok", flush=True)
+    launches["nearest_neighbors"] = registration_demo(torch, kernels, dev)
+    evaluator_with_icp(torch, pt, kernels, dev)
+    icp_crossover(torch, dev)
+    launches["compat_cache_int8_sym"] = symcache_experiment(kernels)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

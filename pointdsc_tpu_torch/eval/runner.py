@@ -10,6 +10,10 @@ With ``fused_attention`` and a model that runs the offset softmax, the
 Evaluator guards its validity regime (models/regime.py): it probes the first
 three pairs and the first pair of every bucket, and switches to the
 running-max kernel before any timed forward once a probe leaves the regime.
+With ``use_icp`` the model's transform is polished by point-to-point ICP on
+the correspondence keypoint clouds (ops/icp.py, the nearest-neighbour kernel
+once per iteration for the whole batch), inside ``model_time`` as it is
+inside the JAX package's jitted forward.
 """
 
 from __future__ import annotations
@@ -22,16 +26,18 @@ from pointdsc_tpu_torch.data.pipeline import pad_to_bucket
 from pointdsc_tpu_torch.eval.protocol import aggregate_stats, pair_stats
 from pointdsc_tpu_torch.models.pointdsc import PointDSC
 from pointdsc_tpu_torch.models.regime import select_attention_kernels
+from pointdsc_tpu_torch.ops.icp import icp_point_to_point
 from pointdsc_tpu_torch.utils.timer import Timer
 
 
 class Evaluator:
     def __init__(self, model: PointDSC, re_thre=15.0, te_thre=30.0, use_icp: bool = False,
-                 fused_attention: bool = False,
+                 icp_threshold: float = 0.10, fused_attention: bool = False,
                  solver: str = "SVD", sp_mesh=None, device: str | torch.device = "cuda"):
-        """solver='SVD' uses the model's transform. The model carries its
-        weights and must live on ``device``. Not ported yet, and refused:
-        solver='RANSAC' (needs baselines/classical.py), use_icp (ops/icp.py),
+        """solver='SVD' uses the model's transform; ``use_icp`` polishes it
+        by ICP with ``icp_threshold`` as the correspondence distance. The
+        model carries its weights and must live on ``device``. Not ported
+        yet, and refused: solver='RANSAC' (needs baselines/classical.py),
         sp_mesh (parallel/seq_parallel.py)."""
         if solver == "RANSAC":
             raise NotImplementedError(
@@ -39,9 +45,6 @@ class Evaluator:
                 "which is not ported")
         if solver != "SVD":
             raise ValueError(f"unknown solver {solver!r}")
-        if use_icp:
-            raise NotImplementedError(
-                "use_icp needs ops/icp.py::icp_point_to_point, which is not ported")
         if sp_mesh is not None:
             raise NotImplementedError(
                 "sp_mesh needs parallel/seq_parallel.py (the sequence-parallel encoder), "
@@ -51,6 +54,8 @@ class Evaluator:
         self.re_thre = re_thre
         self.te_thre = te_thre
         self._fused_attention = fused_attention
+        self._use_icp = use_icp
+        self._icp_threshold = icp_threshold
         # the bound's slack depends on the pair, so the guard probes the first
         # few pairs besides the first pair of every bucket
         self._regime_probes_left = 3
@@ -62,7 +67,14 @@ class Evaluator:
     def _forward(self, corr_pos, src_keypts, tgt_keypts, mask):
         out = self.model(corr_pos, src_keypts, tgt_keypts, mask=mask, testing=True,
                          fused=self._fused_attention)
-        return out.final_trans, out.final_labels
+        trans = out.final_trans
+        if self._use_icp:
+            # ICP polish on the correspondence keypoint clouds (reference
+            # icp_refine, benchmark_utils.py:40-56), every batch row at once
+            trans, _, _ = icp_point_to_point(src_keypts, tgt_keypts, trans,
+                                             max_correspondence_distance=self._icp_threshold,
+                                             src_mask=mask, tgt_mask=mask)
+        return trans, out.final_labels
 
     def _guard_offset_regime(self, args) -> bool:
         """One probe of models/regime.py::select_attention_kernels on this

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the eval forward and of training, and their wrappers.
+"""Hand-written CUDA kernels of the eval forward, of training and of the
+registration path (ICP), and their wrappers.
 
 Each wrapper keeps a plain integer ``launches`` that it raises by one where
 it launches its kernel, and nowhere else; ``reset_launches`` and
@@ -13,6 +14,7 @@ from pointdsc_tpu_torch.kernels.encoder_layer import (
     pcn_qkv,
 )
 from pointdsc_tpu_torch.kernels.nms import nms_local_max
+from pointdsc_tpu_torch.kernels.nn_search import nearest_neighbors
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
     build_compat_cache_int8,
@@ -26,6 +28,7 @@ from pointdsc_tpu_torch.kernels.sc_attention import (
 from pointdsc_tpu_torch.kernels.scoring import seed_inlier_counts
 from pointdsc_tpu_torch.kernels.seed_knn import seed_knn_exact
 from pointdsc_tpu_torch.kernels.sm_loss import sm_loss_grads, sm_loss_sums
+from pointdsc_tpu_torch.kernels.symcache import build_compat_cache_int8_sym
 
 WRAPPERS = {
     "compat_cache_int8": build_compat_cache_int8,
@@ -45,6 +48,8 @@ WRAPPERS = {
     "sc_attention_backward_dkv": sc_attention_backward_dkv,
     "sm_loss_sums": sm_loss_sums,
     "sm_loss_grads": sm_loss_grads,
+    "nearest_neighbors": nearest_neighbors,
+    "compat_cache_int8_sym": build_compat_cache_int8_sym,
 }
 
 

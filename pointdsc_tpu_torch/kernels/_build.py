@@ -30,7 +30,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("compat_cache", "sc_attention", "sc_attention_train", "encoder_layer", "conf_mlp",
-           "nms", "seed_knn", "scoring", "refine", "sm_loss")
+           "nms", "seed_knn", "scoring", "refine", "sm_loss", "nn_search", "compat_cache_sym")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +55,9 @@ SIGNATURES = {
     "seed_knn": {"seed_knn_exact": [P, P, P, P, I, I, I, I, P]},
     "scoring": {"seed_inlier_counts": [P, P, P, I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P, P, P, P, I, I, F, I, P]},
+    "nn_search": {"nearest_neighbors": [P, P, P, P, I, I, I, P]},
+    "compat_cache_sym": {"compat_cache_tri": [P, P, P, I, I, I, I, F, P],
+                         "compat_cache_mirror": [P, P, I, I, I, I, P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

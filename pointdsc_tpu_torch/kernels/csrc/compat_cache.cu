@@ -11,6 +11,7 @@
 // geometry strip (rows 0-2 src xyz, 3 |src|^2, 4-6 tgt xyz, 7 |tgt|^2).
 // Nothing is masked: the attention kernel's key bias handles invalid keys.
 // The value is clamped at 127 so a rounding excess can never wrap the int8.
+// The tile body is csrc/compat_tile.cuh, shared with compat_cache_sym.cu.
 //
 // Bound on the H100: the N^2 int8 bytes written (26.2 MB at N = 5120, 7.8 us
 // at 3.35 TB/s); the ~25 flops and one sqrt per entry are far below the
@@ -18,78 +19,31 @@
 // query and 256 key geometry columns in shared memory once, and each thread
 // writes 4 consecutive bytes per row as one 32-bit store, so a warp writes
 // 128 contiguous bytes of a row. The symmetric half-build of the TPU version
-// is not used: the write, not the arithmetic, bounds this kernel.
+// is not used here: measured on an H100 (compat_cache_sym.cu, the experiment),
+// it takes 0.91x this kernel's time at N = 20480 and more at N = 5120, its
+// mirror pass costing about what the skipped arithmetic saves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "compat_tile.cuh"
+
 namespace {
 
-constexpr int TQ = 64;       // rows per block
-constexpr int TK = 256;      // columns per block
-constexpr int THREADS = 256; // 64 column quads x 4 row lanes
-
-__device__ __forceinline__ int8_t compat_value(const float* q, const float* k, float coef) {
-  const float is = q[0] * k[0] + q[1] * k[1] + q[2] * k[2];
-  const float it = q[4] * k[4] + q[5] * k[5] + q[6] * k[6];
-  const float s2 = fmaxf(q[3] + k[3] - 2.0f * is, 0.0f);
-  const float t2 = fmaxf(q[7] + k[7] - 2.0f * it, 0.0f);
-  const float diff2 = s2 + t2 - 2.0f * sqrtf(s2 * t2);
-  const float scaled = 127.0f - diff2 * coef;
-  return static_cast<int8_t>(fminf(rintf(fmaxf(scaled, 0.0f)), 127.0f));
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(compat::THREADS)
 compat_cache_kernel(const float* __restrict__ geom, int8_t* __restrict__ out, int n, float coef) {
-  __shared__ float ks[TK][8];
-  __shared__ float qs[TQ][8];
+  __shared__ compat::TileSmem sm;
   const int b = blockIdx.z;
-  const float* g = geom + static_cast<size_t>(b) * 16 * n;
-  int8_t* o = out + static_cast<size_t>(b) * n * n;
-  const int col0 = blockIdx.x * TK;
-  const int row0 = blockIdx.y * TQ;
-
-  for (int i = threadIdx.x; i < 8 * TK; i += THREADS) {
-    const int r = i / TK, c = i % TK, col = col0 + c;
-    ks[c][r] = col < n ? g[static_cast<size_t>(r) * n + col] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < 8 * TQ; i += THREADS) {
-    const int r = i / TQ, c = i % TQ, row = row0 + c;
-    qs[c][r] = row < n ? g[static_cast<size_t>(r) * n + row] : 0.0f;
-  }
-  __syncthreads();
-
-  const int cq = (threadIdx.x % 64) * 4;  // first of this thread's 4 columns
-  const int col = col0 + cq;
-  if (col >= n) return;
-  float kreg[4][8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int r = 0; r < 8; ++r) kreg[j][r] = ks[cq + j][r];
-
-  const bool vec = (n % 4 == 0) && (col + 3 < n);
-  for (int rl = threadIdx.x / 64; rl < TQ; rl += THREADS / 64) {
-    const int row = row0 + rl;
-    if (row >= n) break;
-    int8_t v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = compat_value(qs[rl], kreg[j], coef);
-    int8_t* dst = o + static_cast<size_t>(row) * n + col;
-    if (vec) {
-      *reinterpret_cast<char4*>(dst) = make_char4(v[0], v[1], v[2], v[3]);
-    } else {
-      for (int j = 0; j < 4 && col + j < n; ++j) dst[j] = v[j];
-    }
-  }
+  compat::cache_tile(geom + static_cast<size_t>(b) * 16 * n, out + static_cast<size_t>(b) * n * n,
+                     n, blockIdx.y * compat::TQ, blockIdx.x * compat::TK, coef, sm);
 }
 
 }  // namespace
 
 extern "C" int compat_cache_int8(const void* geom, void* out, int batch, int n, float coef,
                                  void* stream) {
-  const dim3 grid((n + TK - 1) / TK, (n + TQ - 1) / TQ, batch);
-  compat_cache_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + compat::TK - 1) / compat::TK, (n + compat::TQ - 1) / compat::TQ, batch);
+  compat_cache_kernel<<<grid, compat::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(geom), static_cast<int8_t*>(out), n, coef);
   return static_cast<int>(cudaGetLastError());
 }

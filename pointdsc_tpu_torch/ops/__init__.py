@@ -1,2 +1,2 @@
-"""Plain PyTorch ops of the eval forward (counterparts of
-``pointdsc_tpu/ops``)."""
+"""Plain PyTorch ops of the eval forward and of registration (ICP,
+descriptor matching); counterparts of ``pointdsc_tpu/ops``."""

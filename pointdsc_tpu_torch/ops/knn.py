@@ -6,6 +6,18 @@ from __future__ import annotations
 import torch
 
 
+def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """Squared Euclidean distances [..., N, M] between x [..., N, C] and y
+    [..., M, C] in the gram form |x|^2 + |y|^2 - 2 x.y (one matrix product),
+    clamped at 0 to absorb the cancellation."""
+    if y is None:
+        y = x
+    inner = x @ y.transpose(-1, -2)
+    xx = torch.sum(x * x, dim=-1)
+    yy = torch.sum(y * y, dim=-1)
+    return torch.clamp(xx[..., :, None] + yy[..., None, :] - 2.0 * inner, min=0.0)
+
+
 def pairwise_dists_exact(x: torch.Tensor) -> torch.Tensor:
     """Euclidean distances [..., N, N] in the difference form
     sqrt(sum((x_i - x_j)^2)): exact for low-dimensional points, where the

@@ -1,14 +1,73 @@
-"""Closed-form dominant eigenpair of batched symmetric 4x4 matrices
-(PyTorch counterpart of ``pointdsc_tpu/ops/linalg.py:102-199``).
+"""Small symmetric eigensolvers (PyTorch counterpart of
+``pointdsc_tpu/ops/linalg.py``): the branch-free cyclic Jacobi of
+``jacobi_eigh`` (3x3 normals, the ``method="jacobi"`` Procrustes) and the
+closed-form dominant eigenpair of batched symmetric 4x4 matrices.
 
-Kept as the same closed form, not ``torch.linalg.eigh``: the Newton steps,
-the adjugate column and the degenerate fallback to e0 decide the numbers
-that the JAX package gives, and the port is held to them.
+Kept as the same algorithms, not ``torch.linalg.eigh``: the sweeps, the
+Newton steps, the adjugate column and the degenerate fallback to e0 decide
+the numbers that the JAX package gives, and the port is held to them.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _jacobi_rotation_pair(A: torch.Tensor, V: torch.Tensor, p: int, q: int):
+    """One batched Jacobi rotation zeroing A[..., p, q] (p < q).
+
+    t = tan(theta) in the division-safe form 2 apq sign(d) / (|d| +
+    hypot(2 apq, d)), d = aqq - app: bounded, 0 when apq = 0, +-1 when d = 0,
+    and never a division by a vanishing quantity."""
+    n = A.shape[-1]
+    app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
+    d = aqq - app
+    sgn_d = torch.where(d >= 0, 1.0, -1.0).to(A.dtype)
+    hyp = torch.sqrt(4.0 * apq * apq + d * d + 1e-36)
+    t = 2.0 * apq * sgn_d / (torch.abs(d) + hyp)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    s = t * c
+
+    G = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    G[..., p, p] = c
+    G[..., q, q] = c
+    G[..., p, q] = s
+    G[..., q, p] = -s
+    A_new = G.transpose(-1, -2) @ A @ G
+    V_new = V @ G
+    A_new[..., p, q] = 0.0
+    A_new[..., q, p] = 0.0
+    return A_new, V_new
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int = 10):
+    """Eigendecomposition of small batched symmetric matrices [..., n, n] by
+    ``sweeps`` cyclic Jacobi sweeps over the n(n-1)/2 pairs. Returns
+    (eigvals [..., n] ascending, eigvecs [..., n, n] as columns)."""
+    n = A.shape[-1]
+    A = 0.5 * (A + A.transpose(-1, -2))
+    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    pairs = [(p, q) for p in range(n) for q in range(p + 1, n)]
+    for _ in range(sweeps):
+        for p, q in pairs:
+            A, V = _jacobi_rotation_pair(A, V, p, q)
+    w = torch.diagonal(A, dim1=-2, dim2=-1)
+    order = torch.argsort(w, dim=-1, stable=True)
+    w_sorted = torch.gather(w, -1, order)
+    V_sorted = torch.gather(V, -1, order[..., None, :].expand(V.shape))
+    return w_sorted, V_sorted
+
+
+def symeig3x3(A: torch.Tensor, sweeps: int = 8):
+    """Eigendecomposition of batched symmetric 3x3 matrices (ascending)."""
+    assert A.shape[-1] == 3 and A.shape[-2] == 3
+    return jacobi_eigh(A, sweeps=sweeps)
+
+
+def symeig4x4(A: torch.Tensor, sweeps: int = 10):
+    """Eigendecomposition of batched symmetric 4x4 matrices (ascending)."""
+    assert A.shape[-1] == 4 and A.shape[-2] == 4
+    return jacobi_eigh(A, sweeps=sweeps)
 
 
 def _det3_of(m, rows, cols):

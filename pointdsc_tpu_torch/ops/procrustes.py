@@ -3,7 +3,7 @@
 
 Horn's quaternion method: the optimal rotation's quaternion is the leading
 eigenvector of a symmetric 4x4 built from H = sum w a b^T, solved in closed
-form (ops/linalg.py). It always returns a proper rotation, the same one the
+form or by cyclic Jacobi (ops/linalg.py). It always returns a proper rotation, the same one the
 reference's SVD with the det-sign fix picks.
 """
 
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pointdsc_tpu_torch.ops.linalg import dominant_eigvec4x4
+from pointdsc_tpu_torch.ops.linalg import dominant_eigvec4x4, symeig4x4
 from pointdsc_tpu_torch.ops.se3 import integrate_trans
 
 
@@ -31,9 +31,12 @@ def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     )
 
 
-def rotation_from_covariance(H: torch.Tensor) -> torch.Tensor:
-    """Optimal proper rotation R maximizing tr(R H) (R @ a ~= b), by the
-    JAX package's ``method="newton"`` closed form."""
+def rotation_from_covariance(H: torch.Tensor, sweeps: int = 10,
+                             method: str = "newton") -> torch.Tensor:
+    """Optimal proper rotation R maximizing tr(R H) (R @ a ~= b). method
+    "newton" solves the characteristic quartic in closed form; "jacobi" runs
+    ``sweeps`` cyclic Jacobi sweeps on the 4x4 and takes its leading
+    eigenvector (gap-independent accuracy)."""
     Sxx, Sxy, Sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     Syx, Syy, Syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     Szx, Szy, Szz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
@@ -46,7 +49,12 @@ def rotation_from_covariance(H: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
-    _, q = dominant_eigvec4x4(N)
+    if method == "newton":
+        _, q = dominant_eigvec4x4(N)
+    elif method == "jacobi":
+        q = symeig4x4(N, sweeps=sweeps)[1][..., :, -1]  # eigenvalues ascend
+    else:
+        raise ValueError(f"unknown method {method!r}")
     q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
     return _quat_to_rot(q)
 

@@ -275,11 +275,15 @@ def test_evaluator_second_pair_violation_flips(small):
     assert ev.flipped and ev.model.offset_softmax is False
 
 
-@pytest.mark.parametrize("kw", [{"solver": "RANSAC"}, {"use_icp": True}, {"sp_mesh": object()}])
+@pytest.mark.parametrize("kw", [{"solver": "RANSAC"}, {"solver": "RANSAC", "use_icp": True},
+                                {"sp_mesh": object()}])
 def test_evaluator_refuses_what_is_not_ported(kw):
+    """RANSAC and the sequence-parallel mesh raise, naming the module they
+    need, with or without ICP (which is ported)."""
     model = PointDSC(num_layers=1, num_channels=16, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="classical|seq_parallel"):
         Evaluator(model, device="cpu", **kw)
+    Evaluator(model, device="cpu", use_icp=True, icp_threshold=0.2)
 
 
 def test_evaluator_refuses_sharded_and_unknown_solver():

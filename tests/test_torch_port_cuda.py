@@ -22,7 +22,10 @@ from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
 from pointdsc_tpu_torch.kernels import scoring as kscore
 from pointdsc_tpu_torch.kernels import seed_knn as kknn
+from pointdsc_tpu_torch.kernels import nn_search as knn_s
 from pointdsc_tpu_torch.kernels import sm_loss as ksm
+from pointdsc_tpu_torch.kernels import symcache as ksym
+from pointdsc_tpu_torch.ops import icp as icp_mod
 
 pytestmark = pytest.mark.cuda
 SNAP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -336,6 +339,8 @@ def test_wrappers_launch_and_check(dev):
     scalars = torch.tensor([[1.0, 0.5, 0.5, 0.0]] * B, device=dev)
     ksm.sm_loss_sums(q, strips, scalars)
     ksm.sm_loss_grads(q, strips, scalars)
+    knn_s.nearest_neighbors(src, tgt, mask)
+    ksym.build_compat_cache_int8_sym(src, tgt, 0.1, mask=mask)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts.pop("compat_cache_int8") == 2  # this test's and layer_case's
@@ -483,3 +488,80 @@ def test_sm_loss_function_and_determinism(dev):
     torch.testing.assert_close(runs[0][0], runs[2][0], atol=0, rtol=1e-5)
     assert float((runs[0][1] - runs[2][1]).abs().max()) <= 1e-6 * float(runs[2][1].abs().max())
     torch.testing.assert_close(runs[0][2], runs[2][2], atol=0, rtol=1e-4)
+
+
+# ------------------------------------------------------------ registration path
+
+def plain_nn(query, base, base_mask=None):
+    """nearest_neighbors through its plain version, on the card."""
+    single = query.ndim == 2
+    qp, bp = knn_s.pack_points(query), knn_s.pack_points(base, base_mask)
+    d2, idx = knn_s.nearest_neighbors_plain(qp[None] if single else qp,
+                                            bp[None] if single else bp)
+    return (d2[0], idx[0]) if single else (d2, idx)
+
+
+@pytest.mark.parametrize("n,m", [(1000, 1500), (2048, 777), (65, 3000)])
+@pytest.mark.parametrize("mask_share", [None, 0.3, 1.0])
+def test_nearest_neighbors(dev, n, m, mask_share):
+    """d2 equal bit for bit (rounded operations in the plain version's
+    order); the index equal, or the d2 at both indices equal. Batch 2, ragged
+    sizes (the kernel's 64-row blocks and 1024-point tiles do not divide
+    them); every base point masked gives (1e30, 0)."""
+    gen = torch.Generator().manual_seed(n + m)
+    q = (torch.rand((B, n, 3), generator=gen) * 3.0).to(dev)
+    b = (torch.rand((B, m, 3), generator=gen) * 3.0).to(dev)
+    mask = None if mask_share is None else (torch.rand((B, m), generator=gen) >= mask_share).to(dev)
+    d2, idx = knn_s.nearest_neighbors(q, b, mask)
+    rd, ri = plain_nn(q, b, mask)
+    assert torch.equal(d2, rd)
+    diff = idx != ri
+    rows = diff.nonzero()
+    for bi, r in rows.tolist():
+        qp = knn_s.pack_points(q[bi, r])
+        bp = knn_s.pack_points(b[bi], None if mask is None else mask[bi])
+        at = lambda i: (qp[3] + bp[i, 3]) - 2.0 * ((qp[0] * bp[i, 0] + qp[1] * bp[i, 1])
+                                                   + qp[2] * bp[i, 2])
+        assert torch.equal(at(idx[bi, r]), at(ri[bi, r]))
+    if mask_share == 1.0:
+        assert bool((idx == 0).all()) and bool((d2 == 1e30).all())
+    for i in range(B):  # a batch row is the single-pair call
+        d2i, idxi = knn_s.nearest_neighbors(q[i].contiguous(), b[i].contiguous(),
+                                            None if mask is None else mask[i].contiguous())
+        assert torch.equal(d2i, d2[i]) and torch.equal(idxi, idx[i])
+
+
+@pytest.mark.parametrize("n,block", [(1024, 256), (2048, 512), (2048, 1024), (512, 512)])
+def test_symmetric_cache(dev, n, block):
+    """Byte for byte the full-grid kernel's cache; within +-1 on <= 0.1% of
+    entries of its plain version; exactly symmetric."""
+    src, tgt, mask, _ = pair(n, dev)
+    sym = ksym.build_compat_cache_int8_sym(src, tgt, 0.1, mask=mask, block=block)
+    assert torch.equal(sym, katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask))
+    assert torch.equal(sym, sym.transpose(1, 2))
+    plain = ksym.compat_cache_sym_plain(katt.pack_geometry(src, tgt, mask), katt.cache_coef(0.1))
+    diff = (sym.int() - plain.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 1).float().mean()) <= 1e-3
+    upper = ksym.build_compat_cache_int8_sym(src, tgt, 0.1, mask=mask, block=block, mirror=False)
+    iu = torch.triu_indices(n, n, offset=0, device=dev)
+    assert torch.equal(upper[:, iu[0], iu[1]], sym[:, iu[0], iu[1]])
+
+
+def test_icp_on_card_matches_plain_search(dev, monkeypatch):
+    """ICP and the information matrix with the kernel against the same code
+    through the plain search, batch 2 with masks: the same d2 bit for bit,
+    hence the same transforms (atol 1e-6) and the same [5, 5] count."""
+    src, tgt, mask, gt = pair(1000, dev)
+    init = gt.clone()
+    init[:, :3, 3] += 0.02
+    kernels.reset_launches()
+    out = icp_mod.icp_point_to_point(src, tgt, init, 0.1, src_mask=mask, tgt_mask=mask)
+    info = icp_mod.information_matrix(src, tgt, gt, 0.1, src_mask=mask, tgt_mask=mask)
+    assert kernels.launch_counts()["nearest_neighbors"] == 21
+    monkeypatch.setattr(icp_mod, "nearest_neighbors", plain_nn)
+    ref = icp_mod.icp_point_to_point(src, tgt, init, 0.1, src_mask=mask, tgt_mask=mask)
+    ref_info = icp_mod.information_matrix(src, tgt, gt, 0.1, src_mask=mask, tgt_mask=mask)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    torch.testing.assert_close(info, ref_info, atol=1e-5 * float(ref_info.abs().max()), rtol=0)
+    assert torch.equal(info[:, 5, 5], ref_info[:, 5, 5])

@@ -16,11 +16,13 @@ from pointdsc_tpu.kernels import seed_knn as j_knn
 from pointdsc_tpu_torch import kernels
 from pointdsc_tpu_torch.kernels import conf_mlp as t_conf
 from pointdsc_tpu_torch.kernels import nms as t_nms
+from pointdsc_tpu_torch.kernels import nn_search as t_nn
 from pointdsc_tpu_torch.kernels import refine as t_ref
 from pointdsc_tpu_torch.kernels import sc_attention as t_att
 from pointdsc_tpu_torch.kernels import scoring as t_score
 from pointdsc_tpu_torch.kernels import seed_knn as t_knn
 from pointdsc_tpu_torch.kernels import sm_loss as t_sm
+from pointdsc_tpu_torch.kernels import symcache as t_sym
 
 SIZES = [512, 1024]
 
@@ -228,7 +230,9 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     scalars = torch.tensor([[1.0, 0.5, 0.5, 0.0]])
     t_sm.sm_loss_sums(q, strips, scalars)
     t_sm.sm_loss_grads(q, strips, scalars)
-    assert len(kernels.WRAPPERS) == 17
+    t_nn.nearest_neighbors(st[0], tt[0])
+    t_sym.build_compat_cache_int8_sym(st, tt, 0.1)
+    assert len(kernels.WRAPPERS) == 19
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 
 

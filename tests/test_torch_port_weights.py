@@ -153,7 +153,10 @@ def test_port_imports_no_jax():
         "             'models.regime', 'kernels.encoder_layer', 'tools.regime_scan',\n"
         "             'tools.profile_forward', 'train.config', 'train.losses',\n"
         "             'train.trainer', 'kernels.sm_loss', 'utils.logging', 'utils.seed',\n"
-        "             'tools.train_synthetic', 'tools.profile_train_step'):\n"
+        "             'tools.train_synthetic', 'tools.profile_train_step',\n"
+        "             'kernels.nn_search', 'kernels.symcache', 'ops.icp', 'ops.matching',\n"
+        "             'descriptors.fpfh', 'data.ply', 'tools.demo_registration',\n"
+        "             'tools.exp_symcache'):\n"
         "    assert 'pointdsc_tpu_torch.' + name in names, name\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
@@ -181,7 +184,9 @@ def test_port_sources_name_no_jax():
                  "models/regime.py", "kernels/encoder_layer.py", "tools/regime_scan.py",
                  "train/config.py", "train/losses.py", "train/trainer.py", "kernels/sm_loss.py",
                  "utils/logging.py", "utils/seed.py", "tools/train_synthetic.py",
-                 "tools/profile_train_step.py"):
+                 "tools/profile_train_step.py", "kernels/nn_search.py", "kernels/symcache.py",
+                 "ops/icp.py", "ops/matching.py", "descriptors/fpfh.py", "data/ply.py",
+                 "tools/demo_registration.py", "tools/exp_symcache.py"):
         assert name in rel, name
     bad = []
     for path in files:
