@@ -3,8 +3,9 @@
 Voxel downsample (numpy) -> normals -> 33-bin FPFH histograms, the
 reference's Open3D pipeline (misc/cal_fpfh.py) without Open3D:
   * neighbourhoods are the k nearest points within the radius (fixed k,
-    radius-masked), from a chunked gram-form distance and a stable sort,
-    which breaks ties to the lower index as ``jax.lax.top_k`` does;
+    radius-masked), from a chunked gram-form distance rounded alike on the
+    CPU and the card, and a stable sort, which breaks ties to the lower index
+    as ``jax.lax.top_k`` does;
   * normals are the smallest eigenvector of the neighbourhood covariance
     (cyclic Jacobi, ops/linalg.py), oriented towards the origin;
   * the histograms are one-hot sums; FPFH adds the 1/distance-weighted mean
@@ -40,16 +41,31 @@ def voxel_downsample(points: np.ndarray, voxel_size: float) -> np.ndarray:
 def _chunked_radius_knn(points: torch.Tensor, k: int, radius: float, chunk: int = 2048):
     """For each point, the indices of its k nearest other points and whether
     each lies within ``radius``: (idx [N, k] int64, valid [N, k] bool). One
-    [chunk, N] block of distances at a time."""
+    [chunk, N] block of distances at a time.
+
+    d2 = |q|² + |p|² − 2 q·p as the JAX package forms it, with every operation
+    written out so that the CPU and the card round it alike: |p|² as
+    ((x² + y²) + z²) and q·p as the CPU's matrix product of depth 3 rounds it
+    (x-product, then a fused multiply-add for y and for z, emulated in
+    float64, where the product of two float32 values is exact). The form
+    cancels ~ulp(|p|²) (~5e-7 m² at 2.5 m from the origin), so a product that
+    rounds otherwise (cuBLAS) moves neighbours of voxel-mean keypoints across
+    the radius, and through the normals changes whole histograms."""
     n = points.shape[0]
     if n < k:
         raise ValueError(f"{n} points, fewer than the {k} neighbours asked for")
-    sq_all = torch.sum(points * points, dim=-1)
+    x, y, z = points.unbind(-1)
+    sq_all = (x * x + y * y) + z * z
+    wide = points.double()
     cols = torch.arange(n, device=points.device)
     idxs, valids = [], []
     for start in range(0, n, chunk):
         q = points[start:start + chunk]
-        d2 = sq_all[start:start + chunk, None] + sq_all[None, :] - 2.0 * (q @ points.T)
+        dot = q[:, 0, None] * points[None, :, 0]
+        for axis in (1, 2):
+            prod = wide[start:start + chunk, axis, None] * wide[None, :, axis]  # exact
+            dot = (prod + dot.double()).float()
+        d2 = sq_all[start:start + chunk, None] + sq_all[None, :] - 2.0 * dot
         d2 = torch.clamp(d2, min=0.0)
         rows = cols[start:start + chunk]
         d2 = torch.where(rows[:, None] == cols[None, :], torch.full_like(d2, _BIG), d2)

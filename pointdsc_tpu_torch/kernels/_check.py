@@ -25,6 +25,14 @@ def expect(t: torch.Tensor, name: str, *, dtype=None, ndim=None, last=None,
         raise ValueError(f"{name} must be contiguous")
 
 
+def expect_aligned(tensors: dict, nbytes: int = 16) -> None:
+    """Raise ValueError unless every tensor of ``{name: tensor}`` starts on
+    an nbytes boundary (a kernel that reads rows in 16-byte chunks)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name} must be {nbytes}-byte aligned")
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device raises."""

@@ -1,8 +1,9 @@
 // Offset-softmax attention over the int8 spatial-consistency cache: the
 // device function shared by the offset cached attention (sc_attention.cu)
 // and the whole-encoder-layer kernels (encoder_layer.cu), as the JAX package
-// shares _offset_attn_p between its kernels
-// (pointdsc_tpu/kernels/encoder_layer.py:59, sc_attention.py:472).
+// shares _offset_attn_p (pointdsc_tpu/kernels/encoder_layer.py:59) between
+// its kernels: _make_kernel (:109), _make_attn_mlp_kernel (:326) and
+// _sc_attention_cached_offset_kernel (pointdsc_tpu/kernels/sc_attention.py:472).
 //
 //   o_i  = ||q_i|| * kscale               kscale = max_j ||k_j|| / sqrt(C)
 //   p_ij = exp(max(compat_ij * (q_i.k_j * scale) + bias_j - o_i, -80))
@@ -12,11 +13,44 @@
 //
 // The offset bounds every logit from above, so no running max, no rescale of
 // the accumulator and no max pass are needed: a block owns 32 query rows and
-// walks all key tiles of 64 rows, acc [32 x 128] in registers (16 per thread).
-// f32 FMAs through shared memory on the bf16 operands, widened exactly;
-// tensor cores and TMA are later work. Rows of Q and K in
-// shared memory are padded to 129 floats so that the 16 lanes which share a
-// query row read 16 different banks.
+// walks all key tiles of 64 rows.
+//
+// What bounds it on an H100, per pair of N keys: the two N^2 C products
+// (4 N^2 C operations on bf16 operands, 989 TFLOP/s on the tensor cores:
+// 14 us at N = 5120, 77 us at N = 12288), the N^2 int8 compat stream (read
+// once: 8 us / 45 us at 3.35 TB/s), and, a cost of the 32-row block rather
+// than of the function, K and V re-read by every block (N / 32 blocks x
+// 4 N C bytes: 0.42 GB at N = 5120, 2.4 GB at N = 12288, which the 50 MB L2
+// serves). What the design does about each:
+//
+// - Both products run on the tensor cores as warp-level
+//   mma.sync.m16n8k16 (bf16 x bf16 -> f32), exact products summed in f32 as
+//   the TPU's MXU sums them. Q, K and V stay bf16 in shared memory, rows
+//   padded to 136 values (272 bytes) so that the eight rows an ldmatrix
+//   phase reads fall in eight different 16-byte bank groups. The 8 warps
+//   split the 32 x 64 logit tile as 2 x 4 tiles of 16 x 16 (two n8 tiles each,
+//   8 k-steps over the channels), and the 32 x 128 output as 2 x 4 tiles of
+//   16 rows x 32 channels (four n8 tiles, 4 k-steps over the keys). A is
+//   loaded with ldmatrix.x4, K (Kt in column order) with ldmatrix.x4, V (the
+//   k x n operand, row-major) with ldmatrix.x4.trans.
+// - The softmax epilogue runs on the logit fragments in registers: a lane
+//   holds rows lane/4 and lane/4 + 8 and columns 2 (lane % 4) + {0, 1} of its
+//   warp's two n8 tiles, reads its own eight compat bytes from device memory
+//   (fetched a tile ahead), and keeps f32 row partials of p that a quad
+//   shuffle and one pass through shared memory reduce after the last tile.
+//   p is rounded to bf16 into a 32 x 64 tile (rows padded to 72) for P V.
+// - The next tile's K, V, compat and bias are loaded into registers before
+//   P V runs, so the loads are in flight during the second product; they are
+//   stored to shared memory after the barrier that ends it.
+// - The 32-row block keeps the K and V re-reads (the L2 floor above) and
+//   two blocks per SM (99 KB of shared memory each, __launch_bounds__(256, 2):
+//   at most 128 registers a thread); a larger block is later work.
+//
+// The callers' layout is kept: after the last tile the accumulators go
+// through the (then unused) Q region as a 32 x CP f32 tile into acc[4][4],
+// and the shared-memory arena (OFF_*, SMEM_FLOATS) is the one the callers'
+// static_asserts and epilogues were written for. No -use_fast_math:
+// exp(-80) must not flush.
 
 #pragma once
 
@@ -31,8 +65,10 @@ constexpr int C = 128;
 constexpr int BQ = 32;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
-constexpr int CP = C + 1;   // padded Q/K row
-constexpr int PP = BK + 1;  // padded P row
+constexpr int CP = C + 1;   // padded f32 row of the callers' tiles
+constexpr int PP = BK + 1;  // f32 row of the P region
+constexpr int RB = C + 8;   // bf16 row of the Q, K and V tiles (272 bytes)
+constexpr int PB = BK + 8;  // bf16 row of the P tile (144 bytes)
 
 // dynamic shared memory, in floats: V first (float4-aligned rows)
 constexpr int OFF_V = 0;
@@ -45,6 +81,15 @@ constexpr int OFF_OFFS = OFF_BIAS + BK;
 constexpr int OFF_L = OFF_OFFS + BQ;
 constexpr int SMEM_FLOATS = OFF_L + BQ;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+
+static_assert(BK * RB * 2 <= BK * C * 4, "the bf16 V tile must fit the V region");
+static_assert(BK * RB * 2 <= BK * CP * 4, "the bf16 K tile must fit the K region");
+static_assert(BQ * RB * 2 <= BQ * CP * 4, "the bf16 Q tile must fit the Q region");
+static_assert(BQ * PB * 2 <= BQ * PP * 4, "the bf16 P tile must fit the P region");
+static_assert(4 * BQ <= BQ * BK, "the row partials must fit the compat region");
+static_assert((OFF_K * 4) % 16 == 0 && (OFF_Q * 4) % 16 == 0 && (OFF_P * 4) % 16 == 0 &&
+                  (RB * 2) % 16 == 0 && (PB * 2) % 16 == 0,
+              "ldmatrix and the 16-byte stores need 16-byte aligned rows");
 
 // four consecutive bf16 channels of a row as loaded (8 bytes), and widened
 __device__ inline uint2 load_raw4(const __nv_bfloat16* p) {
@@ -68,8 +113,36 @@ __device__ inline void store_padded(float* row, int c4, float4 x) {
   row[c4 + 3] = x.w;
 }
 
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b for a 16 x 16 bf16 A (row) and a 16 x 8 bf16 B (column), f32 d
+__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(d[0]), "f"(d[1]),
+        "f"(d[2]), "f"(d[3]));
+}
+
 // Attention of query rows [q0, q0 + BQ) of one pair over all n keys.
-// q, k, v [n, C] bf16, compat [n, n] int8, bias [n] or nullptr.
+// q, k, v [n, C] bf16 (16-byte aligned), compat [n, n] int8, bias [n] or nullptr.
 // On return acc[r][j] holds the unnormalised output of row 4 * (tid >> 5) + r,
 // channel (tid & 31) + 32 * j, and smem[OFF_L + row] the row's sum of p; the
 // block is synchronised, so the caller may reuse the V, K, Q, P and compat
@@ -78,154 +151,188 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const int8_t* compat, const float* bias,
                                float kscale, int n, int q0, float qk_scale, float* smem,
                                float (&acc)[4][4]) {
-  float* Vs = smem + OFF_V;
-  float* Ks = smem + OFF_K;
-  float* Qs = smem + OFF_Q;
-  float* Ps = smem + OFF_P;
-  float* Cs = smem + OFF_C;
+  __nv_bfloat16* Vb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
+  __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
+  __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_Q);
+  __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_P);
+  float* l_part = smem + OFF_C;  // [4][BQ] row partials of the four column warps
   float* bias_s = smem + OFF_BIAS;
   float* offs_s = smem + OFF_OFFS;
   float* l_s = smem + OFF_L;
 
   const int tid = threadIdx.x;
-  // layout 1 (logits): 16 row pairs x 16 column lanes (key columns tx + 16 j)
-  const int ty = tid >> 4, tx = tid & 15;
-  // layout 2 (p v and everything after): 8 row quads x 32 channel lanes
-  const int ry = tid >> 5, cx = tid & 31;
+  const int warp = tid >> 5, lane = tid & 31;
+  // mma tiles: warp rows [16 mi, 16 mi + 16); logit columns [16 nj, 16 nj + 16),
+  // output channels [32 nj, 32 nj + 32). A lane's fragment rows are r0, r0 + 8.
+  const int mi = warp >> 2, nj = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * mi + g;
   const bool has_bias = bias != nullptr;
 
   __syncthreads();  // whoever used the shared memory before is done
-  for (int i = tid; i < BQ * C / 4; i += THREADS) {
-    const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < n) x = load4(q + static_cast<size_t>(q0 + r) * C + c4);
-    store_padded(Qs + r * CP, c4, x);
+  for (int i = tid; i < BQ * C / 8; i += THREADS) {
+    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < n) x = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * C + c8);
+    *reinterpret_cast<uint4*>(Qb + r * RB + c8) = x;
   }
   __syncthreads();
 
   // per-row offset ||q_i|| * kscale: a warp owns four rows
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int row = 4 * ry + r;
+    const int row = 4 * warp + r;
     float sq = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float x = Qs[row * CP + cx + 32 * j];
+      const float x = __bfloat162float(Qb[row * RB + lane + 32 * j]);
       sq = fmaf(x, x, sq);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    if (cx == 0) offs_s[row] = sqrtf(sq) * kscale;
+    if (lane == 0) offs_s[row] = sqrtf(sq) * kscale;
   }
 
-  float l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    // Stage the tile through registers: every global load is issued before
-    // the barrier and the first shared store, so the 24 loads of a thread are
-    // in flight together, and while slower warps still finish the previous
-    // tile (the compiler cannot hoist them itself past stores it cannot prove
-    // distinct). A tile takes 34 registers, within the 128 that let two
-    // blocks share an SM.
-    constexpr int KV_ITERS = BK * C / 4 / THREADS;
-    constexpr int C_ITERS = BQ * BK / THREADS;
-    uint2 kreg[KV_ITERS], vreg[KV_ITERS];
-    int8_t creg[C_ITERS];
+  // A tile's loads, staged through registers: K and V as 16-byte chunks, the
+  // lane's own compat bytes at its fragment positions, and the bias row.
+  constexpr int KV_ITERS = BK * C / 8 / THREADS;
+  uint4 kreg[KV_ITERS], vreg[KV_ITERS];
+  int8_t creg[2][4];
+  float bias_reg;
+  auto fetch = [&](int k0) {
 #pragma unroll
     for (int it = 0; it < KV_ITERS; ++it) {
       const int i = tid + it * THREADS;
-      const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
+      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
       if (k0 + r < n) {
-        kreg[it] = load_raw4(k + static_cast<size_t>(k0 + r) * C + c4);
-        vreg[it] = load_raw4(v + static_cast<size_t>(k0 + r) * C + c4);
+        const size_t at = static_cast<size_t>(k0 + r) * C + c8;
+        kreg[it] = *reinterpret_cast<const uint4*>(k + at);
+        vreg[it] = *reinterpret_cast<const uint4*>(v + at);
       } else {
-        kreg[it] = make_uint2(0u, 0u);
-        vreg[it] = make_uint2(0u, 0u);
+        kreg[it] = make_uint4(0u, 0u, 0u, 0u);
+        vreg[it] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
 #pragma unroll
-    for (int it = 0; it < C_ITERS; ++it) {
-      const int i = tid + it * THREADS;
-      const int r = i / BK, c = i % BK;
-      creg[it] = (q0 + r < n && k0 + c < n)
-                     ? compat[static_cast<size_t>(q0 + r) * n + k0 + c] : int8_t(0);
-    }
-    const float bias_reg = (has_bias && tid < BK && k0 + tid < n) ? bias[k0 + tid] : 0.f;
-    __syncthreads();  // the previous tile's readers are done; offs_s is visible
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1), col = 16 * nj + 8 * t + 2 * tq + (e & 1);
+        creg[t][e] = (q0 + row < n && k0 + col < n)
+                         ? compat[static_cast<size_t>(q0 + row) * n + k0 + col] : int8_t(0);
+      }
+    bias_reg = (has_bias && tid < BK && k0 + tid < n) ? bias[k0 + tid] : 0.f;
+  };
+
+  // ldmatrix addresses of this lane at k-step 0 (bytes in the shared window)
+  const uint32_t q_addr = smem_addr(Qb + (16 * mi + (lane & 15)) * RB + 8 * (lane >> 4));
+  const uint32_t k_addr =
+      smem_addr(Kb + (16 * nj + (lane & 7) + 8 * (lane >> 4)) * RB + 8 * ((lane >> 3) & 1));
+  const uint32_t p_addr = smem_addr(Pb + (16 * mi + (lane & 15)) * PB + 8 * (lane >> 4));
+  const uint32_t v_addr =
+      smem_addr(Vb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RB + 32 * nj + 8 * (lane >> 4));
+
+  float o[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float l_row[2] = {0.f, 0.f};
+
+  fetch(0);
+  for (int k0 = 0; k0 < n; k0 += BK) {
+    __syncthreads();  // the previous tile's P V is done; offs_s is visible
 #pragma unroll
     for (int it = 0; it < KV_ITERS; ++it) {
       const int i = tid + it * THREADS;
-      const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
-      store_padded(Ks + r * CP, c4, widen(kreg[it]));
-      *reinterpret_cast<float4*>(Vs + r * C + c4) = widen(vreg[it]);
+      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+      *reinterpret_cast<uint4*>(Kb + r * RB + c8) = kreg[it];
+      *reinterpret_cast<uint4*>(Vb + r * RB + c8) = vreg[it];
     }
-#pragma unroll
-    for (int it = 0; it < C_ITERS; ++it) Cs[tid + it * THREADS] = static_cast<float>(creg[it]);
     if (tid < BK) bias_s[tid] = bias_reg;
     __syncthreads();
 
-    // ---- logits and weights
+    // ---- S = Q K^T on this warp's 16 x 16 tile
     float s[2][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < C; ++c) {
-      const float qa = Qs[(2 * ty) * CP + c];
-      const float qb = Qs[(2 * ty + 1) * CP + c];
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kk = Ks[(tx + 16 * j) * CP + c];
-        s[0][j] = fmaf(qa, kk, s[0][j]);
-        s[1][j] = fmaf(qb, kk, s[1][j]);
-      }
+    for (int kk = 0; kk < C / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, q_addr + kk * 32);
+      ldmatrix_x4(b, k_addr + kk * 32);
+      mma_bf16(s[0], a, b[0], b[1]);
+      mma_bf16(s[1], a, b[2], b[3]);
     }
+
+    // ---- weights, on the fragments: s[t][e] is row r0 + 8 (e >> 1), column
+    // 16 nj + 8 t + 2 tq + (e & 1)
+    const float offs[2] = {offs_s[r0], offs_s[r0 + 8]};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = 2 * ty + i;
-      const float o = offs_s[row];
-      float sum = 0.f;
+    for (int t = 0; t < 2; ++t) {
+      const int col = 16 * nj + 8 * t + 2 * tq;
+      float p[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        float val = Cs[row * BK + col] * (s[i][j] * qk_scale);
-        if (has_bias) val += bias_s[col];
-        float p = expf(fmaxf(val - o, -80.0f));
-        if ((has_bias && bias_s[col] < 0.f) || k0 + col >= n) p = 0.f;
-        sum += p;
-        // the TPU kernels round p to their v's type before p v
-        Ps[row * PP + col] = __bfloat162float(__float2bfloat16_rn(p));
+      for (int e = 0; e < 4; ++e) {
+        const int cc = col + (e & 1);
+        float val = static_cast<float>(creg[t][e]) * (s[t][e] * qk_scale);
+        if (has_bias) val += bias_s[cc];
+        p[e] = expf(fmaxf(val - offs[e >> 1], -80.0f));
+        if ((has_bias && bias_s[cc] < 0.f) || k0 + cc >= n) p[e] = 0.f;
+        l_row[e >> 1] += p[e];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] += sum;
+      // the TPU kernels round p to their v's type before p v
+      *reinterpret_cast<__nv_bfloat162*>(Pb + r0 * PB + col) = __floats2bfloat162_rn(p[0], p[1]);
+      *reinterpret_cast<__nv_bfloat162*>(Pb + (r0 + 8) * PB + col) =
+          __floats2bfloat162_rn(p[2], p[3]);
     }
+    if (k0 + BK < n) fetch(k0 + BK);  // in flight during P V
     __syncthreads();
 
-    // ---- acc += P V
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float vv[4];
+    // ---- acc += P V on this warp's 16 rows x 32 channels
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * C + cx + 32 * j];
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, p_addr + kk * 32);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = Ps[(4 * ry + r) * PP + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
+      for (int h = 0; h < 2; ++h) {
+        ldmatrix_x4_trans(b, v_addr + kk * 16 * RB * 2 + h * 32);
+        mma_bf16(o[2 * h], a, b[0], b[1]);
+        mma_bf16(o[2 * h + 1], a, b[2], b[3]);
       }
     }
   }
 
-  if (tx == 0) {
-    l_s[2 * ty] = l[0];
-    l_s[2 * ty + 1] = l[1];
+  // Hand back in the callers' layout. Every warp passed the last tile's
+  // second barrier, so nobody reads Q any more: its region takes the f32
+  // output tile, and the compat region (unused in the loop) the row partials.
+  float* out_s = smem + OFF_Q;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int ch = 32 * nj + 8 * j + 2 * tq;
+    out_s[r0 * CP + ch] = o[j][0];
+    out_s[r0 * CP + ch + 1] = o[j][1];
+    out_s[(r0 + 8) * CP + ch] = o[j][2];
+    out_s[(r0 + 8) * CP + ch + 1] = o[j][3];
   }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 1);
+    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 2);
+  }
+  if (tq == 0) {
+    l_part[nj * BQ + r0] = l_row[0];
+    l_part[nj * BQ + r0 + 8] = l_row[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = out_s[(4 * warp + r) * CP + lane + 32 * j];
+  if (tid < BQ)
+    l_s[tid] = (l_part[tid] + l_part[BQ + tid]) + (l_part[2 * BQ + tid] + l_part[3 * BQ + tid]);
   __syncthreads();
 }
 

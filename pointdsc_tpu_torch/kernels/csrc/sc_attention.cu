@@ -240,9 +240,8 @@ extern "C" int sc_attention_cached(const void* q, const void* k, const void* v,
 // between the layers. q, k, v are bf16 (the half-precision encoder's own
 // type; the wrapper rounds f32 inputs, as the JAX wrapper does off the CPU),
 // and p is rounded to bf16 before the p v product, as the TPU kernel rounds
-// it to its v's type. The loop is offset_attention.cuh's; the bound is the
-// running-max kernel's (the same two N^2 C products and the same cache
-// stream), less the max pass and the rescale.
+// it to its v's type. The loop is offset_attention.cuh's: the two N^2 C
+// products on the bf16 tensor cores (mma.sync), the cache stream read once.
 
 namespace {
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
-from pointdsc_tpu_torch.kernels._check import expect, on_cuda
+from pointdsc_tpu_torch.kernels._check import expect, expect_aligned, on_cuda
 from pointdsc_tpu_torch.kernels.sc_attention import (
     C_KERNEL,
     inv_sqrt_c,
@@ -220,6 +220,7 @@ def attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights):
     if not on_cuda(h):
         return attn_mlp_residual_plain(kscale, q, k, v, compat, kbias, h, weights)
     _check_kernel_size(n, c)
+    expect_aligned({"q": q, "k": k, "v": v})
     out = torch.empty_like(h)
     attn_mlp_residual.launches += 1
     _build.launch("encoder_layer", "attn_mlp_residual", h.device,

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
-from pointdsc_tpu_torch.kernels._check import expect, on_cuda
+from pointdsc_tpu_torch.kernels._check import expect, expect_aligned, on_cuda
 
 _NEG = -1e9
 C_KERNEL = 128  # the attention kernel's compiled channel width
@@ -207,8 +207,10 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     if c != C_KERNEL:
         raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={c}")
     if offset_softmax:
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        expect_aligned({"q": q, "k": k, "v": v})
         sc_attention_cached_offset.launches += 1
-        return _launch_sc_attention_offset(q.bfloat16(), k.bfloat16(), v.bfloat16(), compat, bias)
+        return _launch_sc_attention_offset(q, k, v, compat, bias)
     fused_sc_attention_cached.launches += 1
     return _launch_sc_attention(q, k, v, compat, bias)
 

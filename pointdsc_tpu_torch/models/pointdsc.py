@@ -13,7 +13,11 @@ Two paths give the same result within the JAX suite's fused-vs-dense bound:
 * ``fused=True`` (JAX ``fused_attention=True``): the compat matrix exists
   only as the int8 cache, and the cache build, confidence head, NMS flags,
   seed k-NN, scoring and post-refinement are CUDA kernels on a CUDA input
-  (their plain versions on a CPU input). The encoder takes one of three
+  (their plain versions on a CPU input); the confidence head and the seed
+  k-NN only inside the JAX model's gates (``use_confidence_kernel``,
+  ``use_seed_knn_kernel``), plain math outside them. The kernels are compiled
+  for C = 128: on the card a fused forward of another width raises before
+  any kernel runs. The encoder takes one of three
   forms, chosen by the constructor's flags as in JAX
   (``pointdsc_tpu/models/pointdsc.py:126-180``):
 
@@ -53,6 +57,7 @@ from pointdsc_tpu_torch.kernels.encoder_layer import make_fused_layer_fn
 from pointdsc_tpu_torch.kernels.nms import pick_seeds_nms_prefiltered
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
+    C_KERNEL,
     build_compat_cache_int8,
     fused_sc_attention,
     fused_sc_attention_cached,
@@ -67,6 +72,22 @@ from pointdsc_tpu_torch.ops.eig import power_iteration
 from pointdsc_tpu_torch.ops.nms import pick_seeds_nms, pick_seeds_topk
 from pointdsc_tpu_torch.ops.procrustes import weighted_procrustes
 from pointdsc_tpu_torch.ops.se3 import transform
+
+# The JAX model's gates of two kernels (pointdsc_tpu/models/pointdsc.py:242,
+# :334), with its constant: outside them it runs plain math, and so does the
+# port, on the card as on the CPU.
+_SEED_KNN_FUSED_MIN_N = 4096
+
+
+def use_confidence_kernel(fused: bool, testing: bool, num_channels: int) -> bool:
+    """Whether the fused forward runs the confidence-head kernel."""
+    return fused and testing and num_channels == 128
+
+
+def use_seed_knn_kernel(fused: bool, num_corr: int, k: int) -> bool:
+    """Whether the fused forward runs the exact seed k-NN kernel (k is the
+    neighbour count after its clamp to N - 1)."""
+    return fused and num_corr >= _SEED_KNN_FUSED_MIN_N and k <= 128
 
 
 class PointDSCOutput(NamedTuple):
@@ -105,6 +126,7 @@ class PointDSC(nn.Module):
         self.k = k
         self.nms_radius = nms_radius
         self.refine_iters = refine_iters
+        self.num_channels = num_channels
         self.offset_softmax = offset_softmax
         self.half_precision = half_precision
         self.remat = remat  # checkpoint each encoder layer (training memory)
@@ -141,6 +163,13 @@ class PointDSC(nn.Module):
         src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
         tgt_keypts = tgt_keypts.detach().float().contiguous()
         bs, num_corr = corr_pos.shape[:2]
+        if fused and corr_pos.device.type == "cuda" and self.num_channels != C_KERNEL:
+            # the attention, encoder-layer and SM-loss kernels are compiled for
+            # one width; the JAX kernels take any (an open item of the port)
+            raise ValueError(
+                f"the fused path's attention, encoder-layer and SM-loss kernels take "
+                f"num_channels={C_KERNEL}, this model has num_channels={self.num_channels}: "
+                f"pass fused=False")
         mask_arg = mask
         if mask is None:
             mask = torch.ones((bs, num_corr), dtype=torch.bool, device=corr_pos.device)
@@ -198,7 +227,7 @@ class PointDSC(nn.Module):
         # ---- Step 2: confidence head + seeds
         head = [t for layer in (self.classification_0, self.classification_1,
                                 self.classification_2) for t in (layer.weight, layer.bias)]
-        if fused and testing:
+        if use_confidence_kernel(fused, testing, self.num_channels):
             confidence = confidence_head(corr_features, *head)
         else:
             confidence = confidence_head_plain(corr_features, *head)
@@ -228,7 +257,7 @@ class PointDSC(nn.Module):
     def _seed_transforms(self, seeds, feats, src_keypts, tgt_keypts, mask, fused):
         bs, num_corr, c = feats.shape
         k = min(self.k, num_corr - 1)
-        if fused:
+        if use_seed_knn_kernel(fused, num_corr, k):
             knn_idx = seed_knn_exact(feats.detach(), seeds, k, mask=mask)  # [B, S, k]
         else:
             knn_idx = seed_knn_plain(feats.detach(), seeds, k, knn_bias(mask, feats))

@@ -90,6 +90,18 @@ def test_radius_knn_ties_go_to_the_lower_index():
     assert not (idx.numpy() == np.arange(len(g))[:, None]).any()
 
 
+@pytest.mark.parametrize("k,radius", [(30, 2 * VOXEL), (100, 5 * VOXEL)])
+def test_radius_knn_equals_jax(scene, k, radius):
+    """The written-out gram form rounds d2 as the JAX package's matrix
+    product does on the CPU: the same neighbourhoods, exactly (a few
+    neighbours of near-equal distance come in the other order)."""
+    pts = scene[3]
+    idx, valid = t_fpfh._chunked_radius_knn(torch.from_numpy(pts), k, radius)
+    jidx, jvalid = j_fpfh._chunked_radius_knn(jnp.asarray(pts), k, radius)
+    np.testing.assert_array_equal(np.sort(np.where(valid.numpy(), idx.numpy(), -1), axis=1),
+                                  np.sort(np.where(jvalid, jidx, -1), axis=1))
+
+
 def test_extract_fpfh(scene):
     src = scene[0]
     jk, jf = j_fpfh.extract_fpfh(src, voxel_size=VOXEL)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from pointdsc_tpu_torch import kernels, load_pretrained
+from pointdsc_tpu_torch import PointDSC, kernels, load_pretrained
 from pointdsc_tpu_torch.data import SyntheticPairDataset
 from pointdsc_tpu_torch.kernels import conf_mlp as kconf
 from pointdsc_tpu_torch.kernels import encoder_layer as kenc
@@ -370,6 +370,43 @@ def test_forward_on_card_matches_cpu(dev):
     assert float((out.final_labels.cpu() == ref.final_labels).float().mean()) > 0.99
 
 
+def test_fused_forward_under_the_seed_knn_gate(dev):
+    """At N = 1024 (under the 4096 gate) and k = 16 the fused forward runs the
+    confidence kernel and the plain seed k-NN, as the JAX model does, and
+    agrees with the dense path: final_trans atol 1e-3, labels > 0.99. The
+    running-max configuration, exact for any weights."""
+    model = load_pretrained(SNAP, device=dev, offset_softmax=False)
+    model.k = 16
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=1024, seed=4)[0]
+    args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
+    with torch.no_grad():
+        kernels.reset_launches()
+        out = model(*args, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref = model(*args, fused=False)
+    assert counts["seed_knn_exact"] == 0 and counts["confidence_head"] == 1
+    assert counts["sc_attention_cached"] == 12
+    torch.testing.assert_close(out.final_trans, ref.final_trans, atol=1e-3, rtol=0)
+    assert float((out.final_labels == ref.final_labels).float().mean()) > 0.99
+
+
+def test_fused_forward_refuses_other_widths(dev):
+    """C = 32 fused on the card: the named ValueError before any kernel runs;
+    the dense path of the same model runs."""
+    model = PointDSC(num_layers=2, num_channels=32, k=16, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=512, seed=4)[0]
+    args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
+    kernels.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="num_channels=128.*fused=False"):
+        model(*args, fused=True)
+    assert not any(kernels.launch_counts().values())
+    with torch.no_grad():
+        out = model(*args, fused=False)
+    assert bool(torch.isfinite(out.final_trans).all())
+
+
 # ------------------------------------------------------------ training kernels
 
 def train_attention_inputs(dev, n, seed=1):
@@ -565,3 +602,26 @@ def test_icp_on_card_matches_plain_search(dev, monkeypatch):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
     torch.testing.assert_close(info, ref_info, atol=1e-5 * float(ref_info.abs().max()), rtol=0)
     assert torch.equal(info[:, 5, 5], ref_info[:, 5, 5])
+
+
+def test_fpfh_on_card_matches_cpu(dev):
+    """FPFH's radius k-NN rounds its gram-form d2 alike on the card and the
+    CPU, so both neighbourhoods (normals: 30 within 2 voxels; features: 100
+    within 5) are equal bit for bit on voxel-mean keypoints, and the features
+    meet the CPU parity rule (>= 99.5% of the entries within 1e-3)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import make_scene
+    from pointdsc_tpu_torch.descriptors import fpfh
+
+    src = make_scene(0, n_points=30_000, room=1.0, overlap_cut=(0.8, 0.24))[0]
+    pts = torch.as_tensor(fpfh.voxel_downsample(src, 0.03))
+    for k, radius in ((30, 0.06), (100, 0.15)):
+        idx, valid = fpfh._chunked_radius_knn(pts.to(dev), k, radius)
+        ref_idx, ref_valid = fpfh._chunked_radius_knn(pts, k, radius)
+        assert torch.equal(idx.cpu(), ref_idx) and torch.equal(valid.cpu(), ref_valid)
+    keypts, feats = fpfh.extract_fpfh(src, voxel_size=0.03, device=dev)
+    ref_keypts, ref_feats = fpfh.extract_fpfh(src, voxel_size=0.03, device="cpu")
+    np.testing.assert_array_equal(keypts, ref_keypts)
+    assert (np.abs(feats - ref_feats) <= 1e-3).mean() >= 0.995
