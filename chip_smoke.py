@@ -21,7 +21,9 @@ Phases, in order (any failure raises and the exit code is not 0):
      path (``fused=False``), and its seeds and seed fitness against the dense
      NMS and an [S, N] inlier count on the run's own confidences and seed
      transforms;
-  5. hold the first 3 results against the JAX package's golden file;
+  5. hold the first 3 results against the JAX package's golden files: its
+     dense path, and its fused running-max path with the attention fed bf16
+     as on its accelerator;
   6. check that every kernel of that path was launched on it;
   7. time the fused forward (median of 10 after warm-up, CUDA events);
   8. the default configuration (offset softmax, whole-layer kernels) through
@@ -99,6 +101,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "snapshot", "PointDSC_Synthetic_release")
 SNAPSHOT_KITTI = os.path.join(ROOT, "snapshot", "PointDSC_SyntheticKITTI_release")
 GOLDEN = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata", "golden_n5120.npz")
+GOLDEN_BF16 = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata",
+                           "golden_n5120_bf16_attention.npz")
 GOLDEN_DEFAULT = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata", "golden_n5120_seed1.npz")
 N, C, PAIRS = 5120, 128, 3
 N_KITTI, PAIRS_KITTI = 12288, 2
@@ -352,12 +356,11 @@ def check_kernels(torch, dev) -> list[dict]:
     three layers; the k-NN a product and a selection; the refinement a loop).
 
     ``bound_ms`` takes every operation at the peak of its operands' type.
-    Three kernels hold the two N^2 C attention products on bf16 operands with
-    f32 accumulation (the offset attention and the two layer kernels around
-    it): those products count at the dense bf16 tensor-core peak, the rest at
-    the f32 rate. They carry a second figure, ``bound_ms_f32_cores``, with
-    everything at the f32 CUDA-core peak: the most that these first versions,
-    which widen to f32 and use no tensor cores, could reach."""
+    Four kernels hold the two N^2 C attention products on bf16 operands with
+    f32 accumulation (the running-max and the offset attention, and the two
+    layer kernels around the latter): those products count at the dense bf16
+    tensor-core peak, the rest at the f32 rate. They carry a second figure,
+    ``bound_ms_f32_cores``, with everything at the f32 CUDA-core peak."""
     from pointdsc_tpu_torch.kernels import conf_mlp as kconf
     from pointdsc_tpu_torch.kernels import encoder_layer as kenc
     from pointdsc_tpu_torch.kernels import nms as knms
@@ -402,21 +405,32 @@ def check_kernels(torch, dev) -> list[dict]:
         lambda: katt.compat_cache_plain(katt.pack_geometry(src, tgt, mask), coef),
         src.numel() * 4 * 2 + N + N * N, N * N * OPS_PER_CACHE_ENTRY, off_by_one=off1)
 
-    # -- attention on the kernel's own cache. Tolerance atol = rtol = 1e-4:
-    # f32 throughout; the flash loop sums 5120 keys in 80 tiles with a
-    # rescale per tile, the plain version in one matmul with one max.
+    # -- running-max attention on the kernel's own cache, on the f32 q, k, v
+    # the running-max encoder gives it: the wrapper rounds them to bf16 (as
+    # the JAX wrapper does off the CPU) and the kernel rounds p to bf16 before
+    # p v, so it is held to the plain version of the bf16 inputs. Tolerance
+    # atol = rtol = 2e-3, as the offset attention below: a p on a bf16
+    # rounding boundary may round either way (the kernel rounds p against
+    # each tile's running max, the plain version against the row's maximum),
+    # each flip moving one of 5120 terms of a row by 2^-9 relative. f32 and
+    # bf16 inputs give the same result, bit for bit.
     bias = geom[:, 8].contiguous()
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
                                          offset_softmax=False)
-    ref = katt.sc_attention_cached_plain(q, k, v, cache, bias)
+    ref = katt.sc_attention_cached_plain(qh, kh, vh, cache, bias)
     err = float((out - ref).abs().max())
-    check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4), f"attention max err {err}")
+    check(torch.allclose(out, ref, atol=2e-3, rtol=2e-3), f"attention max err {err}")
+    check(torch.equal(katt.fused_sc_attention_cached(qh, kh, vh, cache, src, tgt, mask=mask,
+                                                     offset_softmax=False), out),
+          "running-max attention: f32 inputs are not the bf16 inputs' result")
     attn_bytes = 3 * N * C * 4 + N * N + N * 4 + N * C * 4
     attn_ops = 4.0 * N * N * C + OPS_PER_ATTN_PAIR_EXTRA * N * N
     row("sc_attention_cached", "sc_attention.cu", "sc_attention.py:417", err,
         lambda: katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
                                                offset_softmax=False),
-        lambda: katt.sc_attention_cached_plain(q, k, v, cache, bias), attn_bytes, attn_ops)
+        lambda: katt.sc_attention_cached_plain(qh, kh, vh, cache, bias), attn_bytes, attn_ops,
+        tensor_ops=4.0 * N * N * C)
 
     # -- offset attention on the same cache, at the shapes and types the
     # half-precision path gives it: bf16 q, k, v, and p rounded to bf16 before
@@ -425,7 +439,6 @@ def check_kernels(torch, dev) -> list[dict]:
     # exponents' arguments differ in the last bit), each such flip moving one
     # of 5120 terms of a row by 2^-9 relative; measured ~1e-4. f32 inputs are
     # rounded to bf16 by the wrapper: the same result, bit for bit.
-    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out = katt.fused_sc_attention_cached(qh, kh, vh, cache, src, tgt, mask=mask)
     ref = katt.sc_attention_cached_offset_plain(qh, kh, vh, cache, bias)
     err = float((out - ref).abs().max())
@@ -1621,18 +1634,32 @@ def main() -> int:
     check(float((fused[PAIRS].confidence > 0).float().mean()) > 0.2,
           "the raised-logit pair has too few positive confidences")
 
-    # 5. the golden file of the JAX package's dense path. Seeds as sets, for
-    # the reason of phase 4 (measured 0.990-0.994 on the card).
+    # 5. the golden files of the JAX package: its dense path, and its fused
+    # running-max path with the attention fed as its wrapper feeds it on its
+    # accelerator (bf16 q, k, v and p), the function this path runs here.
+    # final_trans and labels against both; the seeds as sets, for the reason
+    # of phase 4: >= 0.98 against the bf16-attention file, and >= 0.97
+    # against the dense file. With all-negative logits the seeds are the
+    # suppressed points in index order, and a near-tie of two neighbours'
+    # confidences decides each: against the dense file JAX's own fused
+    # running max reads 0.990-0.994 on these pairs with f32 attention and
+    # 0.9766-0.9863 with bf16 (``python -m tests.test_torch_port_model
+    # --seed-overlaps``), so the bf16 operands alone move up to ~2% of them.
     gold = np.load(GOLDEN)
+    gold_bf16 = np.load(GOLDEN_BF16)
     for i, out in enumerate(fused[:PAIRS]):
-        terr = float(np.abs(out.final_trans[0].cpu().numpy() - gold["final_trans"][i]).max())
-        agree = float(((out.final_labels[0].cpu().numpy() > 0.5) == gold["final_labels"][i]).mean())
+        trans = out.final_trans[0].cpu().numpy()
+        labels = out.final_labels[0].cpu().numpy() > 0.5
         seeds = set(out.seeds[0].cpu().tolist())
-        seed_overlap = len(seeds & set(gold["seeds"][i].tolist())) / len(seeds)
-        print(f"pair {i}: vs JAX golden final_trans max err {terr:.3e}, label agreement "
-              f"{agree:.4f}, seed set overlap {seed_overlap:.4f}", flush=True)
-        check(terr <= 1e-3 and agree > 0.99, f"pair {i}: disagrees with the JAX golden file")
-        check(seed_overlap >= 0.98, f"pair {i}: seeds disagree with the JAX golden file")
+        for name, g, seed_floor in (("JAX dense", gold, 0.97),
+                                    ("JAX bf16 attention", gold_bf16, 0.98)):
+            terr = float(np.abs(trans - g["final_trans"][i]).max())
+            agree = float((labels == g["final_labels"][i]).mean())
+            seed_overlap = len(seeds & set(g["seeds"][i].tolist())) / len(seeds)
+            print(f"pair {i}: vs {name} golden final_trans max err {terr:.3e}, label agreement "
+                  f"{agree:.4f}, seed set overlap {seed_overlap:.4f}", flush=True)
+            check(terr <= 1e-3 and agree > 0.99, f"pair {i}: disagrees with the {name} golden")
+            check(seed_overlap >= seed_floor, f"pair {i}: seeds disagree with the {name} golden")
 
     # 6. every kernel of the running-max path ran on it, and no other
     missing = [name for name in RUNNING_MAX_KERNELS if launches[name] <= 0]

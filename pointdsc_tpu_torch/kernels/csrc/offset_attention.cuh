@@ -1,19 +1,28 @@
-// Offset-softmax attention over the int8 spatial-consistency cache: the
-// device function shared by the offset cached attention (sc_attention.cu)
+// Attention over the int8 spatial-consistency cache on the tensor cores: the
+// device function shared by the cached attention kernels (sc_attention.cu)
 // and the whole-encoder-layer kernels (encoder_layer.cu), as the JAX package
 // shares _offset_attn_p (pointdsc_tpu/kernels/encoder_layer.py:59) between
 // its kernels: _make_kernel (:109), _make_attn_mlp_kernel (:326) and
 // _sc_attention_cached_offset_kernel (pointdsc_tpu/kernels/sc_attention.py:472).
+// Its running-max form is _sc_attention_cached_kernel (sc_attention.py:417).
 //
+// Offset softmax (attention_rows<false>, the default):
 //   o_i  = ||q_i|| * kscale               kscale = max_j ||k_j|| / sqrt(C)
 //   p_ij = exp(max(compat_ij * (q_i.k_j * scale) + bias_j - o_i, -80))
 //   p_ij = 0 where bias_j < 0             (only when a bias row is given)
 //   l_i  = sum_j p_ij                     (f32, before any rounding of p)
 //   acc_i = sum_j bf16(p_ij) v_j          q, k, v are bf16
-//
 // The offset bounds every logit from above, so no running max, no rescale of
-// the accumulator and no max pass are needed: a block owns 32 query rows and
-// walks all key tiles of 64 rows.
+// the accumulator and no max pass are needed.
+//
+// Running max (attention_rows<true>), exact for any weights:
+//   s_ij = compat_ij * (q_i.k_j * scale) + bias_j      (-inf past the last key)
+//   per key tile: m' = max(m, max_j s_ij), alpha = exp(m - m'),
+//   l = l alpha + sum_j p_ij, acc = acc alpha + sum_j bf16(p_ij) v_j,
+//   p_ij = exp(s_ij - m'), m starting at -1e9 as on the TPU. Masked keys keep
+//   their -1e9 bias and no p = 0 override, as in the TPU kernel.
+//
+// A block owns 32 query rows and walks all key tiles of 64 rows.
 //
 // What bounds it on an H100, per pair of N keys: the two N^2 C products
 // (4 N^2 C operations on bf16 operands, 989 TFLOP/s on the tensor cores:
@@ -39,6 +48,12 @@
 //   (fetched a tile ahead), and keeps f32 row partials of p that a quad
 //   shuffle and one pass through shared memory reduce after the last tile.
 //   p is rounded to bf16 into a 32 x 64 tile (rows padded to 72) for P V.
+// - The running max is taken on the fragments too: a quad shuffle gives each
+//   warp's maximum over its 16 columns of a row, the four column warps'
+//   maxima of a row meet in the compat region (unused by the loop) after one
+//   more barrier, and every warp of a row then computes the same m' and
+//   alpha and rescales its own output fragments and row partials of l. The
+//   offset form has neither the barrier nor the rescale.
 // - The next tile's K, V, compat and bias are loaded into registers before
 //   P V runs, so the loads are in flight during the second product; they are
 //   stored to shared memory after the barrier that ends it.
@@ -69,6 +84,7 @@ constexpr int CP = C + 1;   // padded f32 row of the callers' tiles
 constexpr int PP = BK + 1;  // f32 row of the P region
 constexpr int RB = C + 8;   // bf16 row of the Q, K and V tiles (272 bytes)
 constexpr int PB = BK + 8;  // bf16 row of the P tile (144 bytes)
+constexpr float NEG = -1e9f;  // the running max's start, the TPU kernel's _NEG
 
 // dynamic shared memory, in floats: V first (float4-aligned rows)
 constexpr int OFF_V = 0;
@@ -86,7 +102,7 @@ static_assert(BK * RB * 2 <= BK * C * 4, "the bf16 V tile must fit the V region"
 static_assert(BK * RB * 2 <= BK * CP * 4, "the bf16 K tile must fit the K region");
 static_assert(BQ * RB * 2 <= BQ * CP * 4, "the bf16 Q tile must fit the Q region");
 static_assert(BQ * PB * 2 <= BQ * PP * 4, "the bf16 P tile must fit the P region");
-static_assert(4 * BQ <= BQ * BK, "the row partials must fit the compat region");
+static_assert(4 * BQ <= BQ * BK, "the row partials and maxima must fit the compat region");
 static_assert((OFF_K * 4) % 16 == 0 && (OFF_Q * 4) % 16 == 0 && (OFF_P * 4) % 16 == 0 &&
                   (RB * 2) % 16 == 0 && (PB * 2) % 16 == 0,
               "ldmatrix and the 16-byte stores need 16-byte aligned rows");
@@ -143,10 +159,12 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t 
 
 // Attention of query rows [q0, q0 + BQ) of one pair over all n keys.
 // q, k, v [n, C] bf16 (16-byte aligned), compat [n, n] int8, bias [n] or nullptr.
+// kRunningMax: the running max instead of the offset (kscale is not read).
 // On return acc[r][j] holds the unnormalised output of row 4 * (tid >> 5) + r,
 // channel (tid & 31) + 32 * j, and smem[OFF_L + row] the row's sum of p; the
 // block is synchronised, so the caller may reuse the V, K, Q, P and compat
 // regions.
+template <bool kRunningMax = false>
 __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const int8_t* compat, const float* bias,
                                float kscale, int n, int q0, float qk_scale, float* smem,
@@ -156,6 +174,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_Q);
   __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_P);
   float* l_part = smem + OFF_C;  // [4][BQ] row partials of the four column warps
+  float* m_part = smem + OFF_C;  // [4][BQ] a tile's row maxima of the four column warps
   float* bias_s = smem + OFF_BIAS;
   float* offs_s = smem + OFF_OFFS;
   float* l_s = smem + OFF_L;
@@ -179,18 +198,20 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   __syncthreads();
 
   // per-row offset ||q_i|| * kscale: a warp owns four rows
+  if constexpr (!kRunningMax) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = 4 * warp + r;
-    float sq = 0.f;
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * warp + r;
+      float sq = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x = __bfloat162float(Qb[row * RB + lane + 32 * j]);
-      sq = fmaf(x, x, sq);
+      for (int j = 0; j < 4; ++j) {
+        const float x = __bfloat162float(Qb[row * RB + lane + 32 * j]);
+        sq = fmaf(x, x, sq);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      if (lane == 0) offs_s[row] = sqrtf(sq) * kscale;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    if (lane == 0) offs_s[row] = sqrtf(sq) * kscale;
   }
 
   // A tile's loads, staged through registers: K and V as 16-byte chunks, the
@@ -238,6 +259,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float l_row[2] = {0.f, 0.f};
+  float m_row[2] = {NEG, NEG};  // the running max of rows r0, r0 + 8
 
   fetch(0);
   for (int k0 = 0; k0 < n; k0 += BK) {
@@ -269,24 +291,82 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
     // ---- weights, on the fragments: s[t][e] is row r0 + 8 (e >> 1), column
     // 16 nj + 8 t + 2 tq + (e & 1)
-    const float offs[2] = {offs_s[r0], offs_s[r0 + 8]};
+    if constexpr (kRunningMax) {
+      // logits, -inf past the last key; this warp's maximum of each row
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int col = 16 * nj + 8 * t + 2 * tq;
-      float p[4];
+      for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cc = col + (e & 1);
-        float val = static_cast<float>(creg[t][e]) * (s[t][e] * qk_scale);
-        if (has_bias) val += bias_s[cc];
-        p[e] = expf(fmaxf(val - offs[e >> 1], -80.0f));
-        if ((has_bias && bias_s[cc] < 0.f) || k0 + cc >= n) p[e] = 0.f;
-        l_row[e >> 1] += p[e];
+        for (int e = 0; e < 4; ++e) {
+          const int cc = 16 * nj + 8 * t + 2 * tq + (e & 1);
+          float val = static_cast<float>(creg[t][e]) * (s[t][e] * qk_scale) + bias_s[cc];
+          if (k0 + cc >= n) val = -INFINITY;
+          s[t][e] = val;
+          mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       }
-      // the TPU kernels round p to their v's type before p v
-      *reinterpret_cast<__nv_bfloat162*>(Pb + r0 * PB + col) = __floats2bfloat162_rn(p[0], p[1]);
-      *reinterpret_cast<__nv_bfloat162*>(Pb + (r0 + 8) * PB + col) =
-          __floats2bfloat162_rn(p[2], p[3]);
+      if (tq == 0) {
+        m_part[nj * BQ + r0] = mx[0];
+        m_part[nj * BQ + r0 + 8] = mx[1];
+      }
+      __syncthreads();
+      // every column warp of a row computes the same m' and alpha
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        const float tile_max = fmaxf(fmaxf(m_part[row], m_part[BQ + row]),
+                                     fmaxf(m_part[2 * BQ + row], m_part[3 * BQ + row]));
+        const float m_new = fmaxf(m_row[h], tile_max);
+        alpha[h] = expf(m_row[h] - m_new);
+        m_row[h] = m_new;
+        l_row[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int col = 16 * nj + 8 * t + 2 * tq;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(s[t][e] - m_row[e >> 1]);
+          l_row[e >> 1] += p[e];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(Pb + r0 * PB + col) =
+            __floats2bfloat162_rn(p[0], p[1]);
+        *reinterpret_cast<__nv_bfloat162*>(Pb + (r0 + 8) * PB + col) =
+            __floats2bfloat162_rn(p[2], p[3]);
+      }
+    } else {
+      const float offs[2] = {offs_s[r0], offs_s[r0 + 8]};
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int col = 16 * nj + 8 * t + 2 * tq;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = col + (e & 1);
+          float val = static_cast<float>(creg[t][e]) * (s[t][e] * qk_scale);
+          if (has_bias) val += bias_s[cc];
+          p[e] = expf(fmaxf(val - offs[e >> 1], -80.0f));
+          if ((has_bias && bias_s[cc] < 0.f) || k0 + cc >= n) p[e] = 0.f;
+          l_row[e >> 1] += p[e];
+        }
+        // the TPU kernels round p to their v's type before p v
+        *reinterpret_cast<__nv_bfloat162*>(Pb + r0 * PB + col) = __floats2bfloat162_rn(p[0], p[1]);
+        *reinterpret_cast<__nv_bfloat162*>(Pb + (r0 + 8) * PB + col) =
+            __floats2bfloat162_rn(p[2], p[3]);
+      }
     }
     if (k0 + BK < n) fetch(k0 + BK);  // in flight during P V
     __syncthreads();

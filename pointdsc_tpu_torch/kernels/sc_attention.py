@@ -106,18 +106,26 @@ def qk_scale(c: int) -> float:
 
 
 def sc_attention_cached_plain(q, k, v, compat, key_bias):
-    """Plain version of the attention kernel on the same inputs:
+    """Plain version of the running-max attention kernel on the same inputs:
     softmax(compat * (q k^T * scale) + bias) v with the kernel's
-    acc / (l + 1e-30) normalisation."""
+    acc / (l + 1e-30) normalisation. q, k, v f32, or bf16, and then the
+    product runs in f32 on the bf16 values and p is rounded to bf16 before
+    p v, with l summed from the unrounded p (the offset version's rule)."""
+    round_p = q.dtype == torch.bfloat16
+    q, k, v = q.float(), k.float(), v.float()
     scale = torch.tensor(qk_scale(q.shape[-1]), dtype=torch.float32, device=q.device)
     logits = torch.einsum("bnc,bmc->bnm", q, k) * scale
     s = compat.float() * logits + key_bias[:, None, :]
     m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=_NEG)
     p = torch.exp(s - m)
-    return torch.einsum("bnm,bmc->bnc", p, v) / (torch.sum(p, dim=-1, keepdim=True) + 1e-30)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    return torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30)
 
 
 def _launch_sc_attention(q, k, v, compat, key_bias):
+    """q, k, v bf16, contiguous."""
     b, n, c = q.shape
     out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
     _build.launch("sc_attention", "sc_attention_cached", q.device,
@@ -180,12 +188,11 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     while the bound's slack stays inside the regime of models/regime.py;
     ``False`` the running-max kernel, exact for any weights.
 
-    q, k, v are f32, or all bf16 (the half-precision encoder). The offset
-    kernel takes bf16 and rounds p to bf16 before p v, as the TPU kernel
-    rounds it to its v's type: on a CUDA tensor f32 inputs are rounded to bf16
-    for it, as the JAX wrapper rounds them off the CPU (on the CPU they stay
-    f32, there as here). The running-max kernel takes f32, so bf16 inputs are
-    widened for it. The kernels take C = 128 and any N."""
+    q, k, v are f32, or all bf16 (the half-precision encoder). Both kernels
+    take bf16 and round p to bf16 before p v, as the TPU kernels round it to
+    their v's type: on a CUDA tensor f32 inputs are rounded to bf16, as the
+    JAX wrapper rounds them off the CPU (``use_bf16=True``; on the CPU they
+    stay f32, there as here). The kernels take C = 128 and any N."""
     expect(q, "q", ndim=3)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -198,17 +205,15 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     if mask is not None:
         expect(mask, "mask", dtype=torch.bool, shape=(b, n), device=q.device)
     bias = key_bias(mask, b, n, q.device)
-    if not offset_softmax:
-        q, k, v = q.float(), k.float(), v.float()
     if not on_cuda(q):
         if offset_softmax:
             return sc_attention_cached_offset_plain(q, k, v, compat, bias)
         return sc_attention_cached_plain(q, k, v, compat, bias)
     if c != C_KERNEL:
         raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={c}")
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    expect_aligned({"q": q, "k": k, "v": v})
     if offset_softmax:
-        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-        expect_aligned({"q": q, "k": k, "v": v})
         sc_attention_cached_offset.launches += 1
         return _launch_sc_attention_offset(q, k, v, compat, bias)
     fused_sc_attention_cached.launches += 1

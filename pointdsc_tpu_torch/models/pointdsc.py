@@ -27,8 +27,10 @@ Two paths give the same result within the JAX suite's fused-vs-dense bound:
   - ``offset_softmax=True, half_precision=True``: the encoder runs op by op
     with bf16 Dense products and the offset attention kernel;
   - ``offset_softmax=False``: op by op in f32 with the running-max attention
-    kernel, exact for any weights. ``models/regime.py`` selects it for a
-    checkpoint outside the offset softmax's validity regime.
+    kernel, exact for any weights; on the card the attention takes bf16 q,
+    k, v and rounds p to bf16 before p v, on the CPU it stays f32, as in
+    JAX. ``models/regime.py`` selects it for a checkpoint outside the
+    offset softmax's validity regime.
 
   In training mode no cache is built and no whole-layer kernel runs (BN
   folding needs running statistics): each layer's attention is

@@ -6,11 +6,11 @@ At N = 5120 and N = 12288 (C = 128, one pair, the last 5% of points padded):
 CUDA events around each kernel that holds the two N^2 C attention products
 (the attentions' private launches, no packing; the layer kernels' wrappers,
 which only allocate their outputs; median of 10 after 2 warm-ups): the
-running-max attention, the offset attention (bf16 inputs, its kscale reduction
-included), the attention + MLP + residual kernel, the PointCN + QKV kernel
-and, up to N = 6144, the one-launch layer kernel. ``chip_smoke.py`` times the
-public wrappers; this tool separates the loops from their wrappers' host work.
-Prints one JSON object per N.
+running-max attention (bf16 inputs), the offset attention (bf16 inputs, its
+kscale reduction included), the attention + MLP + residual kernel, the
+PointCN + QKV kernel and, up to N = 6144, the one-launch layer kernel.
+``chip_smoke.py`` times the public wrappers; this tool separates the loops
+from their wrappers' host work. Prints one JSON object per N.
 """
 
 from __future__ import annotations
@@ -79,7 +79,8 @@ def main(argv=None) -> int:
         h, qb, kb, vb, kscale = kenc.pcn_qkv(x, w)
         res = {
             "card": card, "n": n,
-            "running_max_ms": _event_ms(lambda: katt._launch_sc_attention(q, k, v, cache, kbias)),
+            "running_max_ms": _event_ms(
+                lambda: katt._launch_sc_attention(qh, kh, vh, cache, kbias)),
             "offset_ms": _event_ms(
                 lambda: katt._launch_sc_attention_offset(qh, kh, vh, cache, kbias)),
             "offset_kscale_reduction_ms": _event_ms(lambda: katt.offset_kscale(kh)),

@@ -1,4 +1,5 @@
-"""The fused forward's kernel gates against the JAX model's.
+"""The fused forward's kernel gates, and the cached attention's operand
+type, against the JAX model's and wrapper's.
 
 The JAX model runs its confidence-head kernel only on ``fused_attention and
 testing and num_channels == 128`` and its exact seed k-NN kernel only on
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 import pointdsc_tpu.models.pointdsc as j_model
+from pointdsc_tpu.kernels import sc_attention as j_att
 from pointdsc_tpu_torch.data import SyntheticPairDataset
+from pointdsc_tpu_torch.kernels import sc_attention as t_att
 from pointdsc_tpu_torch.models import pointdsc as t_model
 
 # (C, N, k) on both sides of each gate: the width, the size and the list length
@@ -81,3 +84,53 @@ def test_forward_calls_kernels_where_the_gates_say(c, n, k, monkeypatch):
     assert bool(torch.isfinite(out.final_trans).all())
     assert calls["conf"] == int(t_model.use_confidence_kernel(True, True, c))
     assert calls["knn"] == int(t_model.use_seed_knn_kernel(True, n, min(k, n - 1)))
+
+
+# The cached attention's operands. JAX's wrapper rounds q, k, v to bf16 off
+# the CPU, before it picks the offset or the running-max kernel, so both
+# kernels take bf16 there; in interpret mode (the CPU) they keep their type.
+CAST_GATE = re.search(
+    r"if (use_bf16 and not interpret):\n\s+q = q\.astype\(jnp\.bfloat16\)",
+    inspect.getsource(j_att.fused_sc_attention_cached))
+
+
+def test_jax_casts_for_both_cached_kernels():
+    """The cast is there, ``use_bf16`` defaults to True, the eval model's
+    attention function leaves it at that default, and the cast comes before
+    the offset flag picks the kernel."""
+    assert CAST_GATE, "the JAX wrapper no longer casts q, k, v to bf16"
+    src = inspect.getsource(j_att.fused_sc_attention_cached)
+    assert inspect.signature(j_att.fused_sc_attention_cached).parameters["use_bf16"].default
+    assert "use_bf16" not in inspect.getsource(j_att.make_sc_attention_fn)
+    assert src.index(CAST_GATE.group(0)) < src.index("offset_softmax=offset_softmax")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset_softmax", [False, True])
+@pytest.mark.parametrize("on_card", [False, True])
+def test_cached_kernels_take_jax_s_operands(on_card, offset_softmax, dtype, monkeypatch):
+    """The port's wrapper hands both cached kernels (or, on the CPU, their
+    plain versions) the operand type JAX's cast gives at the same place: a
+    card stands in for the TPU (not interpret mode), the CPU for interpret
+    mode. The launches are replaced by spies, so no card is needed."""
+    seen = []
+
+    def spy(*args):
+        seen.append(tuple(t.dtype for t in args[:3]))
+        return torch.zeros(args[0].shape)
+
+    for name in ("_launch_sc_attention", "_launch_sc_attention_offset",
+                 "sc_attention_cached_plain", "sc_attention_cached_offset_plain"):
+        monkeypatch.setattr(t_att, name, spy)
+    monkeypatch.setattr(t_att, "on_cuda", lambda t: on_card)
+    for fn in (t_att.fused_sc_attention_cached, t_att.sc_attention_cached_offset):
+        monkeypatch.setattr(fn, "launches", 0)
+    n = 16
+    q = torch.ones((1, n, t_att.C_KERNEL), dtype=dtype)
+    pts = torch.zeros((1, n, 3))
+    compat = torch.zeros((1, n, n), dtype=torch.int8)
+    t_att.fused_sc_attention_cached(q, q.clone(), q.clone(), compat, pts, pts,
+                                    offset_softmax=offset_softmax)
+    cast = eval(CAST_GATE.group(1), {}, {"use_bf16": True,  # noqa: S307
+                                          "interpret": not on_card})
+    assert seen == [(torch.bfloat16 if cast else dtype,) * 3]

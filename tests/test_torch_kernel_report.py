@@ -1,0 +1,39 @@
+"""The parsers of ``tools/kernel_report.py`` on the forms nvcc's
+``-Xptxas -v`` and ``cuobjdump --dump-sass`` print (the tool itself needs the
+CUDA toolkit)."""
+
+from pointdsc_tpu_torch.tools import kernel_report
+
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 380 bytes cmem[0]
+"""
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _Z1av
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0a30*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;
+        /*0a40*/                   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;
+        /*0a50*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : _Z1bv
+        /*0000*/                   HMMA.1688.F32.TF32 R4, R12, R20, R4 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_ptxas_report():
+    info = kernel_report.ptxas_report(PTXAS)
+    assert info == {"_Z1av": dict(stack=0, spill_stores=8, spill_loads=4, registers=128),
+                    "_Z1bv": dict(stack=16, spill_stores=0, spill_loads=0, registers=40)}
+
+
+def test_sass_hmma():
+    counts = kernel_report.sass_hmma(SASS)
+    assert counts == {"_Z1av": {"HMMA.16816.F32.BF16": 2}, "_Z1bv": {"HMMA.1688.F32.TF32": 1}}

@@ -66,17 +66,61 @@ def test_compat_cache(dev, n):
 
 @pytest.mark.parametrize("n", [1000, 2048])
 def test_sc_attention(dev, n):
-    """atol = rtol = 1e-4 on the same cache: f32 throughout, the flash loop
-    sums keys tile by tile with a rescale per tile."""
+    """The running-max kernel on the same cache, ragged (N = 1000) and with
+    masked keys (the second pair's last 10%). It takes bf16 q, k, v and
+    rounds p to bf16 before p v, as the JAX wrapper and the TPU kernel do
+    off the CPU, so it is held to the plain version of the bf16 inputs at
+    the offset kernel's atol = rtol = 2e-3 (was 1e-4 while it ran f32): a p
+    on a bf16 rounding boundary may round either way (the kernel rounds p
+    against each tile's running max, the plain version against the row's
+    maximum), each flip moving one of ~n terms by 2^-9 relative. f32 inputs
+    are rounded by the wrapper: the bf16 inputs' result bit for bit. Masked
+    keys carry exactly zero weight."""
     src, tgt, mask, _ = pair(n, dev)
     gen = torch.Generator().manual_seed(1)
     q, k, v = (torch.randn((B, n, 128), generator=gen).to(dev) for _ in range(3))
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
     geom = katt.pack_geometry(src, tgt, mask)
     cache = katt.compat_cache_plain(geom, katt.cache_coef(0.1))
+    out = katt.fused_sc_attention_cached(qh, kh, vh, cache, src, tgt, mask=mask,
+                                         offset_softmax=False)
+    ref = katt.sc_attention_cached_plain(qh, kh, vh, cache, geom[:, 8].contiguous())
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+    assert torch.equal(katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                                      offset_softmax=False), out)
+    v2 = vh.clone()
+    v2[1, n - n // 10:] = 1e6
+    out2 = katt.fused_sc_attention_cached(qh, kh, v2, cache, src, tgt, mask=mask,
+                                          offset_softmax=False)
+    assert torch.equal(out2, out)
+
+
+def test_sc_attention_growing_maxima(dev):
+    """Row maxima that grow with the key index, so that every key tile raises
+    the running max and rescales the accumulator (alpha < 1 in each of the 16
+    tiles): a full cache, q_i = 4 u + noise and k_j = 40 (j / n) u + noise for
+    a unit u, so the logits rise by ~0.9 nats a tile. Tolerance as
+    ``test_sc_attention``."""
+    n = 1000
+    src, tgt, mask, _ = pair(n, dev)
+    gen = torch.Generator().manual_seed(2)
+    u = torch.nn.functional.normalize(torch.randn(128, generator=gen), dim=0)
+    ramp = 40.0 * torch.arange(n, dtype=torch.float32)[:, None] / n
+    q = 4.0 * u + 0.1 * torch.randn((B, n, 128), generator=gen)
+    k = ramp * u + 0.1 * torch.randn((B, n, 128), generator=gen)
+    v = torch.randn((B, n, 128), generator=gen)
+    q, k, v = (t.to(dev).bfloat16() for t in (q, k, v))
+    cache = torch.full((B, n, n), 127, dtype=torch.int8, device=dev)
     out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
                                          offset_softmax=False)
-    ref = katt.sc_attention_cached_plain(q, k, v, cache, geom[:, 8].contiguous())
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    bias = katt.key_bias(mask, B, n, dev)
+    ref = katt.sc_attention_cached_plain(q, k, v, cache, bias)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+    # the premise: each tile's largest logit exceeds every earlier tile's
+    s = torch.einsum("bnc,bmc->bnm", q.float(), k.float()) * katt.qk_scale(128) + bias[:, None]
+    n_valid = n - n // 10  # the second pair's keys past it are masked
+    tiles = s[:, :, :n_valid - n_valid % 64].unflatten(-1, (-1, 64)).amax(-1)
+    assert bool((tiles[..., 1:] > tiles[..., :-1]).all())
 
 
 @pytest.mark.parametrize("half", [False, True])

@@ -9,11 +9,16 @@ Run as a script, this file rewrites a golden file from the JAX package's
 dense path (~1 min on the CPU): the one of seed 0, or with
 ``--seed 1`` the one of the pairs on which the snapshot stays inside the
 offset softmax's regime, which the card's default-configuration run is held
-to:
+to; or with ``--bf16-attention`` the seed-0 pairs through JAX's fused
+running-max path with its attention fed as on its accelerator (~3 min).
+``--seed-overlaps`` writes nothing: it prints how far JAX's fused running
+max, with f32 and with bf16 attention operands, moves the seeds of both
+dense files (~12 min):
 
-    python -m tests.test_torch_port_model [--seed 1]
+    python -m tests.test_torch_port_model [--seed 1 | --bf16-attention | --seed-overlaps]
 """
 
+import contextlib
 import os
 
 import jax
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 from pointdsc_tpu.data import SyntheticPairDataset
+from pointdsc_tpu.kernels import sc_attention as j_att
 from pointdsc_tpu.models import PointDSC as JaxPointDSC
 from pointdsc_tpu.ops.knn import pairwise_dists_exact
 from pointdsc_tpu.ops.nms import pick_seeds_nms
@@ -35,6 +41,7 @@ from pointdsc_tpu_torch.data import SyntheticPairDataset as PortSyntheticPairDat
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SNAP = os.path.join(ROOT, "snapshot", "PointDSC_Synthetic_release")
 GOLDEN = os.path.join(ROOT, "pointdsc_tpu_torch", "testdata", "golden_n5120.npz")
+GOLDEN_BF16 = GOLDEN.replace(".npz", "_bf16_attention.npz")
 N = 512
 
 
@@ -147,20 +154,41 @@ def test_port_dataset_matches_jax_dataset():
         np.testing.assert_array_equal(a[k], b[k])
 
 
-def write_golden(path=GOLDEN, pairs=3, n=5120, seed=0, inlier_ratio=0.4):
-    """The JAX dense path's final_trans, seeds and final_labels for the smoke
-    pairs (SyntheticPairDataset seed 0, inlier ratio 0.4, N = 5120) at full
-    width with the Synthetic snapshot. The inputs are regenerated from the
-    seed, so they are not stored."""
+@contextlib.contextmanager
+def jax_attention_fed_bf16():
+    """JAX's cached attention fed as its wrapper feeds it off the CPU
+    (``use_bf16=True`` rounds q, k, v to bf16 unless in interpret mode; the
+    kernel then rounds p to bf16 before p v), run in interpret mode here: the
+    function the JAX package computes on its accelerator."""
+    plain = j_att.fused_sc_attention_cached
+
+    def fed_bf16(q, k, v, *args, **kw):
+        return plain(q.astype(jnp.bfloat16), k.astype(jnp.bfloat16), v.astype(jnp.bfloat16),
+                     *args, **kw)
+
+    j_att.fused_sc_attention_cached = fed_bf16
+    try:
+        yield
+    finally:
+        j_att.fused_sc_attention_cached = plain
+
+
+def jax_forwards(pairs=3, n=5120, seed=0, inlier_ratio=0.4, attention="dense"):
+    """The JAX model's (final_trans, seeds, final_labels) for each of the
+    smoke pairs (SyntheticPairDataset at ``seed``, N = 5120) at full width
+    with the Synthetic snapshot: ``attention="dense"`` the dense path; "f32"
+    the fused running-max path with f32 attention operands (as in interpret
+    mode); "bf16" that path under ``jax_attention_fed_bf16``."""
     jax.config.update("jax_platforms", "cpu")
     cfg = Config.load(os.path.join(SNAP, "config.json"))
+    fused = attention != "dense"
     model = JaxPointDSC(
         in_dim=cfg.in_dim, num_layers=cfg.num_layers, num_channels=cfg.num_channels,
         num_iterations=cfg.num_iterations, ratio=cfg.ratio, sigma_d=cfg.sigma_d, k=cfg.k,
         inlier_threshold=cfg.inlier_threshold, nms_radius=cfg.nms_radius,
+        offset_softmax=not fused,
     )
     ds = SyntheticPairDataset(num_pairs=pairs, num_corr=n, inlier_ratio=inlier_ratio, seed=seed)
-    trans, seeds, labels = [], [], []
     variables = None
     for i in range(pairs):
         ex = ds[i]
@@ -168,21 +196,49 @@ def write_golden(path=GOLDEN, pairs=3, n=5120, seed=0, inlier_ratio=0.4):
         if variables is None:
             variables = load_model_weights(
                 model, os.path.join(SNAP, "models", "model_best.pkl"), (cp, src, tgt))
-        out = model.apply(variables, cp, src, tgt, testing=True)
-        seeds.append(np.asarray(pick_seeds_nms(
+        with jax_attention_fed_bf16() if attention == "bf16" else contextlib.nullcontext():
+            out = model.apply(variables, cp, src, tgt, testing=True, fused_attention=fused)
+        seeds = np.asarray(pick_seeds_nms(
             pairwise_dists_exact(src), out.confidence, cfg.nms_radius,
-            max(1, int(n * cfg.ratio))))[0])
-        trans.append(np.asarray(out.final_trans, np.float32)[0])
-        labels.append(np.asarray(out.final_labels)[0] > 0.5)
+            max(1, int(n * cfg.ratio))))[0]
+        yield (np.asarray(out.final_trans, np.float32)[0], seeds,
+               np.asarray(out.final_labels)[0] > 0.5)
+
+
+def write_golden(path=GOLDEN, pairs=3, n=5120, seed=0, inlier_ratio=0.4, attention="dense"):
+    """Save ``jax_forwards`` of the smoke pairs. The inputs are regenerated
+    from the seed, so they are not stored."""
+    trans, seeds, labels = zip(*jax_forwards(pairs, n, seed, inlier_ratio, attention))
     np.savez_compressed(path, final_trans=np.stack(trans), seeds=np.stack(seeds).astype(np.int32),
                         final_labels=np.stack(labels), n=n, seed=seed, inlier_ratio=inlier_ratio)
     print(f"wrote {path}")
 
 
-if __name__ == "__main__":
-    import sys
+def seed_overlaps(seeds=(0, 1)):
+    """Print, for the pairs of each dense golden file, the seed set overlap of
+    JAX's fused running max with f32 and with bf16 attention operands against
+    that file: what the attention's operand type alone moves."""
+    for seed in seeds:
+        dense = np.load(GOLDEN if seed == 0 else GOLDEN.replace(".npz", f"_seed{seed}.npz"))
+        for attention in ("f32", "bf16"):
+            for i, (_, s, _) in enumerate(jax_forwards(seed=seed, attention=attention)):
+                overlap = len(set(s.tolist()) & set(dense["seeds"][i].tolist())) / len(s)
+                print(f"seed {seed} pair {i}: JAX fused running max, {attention} attention: "
+                      f"seed set overlap with the dense path's {overlap}", flush=True)
 
-    if sys.argv[1:] == ["--seed", "1"]:
-        write_golden(path=GOLDEN.replace(".npz", "_seed1.npz"), seed=1)
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0, choices=(0, 1))
+    ap.add_argument("--bf16-attention", action="store_true")
+    ap.add_argument("--seed-overlaps", action="store_true")
+    args = ap.parse_args()
+    if args.seed_overlaps:
+        seed_overlaps()
+    elif args.bf16_attention:
+        write_golden(path=GOLDEN_BF16, attention="bf16")
     else:
-        write_golden()
+        write_golden(path=GOLDEN.replace(".npz", "_seed1.npz") if args.seed else GOLDEN,
+                     seed=args.seed)

@@ -120,6 +120,108 @@ def test_train_steps_match_jax_trainer(optimizer, fused):
     assert taken == 3 and 0 < len(noisy) < len(ref) // 2
 
 
+def test_dense_eval_losses_and_statistics_match_jax_per_epoch(capsys):
+    """The dense Trainers of both packages through three epochs of SGD
+    (``train_epoch`` over the same shuffled batches, then ``evaluate`` on a
+    held-out loader): after each epoch the BatchNorm running statistics
+    (atol 1e-5 + rtol 1e-4, as the step test) and the eval-mode losses and
+    metrics. Eval mode reads those statistics, so a fault in them would show
+    here; the losses agree to rtol 1e-4 (atol 1e-6 for a loss near 0) and the
+    thresholded metrics exactly.
+
+    lr 1e-3 keeps the two trajectories within ~1e-7 of each other over the
+    nine steps. At lr 1e-2 they drift apart within a few steps, while their
+    gradients at the same parameters agree (the next test): the train-mode
+    loss amplifies rounding differences, as at depth 12 (ROADMAP, settled)."""
+    over = dict(optimizer="SGD", lr=1e-3, weight_decay=1e-3, scheduler_gamma=0.5,
+                training_max_iter=3, val_max_iter=2, fused_attention=False,
+                fused_sm_loss=False)
+    jcfg, tcfg = small_config(JaxConfig, **over), small_config(Config, **over)
+    train_kw = dict(num_pairs=6, num_corr=112, seed=5, inlier_ratio=0.4)
+    val_kw = dict(num_pairs=4, num_corr=112, seed=6, inlier_ratio=0.4)
+    j_train = JaxLoader(JaxSyntheticPairDataset(**train_kw), 2, shuffle=True, num_workers=1,
+                        seed=3)
+    t_train = Loader(SyntheticPairDataset(**train_kw), 2, shuffle=True, num_workers=1, seed=3)
+    j_val = JaxLoader(JaxSyntheticPairDataset(**val_kw), 2, num_workers=1)
+    t_val = Loader(SyntheticPairDataset(**val_kw), 2, num_workers=1)
+
+    jt = JaxTrainer(jcfg)
+    jstate = jt.init_state(next(iter(j_val)), steps_per_epoch=3, seed=0)
+    jt.build_steps()
+    tt = Trainer(tcfg, device="cpu")
+    tstate = tt.init_state(steps_per_epoch=3, seed=0)
+    tstate.model.load_state_dict(from_flax_variables(jax.tree_util.tree_map(
+        np.asarray, {"params": jstate.params, "batch_stats": jstate.batch_stats})))
+
+    for epoch in (1, 2, 3):
+        jstate = jt.train_epoch(j_train, jstate, epoch)
+        tstate = tt.train_epoch(t_train, tstate, epoch)
+        ref = from_flax_variables(jax.tree_util.tree_map(
+            np.asarray, {"params": jstate.params, "batch_stats": jstate.batch_stats}))
+        got = tstate.model.state_dict()
+        for name, value in ref.items():
+            if "running_" in name:
+                np.testing.assert_allclose(got[name].numpy(), value.numpy(), atol=1e-5,
+                                           rtol=1e-4, err_msg=f"epoch {epoch} {name}")
+        jres, tres = jt.evaluate(j_val, jstate), tt.evaluate(t_val, tstate)
+        with capsys.disabled():
+            print(f"\nepoch {epoch}: eval class_loss JAX {jres['class_loss']!r} port "
+                  f"{tres['class_loss']!r}; sm_loss JAX {jres['sm_loss']!r} port "
+                  f"{tres['sm_loss']!r}")
+        assert jres.keys() == tres.keys()
+        for key in ("class_loss", "sm_loss", "trans_loss"):
+            np.testing.assert_allclose(tres[key], jres[key], rtol=1e-4, atol=1e-6,
+                                       err_msg=f"epoch {epoch} {key}")
+        for key in ("precision", "recall", "f1", "reg_recall"):
+            assert tres[key] == pytest.approx(jres[key], abs=1e-6), f"epoch {epoch} {key}"
+
+
+def test_dense_gradients_match_jax_along_its_trajectory():
+    """Nine dense SGD steps at lr 1e-2 (no momentum, decay or weight decay,
+    so a step is lr times the gradient) along the JAX Trainer's trajectory:
+    before each step the port takes JAX's parameters and statistics, and the
+    two steps' gradients agree to 1e-4, as in the step test: the parameters
+    after the step to lr * 1e-4 plus one ulp of the parameter, the rounding
+    of the update itself. Where the two
+    Trainers run free at this lr their parameters drift apart within a few
+    steps; this shows that the drift is rounding that the train-mode loss
+    amplifies, not a different gradient."""
+    lr = 1e-2
+    over = dict(optimizer="SGD", lr=lr, momentum=0.0, weight_decay=0.0, scheduler_gamma=1.0,
+                training_max_iter=3, fused_attention=False, fused_sm_loss=False)
+    jcfg, tcfg = small_config(JaxConfig, **over), small_config(Config, **over)
+    train_kw = dict(num_pairs=6, num_corr=112, seed=5, inlier_ratio=0.4)
+    loader = JaxLoader(JaxSyntheticPairDataset(**train_kw), 2, shuffle=True, num_workers=1,
+                       seed=3)
+    jt = JaxTrainer(jcfg)
+    jstate = jt.init_state(next(iter(loader)), steps_per_epoch=3, seed=0)
+    jt.build_steps()
+    tt = Trainer(tcfg, device="cpu")
+    tstate = tt.init_state(steps_per_epoch=3, seed=0)
+
+    def state_dict(js):
+        return from_flax_variables(jax.tree_util.tree_map(
+            np.asarray, {"params": js.params, "batch_stats": js.batch_stats}))
+
+    steps = 0
+    for epoch in (1, 2, 3):
+        for batch in loader:
+            before = state_dict(jstate)
+            tstate.model.load_state_dict(before)
+            jstate, _ = jt._train_step(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                                       jnp.asarray(epoch, jnp.int32))
+            tstate, _ = tt.train_step(tstate, tt.to_device(batch), epoch)
+            after, got = state_dict(jstate), tstate.model.state_dict()
+            for name, value in after.items():
+                if "running_" not in name:
+                    want = value.numpy()
+                    diff = np.abs(got[name].numpy() - want)
+                    assert (diff <= lr * 1e-4 + np.spacing(np.abs(want))).all(), \
+                        f"epoch {epoch} {name}: {diff.max()}"
+            steps += 1
+    assert steps == 9
+
+
 def test_skipped_step_changes_only_the_running_statistics():
     cfg = small_config(Config, lr=1e-2)
     trainer = Trainer(cfg, device="cpu")
