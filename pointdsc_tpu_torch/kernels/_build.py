@@ -39,7 +39,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "compat_cache": {"compat_cache_int8": [P, P, I, I, F, P]},
     "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P],
-                     "sc_attention_cached_offset": [P, P, P, P, P, P, P, I, I, F, P]},
+                     "sc_attention_cached_offset": [P, P, P, P, P, P, P, I, I, F, P],
+                     "sc_attention_nocache": [P] * 5 + [I, I, F, F, P]},
     "sc_attention_train": {"sc_attention_train_fwd": [P] * 6 + [I, I, F, F, P],
                            "sc_attention_train_bwd_dq": [P] * 8 + [I, I, F, F, P],
                            "sc_attention_train_bwd_dkv": [P] * 9 + [I, I, F, F, P]},
@@ -50,7 +51,7 @@ SIGNATURES = {
                       "attn_mlp_residual": [P] * 14 + [I, I, F, P]},
     "conf_mlp": {"confidence_head": [P, P, P, P, P, P, P, P, I, P]},
     "nms": {"nms_local_max": [P, P, I, I, F, P]},
-    "seed_knn": {"seed_knn_exact": [P, P, P, P, I, I, I, I, P]},
+    "seed_knn": {"seed_knn_exact": [P, P, P, P, P, I, I, I, I, P]},
     "scoring": {"seed_inlier_counts": [P, P, P, I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P, P, P, P, I, I, F, I, P]},
     "nn_search": {"nearest_neighbors": [P, P, P, P, I, I, I, P]},

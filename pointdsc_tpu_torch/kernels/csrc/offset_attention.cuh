@@ -1,10 +1,11 @@
-// Attention over the int8 spatial-consistency cache on the tensor cores: the
-// device function shared by the cached attention kernels (sc_attention.cu)
-// and the whole-encoder-layer kernels (encoder_layer.cu), as the JAX package
+// Spatial-consistency attention on the tensor cores: the device function
+// shared by the attention kernels (sc_attention.cu; over the int8 cache, or
+// without one) and the whole-encoder-layer kernels (encoder_layer.cu), as the JAX package
 // shares _offset_attn_p (pointdsc_tpu/kernels/encoder_layer.py:59) between
 // its kernels: _make_kernel (:109), _make_attn_mlp_kernel (:326) and
 // _sc_attention_cached_offset_kernel (pointdsc_tpu/kernels/sc_attention.py:472).
-// Its running-max form is _sc_attention_cached_kernel (sc_attention.py:417).
+// Its running-max form is _sc_attention_cached_kernel (sc_attention.py:417)
+// and, with the geometry as its compat source, _sc_attention_kernel (:82).
 //
 // Offset softmax (attention_rows<false>, the default):
 //   o_i  = ||q_i|| * kscale               kscale = max_j ||k_j|| / sqrt(C)
@@ -23,6 +24,22 @@
 //   their -1e9 bias and no p = 0 override, as in the TPU kernel.
 //
 // A block owns 32 query rows and walks all key tiles of 64 rows.
+//
+// Compat source (a template parameter):
+//   kCacheInt8: compat_ij = the cache's byte; the 1/127 decode is folded into
+//     the caller's qk scale. Each lane reads its own eight bytes at its
+//     fragment positions straight into registers, a tile ahead.
+//   kGeometry (running max only; the no-cache eval attention): compat_ij is
+//     computed in f32 from the pair's packed [16, n] geometry strip by
+//     compat_geom.cuh's entry, the operations the plain version writes out,
+//     so both see the same compat bits. The query rows' strip (rows 0-7) is
+//     staged once and the key tile's (rows 0-7) with K and V, a tile ahead;
+//     the key bias is row 8 of the same strip, passed as the bias row.
+//     Per lane and tile that is eight entries of two distances (a sqrt each)
+//     and an IEEE division, in place of eight byte loads. A lane computes its
+//     entries before Q K^T and keeps them in its own shared-memory slots
+//     behind the bf16 K tile: computed beside the live logit fragments they
+//     cost the loop a register spill under its 128-register limit.
 //
 // What bounds it on an H100, per pair of N keys: the two N^2 C products
 // (4 N^2 C operations on bf16 operands, 989 TFLOP/s on the tensor cores:
@@ -57,6 +74,12 @@
 // - The next tile's K, V, compat and bias are loaded into registers before
 //   P V runs, so the loads are in flight during the second product; they are
 //   stored to shared memory after the barrier that ends it.
+// - The compat region (OFF_C, BQ x BK floats) is not a compat tile: the
+//   int8 source reads its bytes into registers. It holds the running max's
+//   row maxima and, after the loop, the row partials of l (4 x BQ floats),
+//   and beside them the geometry source's two strips (8 x BQ and 8 x BK).
+//   The K region, sized for padded f32 rows, holds the bf16 K tile in its
+//   first half; the geometry source's per-lane entries sit in the rest.
 // - The 32-row block keeps the K and V re-reads (the L2 floor above) and
 //   two blocks per SM (99 KB of shared memory each, __launch_bounds__(256, 2):
 //   at most 128 registers a thread); a larger block is later work.
@@ -74,7 +97,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "compat_geom.cuh"
+
 namespace oa {
+
+// where a tile's compat entries come from (see the notes above)
+enum CompatSource { kCacheInt8, kGeometry };
 
 constexpr int C = 128;
 constexpr int BQ = 32;
@@ -96,13 +124,24 @@ constexpr int OFF_BIAS = OFF_C + BQ * BK;
 constexpr int OFF_OFFS = OFF_BIAS + BK;
 constexpr int OFF_L = OFF_OFFS + BQ;
 constexpr int SMEM_FLOATS = OFF_L + BQ;
+// inside the compat region: the row maxima / partials, then the geometry
+// source's query strip [8][BQ] and key strip [8][BK]
+constexpr int GEOM_ROWS = 8;
+constexpr int OFF_GQ = OFF_C + 4 * BQ;
+constexpr int OFF_GK = OFF_GQ + GEOM_ROWS * BQ;
+// the geometry source's eight entries per lane and tile, [8][THREADS], in the
+// K region's tail, which the bf16 K tile leaves unused
+constexpr int OFF_CT = OFF_K + BK * RB / 2;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
 static_assert(BK * RB * 2 <= BK * C * 4, "the bf16 V tile must fit the V region");
 static_assert(BK * RB * 2 <= BK * CP * 4, "the bf16 K tile must fit the K region");
 static_assert(BQ * RB * 2 <= BQ * CP * 4, "the bf16 Q tile must fit the Q region");
 static_assert(BQ * PB * 2 <= BQ * PP * 4, "the bf16 P tile must fit the P region");
-static_assert(4 * BQ <= BQ * BK, "the row partials and maxima must fit the compat region");
+static_assert(OFF_GK + GEOM_ROWS * BK <= OFF_C + BQ * BK,
+              "the row partials, maxima and geometry strips must fit the compat region");
+static_assert(OFF_CT + 8 * THREADS <= OFF_K + BK * CP,
+              "the staged compat entries must fit behind the bf16 K tile");
 static_assert((OFF_K * 4) % 16 == 0 && (OFF_Q * 4) % 16 == 0 && (OFF_P * 4) % 16 == 0 &&
                   (RB * 2) % 16 == 0 && (PB * 2) % 16 == 0,
               "ldmatrix and the 16-byte stores need 16-byte aligned rows");
@@ -160,15 +199,19 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t 
 // Attention of query rows [q0, q0 + BQ) of one pair over all n keys.
 // q, k, v [n, C] bf16 (16-byte aligned), compat [n, n] int8, bias [n] or nullptr.
 // kRunningMax: the running max instead of the offset (kscale is not read).
+// kSrc == kGeometry: compat is not read; geom is the pair's [16, n] strip,
+// sig2 = sigma_d^2, and bias its row 8.
 // On return acc[r][j] holds the unnormalised output of row 4 * (tid >> 5) + r,
 // channel (tid & 31) + 32 * j, and smem[OFF_L + row] the row's sum of p; the
 // block is synchronised, so the caller may reuse the V, K, Q, P and compat
 // regions.
-template <bool kRunningMax = false>
+template <bool kRunningMax = false, CompatSource kSrc = kCacheInt8>
 __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const int8_t* compat, const float* bias,
                                float kscale, int n, int q0, float qk_scale, float* smem,
-                               float (&acc)[4][4]) {
+                               float (&acc)[4][4], const float* geom = nullptr,
+                               float sig2 = 0.f) {
+  static_assert(kRunningMax || kSrc == kCacheInt8, "the offset form reads the int8 cache");
   __nv_bfloat16* Vb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
   __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
   __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_Q);
@@ -178,6 +221,9 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   float* bias_s = smem + OFF_BIAS;
   float* offs_s = smem + OFF_OFFS;
   float* l_s = smem + OFF_L;
+  float* gq_s = smem + OFF_GQ;
+  float* gk_s = smem + OFF_GK;
+  float* ct_s = smem + OFF_CT;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -194,6 +240,12 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < n) x = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * C + c8);
     *reinterpret_cast<uint4*>(Qb + r * RB + c8) = x;
+  }
+  if constexpr (kSrc == kGeometry) {
+    for (int i = tid; i < GEOM_ROWS * BQ; i += THREADS) {
+      const int r = i / BQ, c = i % BQ;
+      gq_s[i] = (q0 + c < n) ? geom[static_cast<size_t>(r) * n + q0 + c] : 0.f;
+    }
   }
   __syncthreads();
 
@@ -215,10 +267,13 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   }
 
   // A tile's loads, staged through registers: K and V as 16-byte chunks, the
-  // lane's own compat bytes at its fragment positions, and the bias row.
+  // lane's own compat bytes at its fragment positions (or the key tile's
+  // geometry strip), and the bias row.
   constexpr int KV_ITERS = BK * C / 8 / THREADS;
+  constexpr int G_ITERS = GEOM_ROWS * BK / THREADS;
   uint4 kreg[KV_ITERS], vreg[KV_ITERS];
   int8_t creg[2][4];
+  float greg[G_ITERS];
   float bias_reg;
   auto fetch = [&](int k0) {
 #pragma unroll
@@ -234,14 +289,23 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
         vreg[it] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
+    if constexpr (kSrc == kGeometry) {
 #pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + 8 * (e >> 1), col = 16 * nj + 8 * t + 2 * tq + (e & 1);
-        creg[t][e] = (q0 + row < n && k0 + col < n)
-                         ? compat[static_cast<size_t>(q0 + row) * n + k0 + col] : int8_t(0);
+      for (int it = 0; it < G_ITERS; ++it) {
+        const int i = tid + it * THREADS;
+        const int r = i / BK, c = i % BK;
+        greg[it] = (k0 + c < n) ? geom[static_cast<size_t>(r) * n + k0 + c] : 0.f;
       }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + 8 * (e >> 1), col = 16 * nj + 8 * t + 2 * tq + (e & 1);
+          creg[t][e] = (q0 + row < n && k0 + col < n)
+                           ? compat[static_cast<size_t>(q0 + row) * n + k0 + col] : int8_t(0);
+        }
+    }
     bias_reg = (has_bias && tid < BK && k0 + tid < n) ? bias[k0 + tid] : 0.f;
   };
 
@@ -272,7 +336,25 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
       *reinterpret_cast<uint4*>(Vb + r * RB + c8) = vreg[it];
     }
     if (tid < BK) bias_s[tid] = bias_reg;
+    if constexpr (kSrc == kGeometry) {
+#pragma unroll
+      for (int it = 0; it < G_ITERS; ++it) gk_s[tid + it * THREADS] = greg[it];
+    }
     __syncthreads();
+
+    if constexpr (kSrc == kGeometry) {
+      // this lane's eight compat entries, a fragment row at a time, into its
+      // own slots: computed before Q K^T so that the logit fragments are not
+      // yet live (read back by this thread alone, so no barrier)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            ct_s[(4 * h + 2 * t + c) * THREADS + tid] = geo::compat_entry<BQ, BK>(
+                gq_s, r0 + 8 * h, gk_s, 16 * nj + 8 * t + 2 * tq + c, sig2);
+    }
 
     // ---- S = Q K^T on this warp's 16 x 16 tile
     float s[2][4];
@@ -299,7 +381,12 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int cc = 16 * nj + 8 * t + 2 * tq + (e & 1);
-          float val = static_cast<float>(creg[t][e]) * (s[t][e] * qk_scale) + bias_s[cc];
+          float cval;
+          if constexpr (kSrc == kGeometry)
+            cval = ct_s[(4 * (e >> 1) + 2 * t + (e & 1)) * THREADS + tid];
+          else
+            cval = static_cast<float>(creg[t][e]);
+          float val = cval * (s[t][e] * qk_scale) + bias_s[cc];
           if (k0 + cc >= n) val = -INFINITY;
           s[t][e] = val;
           mx[e >> 1] = fmaxf(mx[e >> 1], val);

@@ -1,8 +1,9 @@
-// Attention over the int8 spatial-consistency cache, CUDA C++ for sm_90a:
-// the running-max (flash) kernel, and at the end of the file the
-// offset-softmax kernel. Both run the loop of offset_attention.cuh: the two
-// N^2 C products on the bf16 tensor cores (mma.sync), the cache stream read
-// once.
+// Spatial-consistency attention, CUDA C++ for sm_90a: over the int8 cache
+// the running-max (flash) kernel and, further down, the offset-softmax
+// kernel; at the end of the file the running-max kernel without a cache,
+// which computes the compat tile from the geometry. All three run the loop of
+// offset_attention.cuh: the two N^2 C products on the bf16 tensor cores
+// (mma.sync), the cache stream read once where there is one.
 //
 // Replaces the TPU kernel pointdsc_tpu/kernels/sc_attention.py:417
 // (_sc_attention_cached_kernel, pallas_call at :590), the
@@ -141,5 +142,77 @@ extern "C" int sc_attention_cached_offset(const void* q, const void* k, const vo
       static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(compat),
       static_cast<const float*>(bias), static_cast<const float*>(kscale),
       static_cast<float*>(out), n, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Running-max attention without a cache: the compat tile from the geometry.
+//
+// Replaces the TPU kernel pointdsc_tpu/kernels/sc_attention.py:82
+// (_sc_attention_kernel, pallas_call at :159), the fused_sc_attention path
+// (the model's fused_cache_compat=False):
+//
+//   compat_ij = max(1 - (d_src_ij - d_tgt_ij)^2 / sigma_d^2, 0)
+//   out = softmax_j(compat_ij * q_i.k_j / sqrt(C) + bias_j) v_j
+//
+// q, k, v [B, N, 128] bf16, geom [B, 16, N] f32 (pack_geometry: rows 0-7 the
+// two clouds' coordinates and squared norms, row 8 the key bias, 0 valid /
+// -1e9 padded), out [B, N, 128] f32. As on the TPU, where the JAX wrapper
+// rounds q, k, v to bf16 off the CPU (sc_attention.py:209-212) and the kernel
+// rounds p to its v's type (:128): m starts at -1e9, masked keys keep their
+// -1e9 bias (no p = 0 override), l is summed from the f32 p, and the result
+// is acc / (l + 1e-30). The loop is the running max of offset_attention.cuh
+// with its geometry compat source (compat_geom.cuh's entry, bit for bit the
+// plain version's compat).
+//
+// Bound on the H100, per pair at N = 5120: the two N^2 C products, 13.4
+// GFLOP on bf16 operands (14 us on the tensor cores), and the N^2 compat
+// entries in f32 (25 operations each, 10 us at 67 TFLOP/s); nothing [N, N]
+// is read. The compat entries take the place of the int8 stream of the
+// cached kernel: two sqrt and an IEEE division per entry on the CUDA cores.
+
+namespace {
+
+__global__ void __launch_bounds__(oa::THREADS, 2)
+sc_attention_nocache_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ geom, float* __restrict__ out, int n,
+                            float sig2, float qk_scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * oa::BQ;
+  const size_t base = static_cast<size_t>(b) * n;
+  const float* g = geom + base * 16;
+  float acc[4][4];
+  oa::attention_rows<true, oa::kGeometry>(q + base * oa::C, k + base * oa::C, v + base * oa::C,
+                                          nullptr, g + 8 * static_cast<size_t>(n), 0.f, n, q0,
+                                          qk_scale, smem, acc, g, sig2);
+  const int ry = threadIdx.x >> 5, cx = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * ry + r;
+    if (q0 + row >= n) continue;
+    const float l = smem[oa::OFF_L + row] + 1e-30f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(base + q0 + row) * oa::C + cx + 32 * j] = acc[r][j] / l;
+  }
+}
+
+}  // namespace
+
+extern "C" int sc_attention_nocache(const void* q, const void* k, const void* v,
+                                    const void* geom, void* out, int batch, int n, float sig2,
+                                    float qk_scale, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sc_attention_nocache_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(oa::SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + oa::BQ - 1) / oa::BQ, batch);
+  sc_attention_nocache_kernel<<<grid, oa::THREADS, oa::SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(geom),
+      static_cast<float*>(out), n, sig2, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }

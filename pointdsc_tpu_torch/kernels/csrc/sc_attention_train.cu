@@ -4,7 +4,6 @@
 //
 // Replaces the TPU kernels of pointdsc_tpu/kernels/sc_attention.py:
 //   _sc_attention_fwd_kernel      (:649, pallas_call :787)  forward + row LSE
-//   _sc_attention_kernel          (:82,  pallas_call :159)  the same, no LSE
 //   _sc_attention_bwd_dq_kernel   (:710, pallas_call :826)
 //   _sc_attention_bwd_dkv_kernel  (:742, pallas_call :848)
 //
@@ -20,11 +19,12 @@
 // |src|^2, 4-6 tgt xyz, 7 |tgt|^2, 8 key bias: 0 valid, -1e9 padded); lse and
 // D [B, N]. Geometry has no gradient.
 //
-// The compat entry is evaluated with explicitly rounded operations (no FMA
-// contraction), in the order of the plain PyTorch version: the difference of
-// two distances is divided by sigma_d^2 = 0.01, so another cancellation would
-// be another function. Kernel and plain version then see the same compat bit
-// for bit, and differ only in the order of the 128- and N-term sums.
+// The compat entry is compat_geom.cuh's, explicitly rounded operations in the
+// order of the plain PyTorch version, so kernel and plain version see the
+// same compat bit for bit and differ only in the order of the 128- and
+// N-term sums. (The eval attention without a cache, JAX's
+// _sc_attention_kernel, runs on the tensor cores in sc_attention.cu with
+// the same entry.)
 //
 // A TPU grid carries the softmax state, or the dQ / dK, dV sums, in scratch
 // across sequential steps. Here a block owns 32 rows (queries in the forward
@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "compat_geom.cuh"
+
 namespace {
 
 constexpr int C = 128;
@@ -51,25 +53,6 @@ constexpr int PP = BT + 1;  // padded row of a [BO, BT] tile
 constexpr int GROWS = 9;    // geometry rows the kernels read
 constexpr int GSTRIDE = 16;
 constexpr float NEG = -1e9f;
-
-__device__ __forceinline__ float pair_dist(float ax, float ay, float az, float a2, float bx,
-                                           float by, float bz, float b2) {
-  const float inner =
-      __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-  const float d2 = __fsub_rn(__fadd_rn(a2, b2), __fmul_rn(2.0f, inner));
-  return sqrtf(fmaxf(d2, 0.0f));
-}
-
-// go: [GROWS][BO] strip of the owned rows, gt: [GROWS][BT] strip of the tile
-__device__ __forceinline__ float compat_entry(const float* go, int i, const float* gt, int j,
-                                              float sig2) {
-  const float ds = pair_dist(go[0 * BO + i], go[1 * BO + i], go[2 * BO + i], go[3 * BO + i],
-                             gt[0 * BT + j], gt[1 * BT + j], gt[2 * BT + j], gt[3 * BT + j]);
-  const float dt = pair_dist(go[4 * BO + i], go[5 * BO + i], go[6 * BO + i], go[7 * BO + i],
-                             gt[4 * BT + j], gt[5 * BT + j], gt[6 * BT + j], gt[7 * BT + j]);
-  const float diff = __fsub_rn(ds, dt);
-  return fmaxf(__fsub_rn(1.0f, __fdiv_rn(__fmul_rn(diff, diff), sig2)), 0.0f);
-}
 
 // rows [r0, r0 + rows) of a [n, C] array into a padded shared tile, zeros past n
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
@@ -184,7 +167,8 @@ sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 16 * j;
-        float val = compat_entry(Gq, row, Gk, col, sig2) * (s[i][j] * scale) + Gk[8 * BT + col];
+        const float compat = geo::compat_entry<BO, BT>(Gq, row, Gk, col, sig2);
+        float val = compat * (s[i][j] * scale) + Gk[8 * BT + col];
         if (k0 + col >= n) val = -INFINITY;
         s[i][j] = val;
         mx = fmaxf(mx, val);
@@ -245,7 +229,7 @@ sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[(base + q0 + row) * C + cx + 32 * j] = acc[r][j] * inv;
   }
-  if (lse != nullptr && tid < BO && q0 + tid < n)
+  if (tid < BO && q0 + tid < n)
     lse[base + q0 + tid] = m_s[tid] + logf(l_s[tid] + 1e-30f);
 }
 
@@ -361,7 +345,7 @@ sc_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 16 * j;
-        const float compat = compat_entry(Go, row, Gt, col, sig2);
+        const float compat = geo::compat_entry<BO, BT>(Go, row, Gt, col, sig2);
         const float bias = DKV ? Go[8 * BO + row] : Gt[8 * BT + col];
         const int stat = DKV ? col : row;
         float p = expf(compat * (s[i][j] * scale) + bias - lse_s[stat]);
@@ -428,8 +412,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_out, c
 
 }  // namespace
 
-// lse may be null: the forward then stores no row statistics (the eval
-// forward without a cache)
 extern "C" int sc_attention_train_fwd(const void* q, const void* k, const void* v,
                                       const void* geom, void* out, void* lse, int batch, int n,
                                       float sig2, float scale, void* stream) {

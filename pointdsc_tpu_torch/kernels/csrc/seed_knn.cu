@@ -12,19 +12,39 @@
 //   idx[s, :] = the k largest sim[s, :], descending, ties to the lower index
 //
 // features [B, N, 128] f32, seeds [B, S] int32, bias [B, N] f32 (0 valid,
-// -1e30 invalid), idx [B, S, k] int64.
+// -1e30 invalid), idx [B, S, k] int64; scratch [B, S, NP] f32, NP = N rounded
+// up to 64, allocated by the wrapper.
 //
 // Bound on the H100 at N = 5120, S = 512, k = 40: the [S, N] similarities are
 // 2 S N C = 0.67 GFLOP (10 us at 67 TFLOP/s in f32) and the inputs 2.6 MB
-// (0.8 us), so operations bound it. Design: a block owns 4 seeds (one warp
-// each) and walks the candidates in chunks of 1024. Per chunk all 4 warps
-// compute the 4 x chunk similarities together, each candidate row read once
-// per block (one float4 per lane, 16 FMAs, four butterfly sums), into shared
-// memory; then each warp merges its seed's chunk with its running top-k by k
-// warp-wide argmax passes (value descending, index ascending). That is the
-// TPU's chunk top-k and union select in one pass: the running list is the
-// union of all earlier chunks' winners. The [S, N] matrix never leaves the
-// block.
+// (0.8 us), so operations bound it (58 us at N = 12288, S = 1228).
+//
+// Two launches, as the TPU's two pallas_calls, one C entry:
+//
+// 1. Similarities (seed_sim_kernel): a register-tiled f32 FMA product. A
+//    block owns 64 seeds x 64 candidates, stages the channels 32 at a time in
+//    shared memory (k-major, so a thread reads its 4 seeds and its 4
+//    candidates as two float4), and each of its 256 threads keeps 4 x 4
+//    sums. The masked and self tiers are applied in the epilogue and the
+//    tile is written to the scratch (10 MB at N = 5120, which the 50 MB L2
+//    holds; 60 MB at 12288). f32 x f32 with f32 sums, as JAX's product
+//    (seed_knn.py:59-62): bf16 or TF32 operands would move neighbour sets
+//    beyond the near-tie rule. A tail seed tile is masked, not repeated.
+// 2. Selection (seed_select_kernel): one block per seed row. The row is
+//    staged in shared memory as order-preserving uint32 keys (larger float,
+//    larger key; -0.0 is taken as +0.0, which the plain sort treats as
+//    equal), and an exact radix select over four 8-bit digits, most
+//    significant first, finds the k-th largest key T (a shared-memory
+//    histogram per digit, then a block scan over the bins from the top) and
+//    how many entries equal to T belong to the top k. Each thread then
+//    counts, in its contiguous run of indices, the entries above T and
+//    equal to T; one block scan gives every entry its slot, the ties taken
+//    strictly in index order (the plain version's stable sort). One warp
+//    sorts the <= k winners by (value descending, index ascending) with a
+//    bitonic network over 32, 64 or 128 slots.
+// The earlier design (4 seeds and 128 threads a block, one block per SM at
+// S = 512; each chunk of 1024 candidates merged by k serial argmax passes of
+// one warp; every block re-reading all N rows) ran at ~79x its bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,132 +53,282 @@
 namespace {
 
 constexpr int C = 128;
-constexpr int SEEDS = 4;  // seeds per block, one warp each
-constexpr int THREADS = 32 * SEEDS;
-constexpr int CHUNK = 1024;
 constexpr int KMAX = 128;
 constexpr float MASKED = -1e30f;
 constexpr float SELF = -3e38f;
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
+// ---------------------------------------------------------------- similarities
 
-__global__ void __launch_bounds__(THREADS)
-seed_knn_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
-                const float* __restrict__ bias, int64_t* __restrict__ idx_out, int n, int s,
-                int k) {
-  __shared__ float sim[SEEDS][CHUNK];
-  __shared__ float list_v[SEEDS][KMAX];
-  __shared__ int list_i[SEEDS][KMAX];
-  __shared__ float next_v[SEEDS][KMAX];
-  __shared__ int next_i[SEEDS][KMAX];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int s0 = blockIdx.x * SEEDS;
+constexpr int TS = 64;            // seeds a block owns
+constexpr int TN = 64;            // candidates a block owns
+constexpr int TC = 32;            // channels staged per step
+constexpr int SIM_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int TP = TS + 4;        // row of a k-major tile (floats, 16-byte aligned)
+constexpr int LOAD_ITERS = TS * TC / 4 / SIM_THREADS;
+static_assert(TS == TN, "one load slot layout serves both tiles");
+
+__global__ void __launch_bounds__(SIM_THREADS)
+seed_sim_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
+                const float* __restrict__ bias, float* __restrict__ sim, int n, int s, int np) {
+  __shared__ __align__(16) float As[TC][TP];  // seed channels, k-major
+  __shared__ __align__(16) float Bs[TC][TP];  // candidate channels, k-major
+  const int b = blockIdx.z;
+  const int s0 = blockIdx.y * TS, j0 = blockIdx.x * TN;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const float* f = feats + static_cast<size_t>(b) * n * C;
-  const float* bb = bias + static_cast<size_t>(b) * n;
+  const int* sd = seeds + static_cast<size_t>(b) * s;
 
-  // every lane keeps channels 4*lane..4*lane+3 of the block's 4 seeds
-  float4 sf[SEEDS];
-  int seed_id[SEEDS];
+  // load slots: row i / 8 of the tile, channels 4 (i % 8) + [0, 4) of a step
+  const float* a_row[LOAD_ITERS];
+  const float* b_row[LOAD_ITERS];
 #pragma unroll
-  for (int q = 0; q < SEEDS; ++q) {
-    const int sq = min(s0 + q, s - 1);  // a tail block repeats its last seed
-    seed_id[q] = seeds[static_cast<size_t>(b) * s + sq];
-    sf[q] = reinterpret_cast<const float4*>(f + static_cast<size_t>(seed_id[q]) * C)[lane];
+  for (int it = 0; it < LOAD_ITERS; ++it) {
+    const int r = (tid + it * SIM_THREADS) >> 3;
+    a_row[it] = s0 + r < s ? f + static_cast<size_t>(sd[s0 + r]) * C : nullptr;
+    b_row[it] = j0 + r < n ? f + static_cast<size_t>(j0 + r) * C : nullptr;
   }
-  int cur = 0;  // entries in this warp's running list
+  const int c4 = (tid & 7) * 4;
+  float4 areg[LOAD_ITERS], breg[LOAD_ITERS];
+  auto fetch = [&](int c0) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int it = 0; it < LOAD_ITERS; ++it) {
+      areg[it] = a_row[it] ? *reinterpret_cast<const float4*>(a_row[it] + c0 + c4) : zero;
+      breg[it] = b_row[it] ? *reinterpret_cast<const float4*>(b_row[it] + c0 + c4) : zero;
+    }
+  };
 
-  for (int base = 0; base < n; base += CHUNK) {
-    const int len = min(CHUNK, n - base);
-    __syncthreads();  // the previous chunk's selection is done with sim
-    for (int j = warp; j < len; j += SEEDS) {
-      const int g = base + j;
-      const float4 x = reinterpret_cast<const float4*>(f + static_cast<size_t>(g) * C)[lane];
-      float d[SEEDS];
+  float acc[4][4];
 #pragma unroll
-      for (int q = 0; q < SEEDS; ++q) {
-        d[q] = sf[q].x * x.x + sf[q].y * x.y + sf[q].z * x.z + sf[q].w * x.w;
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) d[q] += __shfl_xor_sync(0xffffffffu, d[q], off);
-      }
-      if (lane < SEEDS) {
-        float v = d[0];
-        int own = seed_id[0];
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+  fetch(0);
+  for (int c0 = 0; c0 < C; c0 += TC) {
+    __syncthreads();  // the previous step's readers are done
 #pragma unroll
-        for (int q = 1; q < SEEDS; ++q)
-          if (lane == q) {
-            v = d[q];
-            own = seed_id[q];
-          }
-        if (bb[g] != 0.0f) v = MASKED;
-        if (g == own) v = SELF;
-        sim[lane][j] = v;
-      }
+    for (int it = 0; it < LOAD_ITERS; ++it) {
+      const int r = (tid + it * SIM_THREADS) >> 3;
+      As[c4 + 0][r] = areg[it].x;
+      As[c4 + 1][r] = areg[it].y;
+      As[c4 + 2][r] = areg[it].z;
+      As[c4 + 3][r] = areg[it].w;
+      Bs[c4 + 0][r] = breg[it].x;
+      Bs[c4 + 1][r] = breg[it].y;
+      Bs[c4 + 2][r] = breg[it].z;
+      Bs[c4 + 3][r] = breg[it].w;
     }
     __syncthreads();
-
-    // merge: the k best of (running list, this chunk), k argmax passes
-    float* sv = sim[warp];
-    float* lv = list_v[warp];
-    int* li = list_i[warp];
-    const int total = cur + len;
-    const int take = min(k, total);
-    for (int r = 0; r < take; ++r) {
-      float bv = -INFINITY;
-      int bi = INT32_MAX, bp = -1;
-      for (int p = lane; p < total; p += 32) {
-        const float v = p < cur ? lv[p] : sv[p - cur];
-        const int i = p < cur ? li[p] : base + p - cur;
-        if (better(v, i, bv, bi)) {
-          bv = v;
-          bi = i;
-          bp = p;
-        }
-      }
+    if (c0 + TC < C) fetch(c0 + TC);  // in flight during this step's sums
+#pragma unroll 8
+    for (int kk = 0; kk < TC; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        const int op = __shfl_xor_sync(0xffffffffu, bp, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-          bp = op;
-        }
-      }
-      if (lane == 0) {
-        next_v[warp][r] = bv;
-        next_i[warp][r] = bi;
-        if (bp < cur) lv[bp] = -INFINITY;
-        else sv[bp - cur] = -INFINITY;
-      }
-      __syncwarp();
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bw[c], acc[r][c]);
     }
-    for (int r = lane; r < take; r += 32) {
-      lv[r] = next_v[warp][r];
-      li[r] = next_i[warp][r];
-    }
-    cur = take;
-    __syncwarp();
   }
 
-  const int seed_row = s0 + warp;
-  if (seed_row < s) {
-    int64_t* o = idx_out + (static_cast<size_t>(b) * s + seed_row) * k;
-    for (int r = lane; r < k; r += 32) o[r] = list_i[warp][r];
+  // the masked tier, then the self tier below it; columns past n stay
+  // unread by the selection
+  const int jb = j0 + 4 * tx;
+  bool masked[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    masked[c] = jb + c < n && bias[static_cast<size_t>(b) * n + jb + c] != 0.0f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = s0 + 4 * ty + r;
+    if (row >= s) continue;
+    const int own = sd[row];
+    float out[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      out[c] = masked[c] ? MASKED : acc[r][c];
+      if (jb + c == own) out[c] = SELF;
+    }
+    *reinterpret_cast<float4*>(sim + (static_cast<size_t>(b) * s + row) * np + jb) =
+        make_float4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// ---------------------------------------------------------------- selection
+
+constexpr int SEL_THREADS = 256;  // one histogram bin per thread
+constexpr int BINS = 256;
+constexpr int WARPS = SEL_THREADS / 32;
+// rows up to this length are staged in shared memory (160 KB); longer rows
+// read their keys from the scratch on every pass
+constexpr int MAX_STAGED = 40960;
+static_assert(SEL_THREADS == BINS, "a thread clears and scans one bin");
+
+// larger float -> larger key; -0.0 and +0.0 -> one key (the plain version's
+// sort compares them equal and keeps index order)
+__device__ __forceinline__ uint32_t order_key(float v) {
+  if (v == 0.0f) v = 0.0f;
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// inclusive prefix sum over the block, in thread order
+__device__ __forceinline__ int block_scan(int x, int* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < WARPS ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < WARPS; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += y;
+    }
+    if (lane < WARPS) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) x += warp_sums[warp - 1];
+  __syncthreads();  // warp_sums may be reused
+  return x;
+}
+
+// (key a, index ia) comes before (key b, index ib)
+__device__ __forceinline__ bool before(uint32_t a, int ia, uint32_t b, int ib) {
+  return a > b || (a == b && ia < ib);
+}
+
+__global__ void __launch_bounds__(SEL_THREADS)
+seed_select_kernel(const float* __restrict__ sim, int64_t* __restrict__ idx_out, int n, int s,
+                   int np, int k) {
+  extern __shared__ uint32_t keys[];  // [n] when staged
+  __shared__ int hist[BINS];
+  __shared__ int warp_sums[WARPS];
+  __shared__ uint32_t digit_s;
+  __shared__ int rank_s;
+  __shared__ uint32_t win_key[KMAX];
+  __shared__ int win_idx[KMAX];
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x, b = blockIdx.y;
+  const float* r = sim + (static_cast<size_t>(b) * s + row) * np;
+  const bool staged = n <= MAX_STAGED;
+  if (staged)
+    for (int i = tid; i < n; i += SEL_THREADS) keys[i] = order_key(r[i]);
+  auto key_at = [&](int i) { return staged ? keys[i] : order_key(r[i]); };
+
+  // radix select: after the pass of shift, prefix holds the top digits of
+  // the k-th largest key and kk its rank among the keys that share them
+  uint32_t prefix = 0, pmask = 0;
+  int kk = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    hist[tid] = 0;
+    __syncthreads();  // the keys are staged, the bins cleared
+    for (int i = tid; i < n; i += SEL_THREADS) {
+      const uint32_t key = key_at(i);
+      if ((key & pmask) == prefix) atomicAdd(&hist[(key >> shift) & 0xFFu], 1);
+    }
+    __syncthreads();
+    // bins from the top: thread t holds digit 255 - t
+    const int h = hist[BINS - 1 - tid];
+    const int above_and_own = block_scan(h, warp_sums);
+    if (above_and_own >= kk && above_and_own - h < kk) {
+      digit_s = BINS - 1 - tid;
+      rank_s = kk - (above_and_own - h);
+    }
+    __syncthreads();
+    prefix |= digit_s << shift;
+    pmask |= 0xFFu << shift;
+    kk = rank_s;
+  }
+  const uint32_t kth = prefix;  // the k-th largest key
+  const int ties = kk;          // entries equal to it among the top k
+  const int above = k - ties;   // entries larger than it
+
+  // compaction in index order: a contiguous run of indices per thread
+  const int run = (n + SEL_THREADS - 1) / SEL_THREADS;
+  const int lo = min(n, tid * run), hi = min(n, lo + run);
+  int n_gt = 0, n_eq = 0;
+  for (int i = lo; i < hi; ++i) {
+    const uint32_t key = key_at(i);
+    n_gt += key > kth;
+    n_eq += key == kth;
+  }
+  // above < k <= 128: the count of larger keys fits the low 8 bits
+  const int own = (n_eq << 8) | n_gt;
+  const int before_me = block_scan(own, warp_sums) - own;
+  int slot_gt = before_me & 0xFF, rank_eq = before_me >> 8;
+  for (int i = lo; i < hi && (slot_gt < above || rank_eq < ties); ++i) {
+    const uint32_t key = key_at(i);
+    if (key > kth) {
+      win_key[slot_gt] = key;
+      win_idx[slot_gt++] = i;
+    } else if (key == kth) {
+      if (rank_eq < ties) {
+        win_key[above + rank_eq] = key;
+        win_idx[above + rank_eq] = i;
+      }
+      ++rank_eq;
+    }
+  }
+  const int slots = k <= 32 ? 32 : (k <= 64 ? 64 : 128);
+  for (int t = k + tid; t < slots; t += SEL_THREADS) {
+    win_key[t] = 0u;  // below every key a float maps to
+    win_idx[t] = INT32_MAX;
+  }
+  __syncthreads();
+
+  // one warp: bitonic sort of the slots, first the best
+  if (tid < 32) {
+    for (int size = 2; size <= slots; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int p = tid; p < slots / 2; p += 32) {
+          const int i = 2 * p - (p & (stride - 1));
+          const int j = i + stride;
+          const bool first_half = (i & size) == 0;  // this run is sorted best first
+          const uint32_t ki = win_key[i], kj = win_key[j];
+          const int ii = win_idx[i], ij = win_idx[j];
+          if (before(kj, ij, ki, ii) == first_half) {
+            win_key[i] = kj;
+            win_key[j] = ki;
+            win_idx[i] = ij;
+            win_idx[j] = ii;
+          }
+        }
+        __syncwarp();
+      }
+    }
+    int64_t* o = idx_out + (static_cast<size_t>(b) * s + row) * k;
+    for (int t = tid; t < k; t += 32) o[t] = win_idx[t];
   }
 }
 
 }  // namespace
 
 extern "C" int seed_knn_exact(const void* feats, const void* seeds, const void* bias,
-                              void* idx, int batch, int n, int s, int k, void* stream) {
+                              void* idx, void* scratch, int batch, int n, int s, int k,
+                              void* stream) {
   if (k < 1 || k > KMAX || k >= n) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((s + SEEDS - 1) / SEEDS, batch);
-  seed_knn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int np = (n + TN - 1) / TN * TN;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 sim_grid(np / TN, (s + TS - 1) / TS, batch);
+  seed_sim_kernel<<<sim_grid, SIM_THREADS, 0, st>>>(
       static_cast<const float*>(feats), static_cast<const int*>(seeds),
-      static_cast<const float*>(bias), static_cast<int64_t*>(idx), n, s, k);
+      static_cast<const float*>(bias), static_cast<float*>(scratch), n, s, np);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t keys_bytes = n <= MAX_STAGED ? static_cast<size_t>(n) * sizeof(uint32_t) : 0;
+  // per call: the attribute belongs to the current device
+  err = cudaFuncSetAttribute(seed_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(keys_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seed_select_kernel<<<dim3(s, batch), SEL_THREADS, keys_bytes, st>>>(
+      static_cast<const float*>(scratch), static_cast<int64_t*>(idx), n, s, np, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,11 +5,12 @@
 
 Eval: the 12 encoder layers share one compat matrix, built once as int8
 (value = round(127 * compat)); each layer streams it through the offset or
-the running-max attention kernel. Without a cache (``fused_sc_attention``)
-and in training (``sc_attention_trainable``, a ``torch.autograd.Function``
-with a forward kernel that saves the row LSE and two backward kernels) the
-compat tile is recomputed from the packed geometry, so nothing [N, N] exists
-in either pass. On a CPU tensor each wrapper runs its plain PyTorch version;
+the running-max attention kernel. Without a cache (``fused_sc_attention``,
+the running-max kernel on bf16 operands) and in training
+(``sc_attention_trainable``, a ``torch.autograd.Function`` with an f32
+forward kernel that saves the row LSE and two backward kernels) the compat
+tile is recomputed from the packed geometry, so nothing [N, N] exists in
+either pass. On a CPU tensor each wrapper runs its plain PyTorch version;
 on a CUDA tensor it launches its kernel or raises.
 """
 
@@ -181,6 +182,26 @@ def _launch_sc_attention_offset(q, k, v, compat, key_bias):
     return out
 
 
+def _expect_qkv(q, k, v) -> None:
+    """q, k, v [B, N, C], all float32 or all bfloat16, on one device."""
+    expect(q, "q", ndim=3)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        expect(t, name, dtype=q.dtype, shape=q.shape, device=q.device)
+
+
+def _kernel_operands(q, k, v):
+    """q, k, v as the bf16 attention kernels take them on the card: C = 128,
+    rounded to bf16 as the JAX wrappers round them off the CPU
+    (``use_bf16=True``), 16-byte aligned."""
+    if q.shape[-1] != C_KERNEL:
+        raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={q.shape[-1]}")
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    expect_aligned({"q": q, "k": k, "v": v})
+    return q, k, v
+
+
 def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softmax=True):
     """Attention over the int8 cache: q, k, v [B, N, C], compat [B, N, N]
     int8, src/tgt/mask only for the key-bias row. Returns [B, N, C] f32.
@@ -193,12 +214,8 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     their v's type: on a CUDA tensor f32 inputs are rounded to bf16, as the
     JAX wrapper rounds them off the CPU (``use_bf16=True``; on the CPU they
     stay f32, there as here). The kernels take C = 128 and any N."""
-    expect(q, "q", ndim=3)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        expect(t, name, dtype=q.dtype, shape=q.shape, device=q.device)
-    b, n, c = q.shape
+    _expect_qkv(q, k, v)
+    b, n, _ = q.shape
     expect(compat, "compat", dtype=torch.int8, shape=(b, n, n), device=q.device)
     expect(src, "src", shape=(b, n, 3), device=q.device)
     expect(tgt, "tgt", shape=(b, n, 3), device=q.device)
@@ -209,10 +226,7 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
         if offset_softmax:
             return sc_attention_cached_offset_plain(q, k, v, compat, bias)
         return sc_attention_cached_plain(q, k, v, compat, bias)
-    if c != C_KERNEL:
-        raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={c}")
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    expect_aligned({"q": q, "k": k, "v": v})
+    q, k, v = _kernel_operands(q, k, v)
     if offset_softmax:
         sc_attention_cached_offset.launches += 1
         return _launch_sc_attention_offset(q, k, v, compat, bias)
@@ -258,18 +272,36 @@ def compat_from_geometry(geom: torch.Tensor, sig2: float) -> torch.Tensor:
     return torch.clamp(1.0 - diff * diff / geom.new_tensor(sig2), min=0.0)
 
 
-def sc_attention_forward_plain(q, k, v, geom, sigma_d):
-    """Plain version of the forward kernel: (out [B, N, C], lse [B, N]) with
-    s = compat * (q k^T / sqrt(C)) + bias, m clamped at -1e9,
-    out = p v / (l + 1e-30), lse = m + log(l + 1e-30)."""
+def _geometry_softmax(q, k, v, geom, sigma_d, round_p: bool):
+    """(out, m, l) of s = compat * (q k^T / sqrt(C)) + bias with m clamped at
+    -1e9, p = exp(s - m), l = sum p, out = p v / (l + 1e-30); p rounded to
+    bf16 before p v when ``round_p`` (l from the unrounded p)."""
     compat = compat_from_geometry(geom, sigma_d_sq(sigma_d))
     s = compat * (torch.einsum("bnc,bmc->bnm", q, k) * inv_sqrt_c(q.shape[-1])) \
         + geom[:, 8][:, None, :]
     m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=_NEG)
     p = torch.exp(s - m)
     l = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30)
+    if round_p:
+        p = p.to(torch.bfloat16).to(p.dtype)
+    return torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30), m, l
+
+
+def sc_attention_forward_plain(q, k, v, geom, sigma_d):
+    """Plain version of the forward kernel: (out [B, N, C], lse [B, N]) with
+    s = compat * (q k^T / sqrt(C)) + bias, m clamped at -1e9,
+    out = p v / (l + 1e-30), lse = m + log(l + 1e-30)."""
+    out, m, l = _geometry_softmax(q, k, v, geom, sigma_d, round_p=False)
     return out, (m + torch.log(l + 1e-30))[..., 0]
+
+
+def sc_attention_nocache_plain(q, k, v, geom, sigma_d):
+    """Plain version of the no-cache eval attention kernel, out [B, N, C] f32.
+    q, k, v f32: ``sc_attention_forward_plain``'s out. bf16: the products run
+    in f32 on the bf16 values and p is rounded to bf16 before p v, with l
+    summed from the unrounded p (``sc_attention_cached_plain``'s rule)."""
+    round_p = q.dtype == torch.bfloat16
+    return _geometry_softmax(q.float(), k.float(), v.float(), geom, sigma_d, round_p)[0]
 
 
 def sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d):
@@ -303,24 +335,19 @@ def _check_qkv_geom(q, k, v, geom):
     return cuda
 
 
-def _launch_forward(q, k, v, geom, sigma_d, with_lse: bool):
-    b, n, c = q.shape
-    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if with_lse else None
-    _build.launch("sc_attention_train", "sc_attention_train_fwd", q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
-                  lse.data_ptr() if with_lse else None, b, n, sigma_d_sq(sigma_d),
-                  inv_sqrt_c(c))
-    return out, lse
-
-
 def sc_attention_forward(q, k, v, geom, sigma_d):
     """Forward of the trainable attention: q, k, v [B, N, C] f32, geom
     [B, 16, N] (``pack_geometry``) -> (out [B, N, C], lse [B, N])."""
     if not _check_qkv_geom(q, k, v, geom):
         return sc_attention_forward_plain(q, k, v, geom, sigma_d)
+    b, n, c = q.shape
+    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     sc_attention_forward.launches += 1
-    return _launch_forward(q, k, v, geom, sigma_d, with_lse=True)
+    _build.launch("sc_attention_train", "sc_attention_train_fwd", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), b, n, sigma_d_sq(sigma_d), inv_sqrt_c(c))
+    return out, lse
 
 
 def _check_backward(q, k, v, geom, lse, dvec, d_out):
@@ -391,20 +418,37 @@ def sc_attention_trainable(q, k, v, geom, sigma_d: float):
     return _SCAttentionTrainable.apply(q, k, v, geom, sigma_d)
 
 
+def _launch_sc_attention_nocache(q, k, v, geom, sigma_d):
+    """q, k, v bf16, contiguous; geom [B, 16, N] f32."""
+    b, n, c = q.shape
+    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+    _build.launch("sc_attention", "sc_attention_nocache", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
+                  b, n, sigma_d_sq(sigma_d), inv_sqrt_c(c))
+    return out
+
+
 def fused_sc_attention(q, k, v, src, tgt, sigma_d: float, mask=None):
-    """Eval attention without a cache: q, k, v [B, N, C] (f32, or bf16, which
-    is widened), src/tgt [B, N, 3] -> [B, N, C] f32. The forward kernel of the
-    trainable attention with the LSE store switched off."""
+    """Eval attention without a cache: q, k, v [B, N, C] (f32, or all bf16),
+    src/tgt [B, N, 3] -> [B, N, C] f32, the compat tile computed from the
+    geometry. On a CUDA tensor q, k, v are rounded to bf16, as the JAX
+    wrapper rounds them off the CPU (``use_bf16=True``), and the running-max
+    kernel of the cached attention runs with its geometry compat source,
+    rounding p to bf16 before p v as the TPU kernel rounds it to its v's
+    type; on the CPU they keep their type, as in JAX's interpret mode (f32:
+    the trainable forward's out). The kernel takes C = 128 and any N."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _expect_qkv(q, k, v)
     expect(src, "src", shape=(*q.shape[:2], 3), device=q.device)
     expect(tgt, "tgt", shape=src.shape, device=q.device)
     if mask is not None:
         expect(mask, "mask", dtype=torch.bool, shape=q.shape[:2], device=q.device)
-    q, k, v = (t.float().contiguous() for t in (q, k, v))
     geom = pack_geometry(src, tgt, mask)
-    if not _check_qkv_geom(q, k, v, geom):
-        return sc_attention_forward_plain(q, k, v, geom, sigma_d)[0]
+    if not on_cuda(q):
+        return sc_attention_nocache_plain(q, k, v, geom, sigma_d)
+    q, k, v = _kernel_operands(q, k, v)
     fused_sc_attention.launches += 1
-    return _launch_forward(q, k, v, geom, sigma_d, with_lse=False)[0]
+    return _launch_sc_attention_nocache(q, k, v, geom, sigma_d)
 
 
 sc_attention_forward.launches = 0

@@ -1,19 +1,24 @@
 """Registers, spills and tensor-core instructions of the CUDA kernels, on a
 machine with the CUDA toolkit.
 
-    python -m pointdsc_tpu_torch.tools.kernel_report [--out FILE]
+    python -m pointdsc_tpu_torch.tools.kernel_report [--csrc DIR] [--out FILE]
 
 Compiles the two sources of ``kernels/csrc`` that hold the attention loop,
-``sc_attention`` and ``encoder_layer``, with the build's flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
+``sc_attention`` and ``encoder_layer``, and the seed k-NN's ``seed_knn``,
+with the build's flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
 ``cuobjdump --dump-sass``. Prints one JSON object per kernel: registers,
 spill stores and loads (bytes), stack frame, and the count of each ``HMMA``
-form (the tensor-core instructions). The cubins go to the git-ignored build
-directory.
+form (the tensor-core instructions), and a SHA-256 of its SASS instructions
+(addresses and encodings left out), so that two trees' kernels can be shown
+to compile to the same code. ``--csrc`` compiles the sources of another
+directory (another tree's ``kernels/csrc``). The cubins go to the git-ignored
+build directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -23,7 +28,7 @@ from collections import Counter
 
 from pointdsc_tpu_torch.kernels import _build
 
-SOURCES = ("sc_attention", "encoder_layer")
+SOURCES = ("sc_attention", "encoder_layer", "seed_knn")
 
 
 def _tool(name: str) -> str:
@@ -82,12 +87,29 @@ def sass_hmma(sass: str) -> dict:
     return counts
 
 
-def report(name: str) -> list[dict]:
+def sass_digest(sass: str) -> dict:
+    """{mangled kernel: SHA-256 of its instructions} from ``cuobjdump
+    --dump-sass``, each instruction without its address and encoding."""
+    text: dict[str, list] = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = text.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*[0-9a-f]+\*/\s+([^;]*;)", line)
+        if m and current is not None:
+            current.append(" ".join(m.group(1).split()))
+    return {name: hashlib.sha256("\n".join(lines).encode()).hexdigest()
+            for name, lines in text.items()}
+
+
+def report(name: str, csrc: str = _build.CSRC) -> list[dict]:
     out_dir = os.path.join(_build.BUILD_DIR, "report")
     os.makedirs(out_dir, exist_ok=True)
     cubin = os.path.join(out_dir, f"{name}.cubin")
     proc = subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, "-cubin", "-Xptxas", "-v",
-                           "-o", cubin, os.path.join(_build.CSRC, f"{name}.cu")],
+                           "-o", cubin, os.path.join(csrc, f"{name}.cu")],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
@@ -95,21 +117,26 @@ def report(name: str) -> list[dict]:
     sass = subprocess.run([_tool("cuobjdump"), "--dump-sass", cubin], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     hmma = sass_hmma(sass)
+    digest = sass_digest(sass)
     mangled = sorted(set(info) | set(hmma))
     rows = []
     for mangled_name, pretty in zip(mangled, _demangle(mangled)):
         rows.append({"source": f"{name}.cu", "kernel": pretty, **info.get(mangled_name, {}),
-                     "hmma": dict(hmma.get(mangled_name, {}))})
+                     "hmma": dict(hmma.get(mangled_name, {})),
+                     "sass_sha256": digest.get(mangled_name)})
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", default=_build.CSRC)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     lines = []
     for name in SOURCES:
-        for row in report(name):
+        if not os.path.exists(os.path.join(args.csrc, f"{name}.cu")):
+            continue
+        for row in report(name, args.csrc):
             lines.append(json.dumps(row))
             print(lines[-1], flush=True)
     if args.out:

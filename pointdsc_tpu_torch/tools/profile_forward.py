@@ -1,13 +1,16 @@
 """Where the time of one fused eval forward goes, on a CUDA card.
 
-    python -m pointdsc_tpu_torch.tools.profile_forward [--config default|running_max]
-        [--snapshot synthetic|kitti] [--n N] [--out FILE]
+    python -m pointdsc_tpu_torch.tools.profile_forward
+        [--config default|running_max|no_cache] [--snapshot synthetic|kitti] [--n N]
+        [--out FILE]
 
 Loads a snapshot (``synthetic``: PointDSC_Synthetic_release, N = 5120,
 unit-scale pairs; ``kitti``: PointDSC_SyntheticKITTI_release, N = 12288, the
 50 m pairs it was trained on) in one configuration (``default``: the offset
 softmax's whole-layer kernels; ``running_max``: the per-op encoder around the
-running-max attention kernel), runs one synthetic pair (seed 0, inlier ratio
+running-max attention kernel; ``no_cache``: ``fused_cache_compat=False``, the
+per-op encoder around the attention that computes its compat tiles from the
+geometry, no int8 cache), runs one synthetic pair (seed 0, inlier ratio
 0.4) through ``register`` and reports, as one JSON object (printed, and
 written to ``--out``):
 
@@ -139,7 +142,8 @@ def _device_profile(run, forwards=3):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("default", "running_max"), default="default")
+    ap.add_argument("--config", choices=("default", "running_max", "no_cache"),
+                    default="default")
     ap.add_argument("--snapshot", choices=sorted(SNAPSHOTS), default="synthetic")
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--out", default=None)
@@ -149,7 +153,8 @@ def main(argv=None) -> int:
     name, n, ds_kw = SNAPSHOTS[args.snapshot]
     n = args.n or n
     model = pt.load_pretrained(os.path.join(ROOT, "snapshot", name), device="cuda",
-                               offset_softmax=args.config == "default")
+                               offset_softmax=args.config != "running_max",
+                               fused_cache_compat=args.config != "no_cache")
     ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=0, **ds_kw)[0]
 
     def run():

@@ -6,9 +6,11 @@ At N = 5120 and N = 12288 (C = 128, one pair, the last 5% of points padded):
 CUDA events around each kernel that holds the two N^2 C attention products
 (the attentions' private launches, no packing; the layer kernels' wrappers,
 which only allocate their outputs; median of 10 after 2 warm-ups): the
-running-max attention (bf16 inputs), the offset attention (bf16 inputs, its
-kscale reduction included), the attention + MLP + residual kernel, the
-PointCN + QKV kernel and, up to N = 6144, the one-launch layer kernel.
+running-max attention (bf16 inputs), the same loop without a cache (bf16
+inputs, the compat tile from the packed geometry), the offset attention
+(bf16 inputs, its kscale reduction included), the attention + MLP +
+residual kernel, the PointCN + QKV kernel and, up to N = 6144, the
+one-launch layer kernel.
 ``chip_smoke.py`` times the public wrappers; this tool separates the loops
 from their wrappers' host work. Prints one JSON object per N.
 """
@@ -58,7 +60,8 @@ def _inputs(n, sigma_d, ds_kw, dev):
     x = torch.randn((1, n, C), generator=gen).to(dev)
     qkv = [torch.randn((1, n, C), generator=gen).to(dev) for _ in range(3)]
     cache = katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask)
-    return x, weights, qkv, cache, katt.key_bias(mask, 1, n, dev)
+    return (x, weights, qkv, cache, katt.key_bias(mask, 1, n, dev),
+            katt.pack_geometry(src, tgt, mask))
 
 
 def main(argv=None) -> int:
@@ -74,13 +77,15 @@ def main(argv=None) -> int:
     lines = []
     for name, sigma_d in (("synthetic", 0.1), ("kitti", 1.2)):
         _, n, ds_kw = SNAPSHOTS[name]
-        x, w, (q, k, v), cache, kbias = _inputs(n, sigma_d, ds_kw, dev)
+        x, w, (q, k, v), cache, kbias, geom = _inputs(n, sigma_d, ds_kw, dev)
         qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
         h, qb, kb, vb, kscale = kenc.pcn_qkv(x, w)
         res = {
             "card": card, "n": n,
             "running_max_ms": _event_ms(
                 lambda: katt._launch_sc_attention(qh, kh, vh, cache, kbias)),
+            "nocache_ms": _event_ms(
+                lambda: katt._launch_sc_attention_nocache(qh, kh, vh, geom, sigma_d)),
             "offset_ms": _event_ms(
                 lambda: katt._launch_sc_attention_offset(qh, kh, vh, cache, kbias)),
             "offset_kscale_reduction_ms": _event_ms(lambda: katt.offset_kscale(kh)),

@@ -134,3 +134,45 @@ def test_cached_kernels_take_jax_s_operands(on_card, offset_softmax, dtype, monk
     cast = eval(CAST_GATE.group(1), {}, {"use_bf16": True,  # noqa: S307
                                           "interpret": not on_card})
     assert seen == [(torch.bfloat16 if cast else dtype,) * 3]
+
+
+# The no-cache attention's operands: JAX's fused_sc_attention (the model's
+# fused_cache_compat=False path) makes the same cast off the CPU.
+NOCACHE_CAST = re.search(
+    r"if (use_bf16 and not interpret):\n\s+q = q\.astype\(jnp\.bfloat16\)",
+    inspect.getsource(j_att.fused_sc_attention))
+
+
+def test_jax_casts_for_the_no_cache_kernel():
+    """The cast is there, ``use_bf16`` defaults to True, and the model's
+    attention function leaves it at that default."""
+    assert NOCACHE_CAST, "the JAX no-cache wrapper no longer casts q, k, v to bf16"
+    assert inspect.signature(j_att.fused_sc_attention).parameters["use_bf16"].default
+    assert "use_bf16" not in inspect.getsource(j_att.make_sc_attention_fn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("on_card", [False, True])
+def test_no_cache_kernel_takes_jax_s_operands(on_card, dtype, monkeypatch):
+    """``fused_sc_attention`` hands the no-cache kernel (or, on the CPU, its
+    plain version) the operand type JAX's cast gives: bf16 on a card (not
+    interpret mode), the caller's type on the CPU (interpret mode). The
+    launch is replaced by a spy, so no card is needed."""
+    seen = []
+
+    def spy(*args):
+        seen.append(tuple(t.dtype for t in args[:3]))
+        return torch.zeros(args[0].shape)
+
+    for name in ("_launch_sc_attention_nocache", "sc_attention_nocache_plain"):
+        monkeypatch.setattr(t_att, name, spy)
+    monkeypatch.setattr(t_att, "on_cuda", lambda t: on_card)
+    monkeypatch.setattr(t_att.fused_sc_attention, "launches", 0)
+    n = 16
+    q = torch.ones((1, n, t_att.C_KERNEL), dtype=dtype)
+    pts = torch.zeros((1, n, 3))
+    t_att.fused_sc_attention(q, q.clone(), q.clone(), pts, pts, 0.1)
+    cast = eval(NOCACHE_CAST.group(1), {}, {"use_bf16": True,  # noqa: S307
+                                             "interpret": not on_card})
+    assert seen == [(torch.bfloat16 if cast else dtype,) * 3]
+    assert t_att.fused_sc_attention.launches == int(on_card)

@@ -37,3 +37,16 @@ def test_ptxas_report():
 def test_sass_hmma():
     counts = kernel_report.sass_hmma(SASS)
     assert counts == {"_Z1av": {"HMMA.16816.F32.BF16": 2}, "_Z1bv": {"HMMA.1688.F32.TF32": 1}}
+
+
+def test_sass_digest():
+    """One digest per kernel, blind to addresses and encodings, not to the
+    instructions."""
+    digest = kernel_report.sass_digest(SASS)
+    assert set(digest) == {"_Z1av", "_Z1bv"}
+    moved = SASS.replace("/*0a30*/", "/*1a30*/").replace("R4, R12, R20, R4 ;",
+                                                         "R4, R12, R20, R4 ; /* 0x1 */")
+    assert kernel_report.sass_digest(moved) == digest
+    changed = SASS.replace("FFMA R1, R2, R3, R1", "FFMA R1, R2, R3, R2")
+    assert kernel_report.sass_digest(changed)["_Z1av"] != digest["_Z1av"]
+    assert kernel_report.sass_digest(changed)["_Z1bv"] == digest["_Z1bv"]

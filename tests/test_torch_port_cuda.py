@@ -300,9 +300,12 @@ def knn_sets_agree(idx, ref, sim, k):
     return True
 
 
-@pytest.mark.parametrize("n", [1000, 2048])
+@pytest.mark.parametrize("n", [1000, 2048, 5120, 12288])
 def test_seed_knn(dev, n):
-    """The kernel's neighbour sets against the plain sort, near ties aside."""
+    """The kernel's neighbour sets against the plain sort, near ties aside,
+    S = n // 10 (the main path's 512 at 5120, 1228 at 12288; neither 100,
+    204 nor 1228 is a multiple of the 64-seed tile), the second pair's last
+    10% padded."""
     gen = torch.Generator().manual_seed(6)
     f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1).to(dev)
     seeds = torch.stack([torch.randperm(n, generator=gen)[: n // 10] for _ in range(B)]).to(dev)
@@ -315,6 +318,69 @@ def test_seed_knn(dev, n):
     sim = torch.einsum("bsc,bnc->bsn", sf, f)
     assert knn_sets_agree(idx, ref, sim, k)
     assert bool(torch.gather(mask[:, None].expand(-1, seeds.shape[1], -1), 2, idx).all())
+    assert not bool((idx == seeds[..., None]).any())
+
+
+@pytest.mark.parametrize("case", ["ties", "fewer_than_k"])
+def test_seed_knn_exact_cases(dev, case):
+    """Index for index against the plain sort where no rounding can break a
+    tie: one-hot rows over four channels (every similarity exactly 0 or 1,
+    most candidates tied: ties in index order), and 24 valid points of 4096
+    with k = 40 (the padded ones fill in index order, never a seed itself;
+    one seed is a padded point)."""
+    n, k = 4096, 40
+    gen = torch.Generator().manual_seed(8)
+    if case == "ties":
+        f = torch.zeros((B, n, 128))
+        f[torch.arange(B)[:, None], torch.arange(n), torch.randint(0, 4, (B, n), generator=gen)] = 1
+        mask = torch.ones((B, n), dtype=torch.bool)
+        mask[1, n - n // 10:] = False
+        seeds = torch.stack([torch.randperm(n, generator=gen)[: n // 10] for _ in range(B)])
+    else:
+        f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1)
+        mask = torch.zeros((B, n), dtype=torch.bool)
+        valid = torch.stack([torch.randperm(n, generator=gen)[:24] for _ in range(B)])
+        mask[torch.arange(B)[:, None], valid] = True
+        seeds = torch.cat([valid[:, :8], (~mask).int().argmax(-1, keepdim=True)], dim=1)
+    f, mask, seeds = f.to(dev), mask.to(dev), seeds.to(dev)
+    idx = kknn.seed_knn_exact(f, seeds, k, mask=mask)
+    ref = kknn.seed_knn_plain(f, seeds, k, kknn.knn_bias(mask, f))
+    assert torch.equal(idx, ref)
+    assert not bool((idx == seeds[..., None]).any())
+
+
+def test_seed_knn_long_rows(dev):
+    """Rows too long for the selection to stage in shared memory (N = 45056,
+    past its 40960 keys: the keys are read from the scratch on every pass):
+    sets against the plain sort, near ties aside."""
+    n, s, k = 45056, 16, 40
+    gen = torch.Generator().manual_seed(10)
+    f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1).to(dev)
+    seeds = torch.stack([torch.randperm(n, generator=gen)[:s] for _ in range(B)]).to(dev)
+    _, _, mask, _ = pair(n, dev)
+    idx = kknn.seed_knn_exact(f, seeds, k, mask=mask)
+    ref = kknn.seed_knn_plain(f, seeds, k, kknn.knn_bias(mask, f))
+    sim = torch.einsum("bsc,bnc->bsn", torch.gather(f, 1, seeds[..., None].expand(-1, -1, 128)), f)
+    assert knn_sets_agree(idx, ref, sim, k)
+    assert bool(torch.gather(mask[:, None].expand(-1, s, -1), 2, idx).all())
+    assert not bool((idx == seeds[..., None]).any())
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 130])
+def test_seed_knn_seed_tail(dev, s):
+    """S not a multiple of the 64-seed tile: the tail tile's rows are masked,
+    not repeated, and every seed gets its own list (sets against the plain
+    sort, near ties aside)."""
+    n, k = 2048, 40
+    gen = torch.Generator().manual_seed(9)
+    f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1).to(dev)
+    seeds = torch.stack([torch.randperm(n, generator=gen)[:s] for _ in range(B)]).to(dev)
+    _, _, mask, _ = pair(n, dev)
+    idx = kknn.seed_knn_exact(f, seeds, k, mask=mask)
+    ref = kknn.seed_knn_plain(f, seeds, k, kknn.knn_bias(mask, f))
+    sim = torch.einsum("bsc,bnc->bsn", torch.gather(f, 1, seeds[..., None].expand(-1, -1, 128)), f)
+    assert idx.shape == (B, s, k)
+    assert knn_sets_agree(idx, ref, sim, k)
     assert not bool((idx == seeds[..., None]).any())
 
 
@@ -481,13 +547,31 @@ def test_sc_attention_train_forward(dev, n):
     """out and lse, atol = rtol = 1e-4: compat is the same bit for bit (the
     kernel evaluates the plain version's rounded operations), the 128-term
     logits and the n-term sums run in another order."""
-    q, k, v, _, geom, (src, tgt, mask) = train_attention_inputs(dev, n)
+    q, k, v, _, geom, _ = train_attention_inputs(dev, n)
     out, lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
     ref, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
-    nolse = katt.fused_sc_attention(q, k, v, src, tgt, 0.1, mask=mask)
-    assert torch.equal(nolse, out)
+
+
+@pytest.mark.parametrize("n", [1000, 2048, 5120])
+def test_sc_attention_nocache(dev, n):
+    """The eval attention without a cache (the running-max tensor-core loop
+    with the geometry compat source) against its plain version on the bf16
+    operands the wrapper rounds f32 inputs to, the second pair's last 10%
+    masked: atol = rtol = 2e-3, the CPU test's tolerance against JAX's kernel
+    (a p on a bf16 rounding boundary may round either way: the kernel rounds
+    p against each tile's running max, the plain version against the row's
+    maximum). Its compat is the plain version's bit for bit. f32 inputs give
+    the bf16 inputs' result bit for bit; one launch per call."""
+    q, k, v, _, geom, (src, tgt, mask) = train_attention_inputs(dev, n)
+    kernels.reset_launches()
+    out = katt.fused_sc_attention(q, k, v, src, tgt, 0.1, mask=mask)
+    assert katt.fused_sc_attention.launches == 1
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ref = katt.sc_attention_nocache_plain(qh, kh, vh, geom, 0.1)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+    assert torch.equal(katt.fused_sc_attention(qh, kh, vh, src, tgt, 0.1, mask=mask), out)
 
 
 @pytest.mark.parametrize("n", [1000, 2048])

@@ -177,6 +177,61 @@ def test_seed_knn_exact(rng, n, masked):
         assert mask[0][out].all()
 
 
+def knn_expected(sim, seeds, mask, k):
+    """Per seed, by hand: the valid candidates by similarity descending, ties
+    by index; then the padded ones by index; never the seed itself."""
+    out = []
+    for i, seed in enumerate(seeds[0]):
+        valid = [j for j in np.flatnonzero(mask[0]) if j != seed]
+        padded = [j for j in np.flatnonzero(~mask[0]) if j != seed]
+        valid.sort(key=lambda j: (-sim[i, j], j))
+        out.append((valid + padded)[:k])
+    return np.asarray(out)[None]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_seed_knn_ties_in_index_order(masked):
+    """One-hot rows over four channels: every similarity is exactly 0 or 1 in
+    any summation order, so most candidates tie. The plain version returns
+    the other rows of the seed's channel, then the rest, each in index order
+    (exactly, no tolerance), as JAX's chunk top-k and union select do."""
+    rng = np.random.default_rng(7)
+    n, k = 512, 40
+    f = np.zeros((1, n, 128), np.float32)
+    f[0, np.arange(n), rng.integers(0, 4, size=n)] = 1.0
+    seeds = rng.choice(n, n // 10, replace=False)[None]
+    mask = (np.arange(n) < n - n // 20)[None] if masked else np.ones((1, n), bool)
+    want = knn_expected(f[0][seeds[0]] @ f[0].T, seeds, mask, k)
+    (fj, ft), (mj, mt) = both(f), mask_pair(mask if masked else None)
+    out = t_knn.seed_knn_exact(ft, torch.from_numpy(seeds), k, mask=mt).numpy()
+    ref = np.asarray(j_knn.seed_knn_exact(fj, jnp.asarray(seeds, jnp.int32), k, mask=mj))
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(ref, want)
+
+
+def test_seed_knn_fewer_valid_than_k():
+    """24 valid points of 512 and k = 40: each seed's valid neighbours come
+    first by similarity (continuous random features, no ties), then padded
+    points fill the list in index order; the seed itself (one seed is a
+    padded point) never appears. Exact against the rule and JAX's kernels."""
+    rng = np.random.default_rng(8)
+    n, k = 512, 40
+    f = rng.normal(size=(1, n, 128))
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    mask = np.zeros((1, n), bool)
+    mask[0, rng.choice(n, 24, replace=False)] = True
+    seeds = np.concatenate([rng.choice(np.flatnonzero(mask[0]), 8, replace=False),
+                            np.flatnonzero(~mask[0])[:1]])[None]
+    (fj, ft), (mj, mt) = both(f), mask_pair(mask)
+    f32 = f.astype(np.float32)[0]
+    want = knn_expected(f32[seeds[0]] @ f32.T, seeds, mask, k)
+    out = t_knn.seed_knn_exact(ft, torch.from_numpy(seeds), k, mask=mt).numpy()
+    ref = np.asarray(j_knn.seed_knn_exact(fj, jnp.asarray(seeds, jnp.int32), k, mask=mj))
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(ref, want)
+    assert not (out == seeds[..., None]).any()
+
+
 @pytest.mark.parametrize("scene", ["indoor", "kitti"])
 def test_fused_post_refinement(rng, scene):
     """The centred Gram-form refinement against JAX's fused one (indoor: thr
