@@ -9,7 +9,9 @@ Phases, in order (any failure raises and the exit code is not 0):
   3. hold each kernel's public wrapper against its plain PyTorch version on
      the card at the main paths' shapes (N = 5120, C = 128, S = 512, the last
      5% of points padded; the split pair of encoder-layer kernels, and the
-     seed k-NN a second time, at N = 12288), and time both with CUDA events;
+     seed k-NN a second time, at N = 12288; the PointCN + QKV kernel also at
+     N = 20480; the refinement also on a pair ~100 m from the origin), and
+     time both with CUDA events;
   4. load the Synthetic snapshot in the running-max configuration
      (``offset_softmax=False``) and run it through ``register`` (the fused
      path, which launches the kernels) with every launch count set
@@ -137,6 +139,8 @@ OPS_PER_SM_PAIR = 14  # u (3), clip and diagonal (3), pm and gtM (3), two square
 OPS_PER_SM_BWD_PAIR = 24  # the forward's M terms (9), g (8), gate (4), dsigma term (3)
 OPS_PER_NN_PAIR = 9  # 3-dot (5), norm sum (1), 2x and subtract (2), compare (1)
 OPS_PER_NN_POINT = 5  # |p|^2 of each query and base point, in the packing
+OPS_PER_REFINE_MEAN_POINT = 7  # masked sums of 6 coordinates and the count
+N_LARGE = 20480  # the Redwood scale: the split kernel is also timed there
 
 # the reference training shape and the KITTI regime of tools/train_synthetic.py
 TRAIN_BS, TRAIN_NODE, TRAIN_N = 16, 1000, 1024
@@ -366,6 +370,29 @@ def knn_sets_agree(torch, idx, ref, sim, k) -> bool:
     return True
 
 
+def far_pair(torch, dev, n, seed=4):
+    """One pair ~100 m from the origin, as KITTI's clouds sit: a 60 m cube of
+    points 100 m out, a rigid motion, 0.2 m noise, half the targets moved
+    ~10 m off, the last 5% of points padded with junk 1 km out, and the
+    ground truth moved by 0.36 m as the initial transform. Returns (init,
+    src, tgt, mask) for threshold 1.2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    rot = q * np.sign(np.linalg.det(q))
+    t = rng.normal(size=3) * 2.0
+    src = rng.uniform(-30.0, 30.0, size=(n, 3)) + 100.0
+    tgt = src @ rot.T + t + rng.normal(size=(n, 3)) * 0.2
+    tgt[: n // 2] += rng.normal(size=(n // 2, 3)) * 10.0
+    mask = np.arange(n) < n - int(n * PAD_FRACTION)
+    src[~mask], tgt[~mask] = 1000.0, -1000.0
+    init = np.eye(4)
+    init[:3, :3], init[:3, 3] = rot, t + 0.36
+    return tuple(torch.as_tensor(a[None], dtype=dtype).to(dev) for a, dtype in (
+        (init, torch.float32), (src, torch.float32), (tgt, torch.float32), (mask, torch.bool)))
+
+
 def check_kernels(torch, dev) -> list[dict]:
     """Phase 3: every kernel's public wrapper against its plain version, on
     the card, on the same inputs.
@@ -373,8 +400,10 @@ def check_kernels(torch, dev) -> list[dict]:
     ``library_ms`` is null for all eleven: no single PyTorch call computes any
     of them (the attentions' compat factor multiplies the logits, which
     ``scaled_dot_product_attention``'s additive mask cannot express, and the
-    encoder-layer kernels hold such an attention; the confidence head is
-    three layers; the k-NN a product and a selection; the refinement a loop).
+    encoder-layer kernels hold such an attention; PointCN + QKV is two
+    products with a ReLU, a rounding and a norm, whose two products stand
+    beside it as ``addmm_products_ms``; the confidence head is three layers;
+    the k-NN a product and a selection; the refinement a loop).
 
     ``bound_ms`` takes every operation at the peak of its operands' type.
     Four kernels hold the two N^2 C attention products on bf16 operands with
@@ -481,25 +510,52 @@ def check_kernels(torch, dev) -> list[dict]:
     # -- the split pair, N = 12288 (a pair at the SyntheticKITTI scale,
     # sigma_d = 1.2). PointCN + QKV: h atol = rtol = 1e-5 (f32 dot products of
     # 128 terms in another order); q, k, v equal in bf16 except at rounding
-    # boundaries (by one step, on <= 0.1% of entries); kscale rtol 1e-5.
+    # boundaries (by one step, on <= 0.1% of entries); kscale rtol 1e-5. Held
+    # and timed again at N = 20480 (the n20480 extra). ``library_ms`` stays
+    # null: no one PyTorch call computes it; the two products alone as
+    # ``torch.addmm`` in f32 (TF32 off: two calls, the products only) stand
+    # beside as ``addmm_products_ms``; ``workspace_ms`` is the wrapper writing
+    # into a workspace (no allocation), as the forward calls it.
+    def pcn_check(xs, ws_):
+        n = xs.shape[1]
+        got = kenc.pcn_qkv(xs, ws_)
+        ref = kenc.pcn_qkv_plain(xs, ws_)
+        err = float((got[0] - ref[0]).abs().max())
+        check(torch.allclose(got[0], ref[0], atol=1e-5, rtol=1e-5), f"pcn_qkv h max err {err}")
+        flips = 0
+        for a, b in zip(got[1:4], ref[1:4]):
+            d = (a.float() - b.float()).abs()
+            check(bool((d <= b.float().abs() * 2.0 ** -7).all()), "pcn_qkv: q/k/v off by > 1 step")
+            flips += int((d > 0).sum())
+        check(flips <= 1e-3 * 3 * n * C, f"pcn_qkv: {flips} bf16 entries differ")
+        check(torch.allclose(got[4], ref[4], atol=0, rtol=1e-5), "pcn_qkv: kscale differs")
+        work = kenc.new_workspace(1, n, C, dev)
+        x2, h2 = xs.reshape(n, C), torch.empty((n, C), device=dev)
+
+        def products():
+            torch.addmm(ws_[1], x2, ws_[0], out=h2)
+            return torch.addmm(ws_[3], h2, ws_[2])
+
+        cnt_ = layer_counts(n)
+        return ref, dict(
+            max_abs_err=err, bf16_entries_off_by_one=flips,
+            workspace_ms=time_ms(lambda: kenc.pcn_qkv(xs, ws_, work), reps=10),
+            addmm_products_ms=time_ms(products, reps=10),
+            bytes_ops=(2 * cnt_["act"] + 3 * cnt_["half"] + cnt_["w_a"] + 4, cnt_["ops_a"]))
+
     lay = layer_inputs(torch, dev, N_KITTI, 1.2, **KITTI_DATA)
     xk, wk, ck, kbk = lay["x"], lay["weights"], lay["cache"], lay["kbias"]
-    got = kenc.pcn_qkv(xk, wk)
-    ref = kenc.pcn_qkv_plain(xk, wk)
-    err = float((got[0] - ref[0]).abs().max())
-    check(torch.allclose(got[0], ref[0], atol=1e-5, rtol=1e-5), f"pcn_qkv h max err {err}")
-    flips = 0
-    for a, b in zip(got[1:4], ref[1:4]):
-        d = (a.float() - b.float()).abs()
-        check(bool((d <= b.float().abs() * 2.0 ** -7).all()), "pcn_qkv: q/k/v off by > 1 step")
-        flips += int((d > 0).sum())
-    check(flips <= 1e-3 * 3 * N_KITTI * C, f"pcn_qkv: {flips} bf16 entries differ")
-    check(torch.allclose(got[4], ref[4], atol=0, rtol=1e-5), "pcn_qkv: kscale differs")
-    cnt = layer_counts(N_KITTI)
-    row("pcn_qkv", "encoder_layer.cu", "encoder_layer.py:272", err,
+    ref, info = pcn_check(xk, wk)
+    x_large = torch.randn((1, N_LARGE, C), generator=torch.Generator().manual_seed(5)).to(dev)
+    _, info_l = pcn_check(x_large, wk)
+    large = {k: v for k, v in info_l.items() if k != "bytes_ops"}
+    large.update(ms=time_ms(lambda: kenc.pcn_qkv(x_large, wk), reps=10),
+                 plain_ms=time_ms(lambda: kenc.pcn_qkv_plain(x_large, wk), reps=10),
+                 bound_ms=bound_ms(*info_l["bytes_ops"])[0])
+    row("pcn_qkv", "encoder_layer.cu", "encoder_layer.py:272", info.pop("max_abs_err"),
         lambda: kenc.pcn_qkv(xk, wk), lambda: kenc.pcn_qkv_plain(xk, wk),
-        2 * cnt["act"] + 3 * cnt["half"] + cnt["w_a"] + 4, cnt["ops_a"], reps=10,
-        bf16_entries_off_by_one=flips)
+        *info.pop("bytes_ops"), reps=10, n20480=large, **info)
+    del x_large
 
     # -- attention + MLP + residual on the plain version's h, q, k, v, kscale.
     # Tolerance atol = rtol = 2e-3, for the p rounding as above (12288 terms).
@@ -513,7 +569,7 @@ def check_kernels(torch, dev) -> list[dict]:
         lambda: kenc.attn_mlp_residual_plain(ks, qb, kb_, vb, ck, kbk, h, wk),
         2 * cnt["act"] + 3 * cnt["half"] + cnt["cache"] + cnt["w_b"] + 4,
         cnt["ops_b"] + cnt["attn"] + cnt["attn_extra"], tensor_ops=cnt["attn"], reps=10)
-    del lay, xk, wk, ck, kbk, got, ref, ref2, out, h, qb, kb_, vb, ks
+    del lay, xk, wk, ck, kbk, ref, ref2, out, h, qb, kb_, vb, ks
     torch.cuda.empty_cache()
 
     # -- confidence head. Tolerance atol = rtol = 1e-5: f32 dot products of
@@ -606,19 +662,36 @@ def check_kernels(torch, dev) -> list[dict]:
                                                 kscore.pack_scoring_points(src, tgt, mask), t2),
         S * 16 * 4 + src.numel() * 4 * 2 + N * 4 + S * 4, S * N * OPS_PER_SCORING_PAIR)
 
-    # -- post-refinement. Tolerance atol 1e-4 on the transform: the kernel
-    # sums the Gram terms in another order than the plain einsums and solves
-    # in the same f32 closed form. The bound counts the rounds that ran.
+    # -- post-refinement, the whole function in one launch. Tolerance atol
+    # 1e-4 on the transform: the kernel sums the Gram terms and the means in
+    # another order than the plain einsums and solves in the same f32 closed
+    # form; its rounds equal the plain loop's. Held again on a pair ~100 m
+    # from the origin (N = 12288, threshold 1.2, padded points 1 km out: the
+    # case the centring exists for; translations ~100 m, f32's ulp there
+    # ~7.6e-6). The bound counts the rounds that ran.
+    def refine_check(init_, src_, tgt_, mask_, thr):
+        out, iters = kref.fused_post_refinement(init_, src_, tgt_, mask_, thr, 20,
+                                                return_iters=True)
+        ref, rounds_ = kref.fused_post_refinement_plain(init_, src_, tgt_, mask_, thr, 20,
+                                                        return_iters=True)
+        err = float((out - ref).abs().max())
+        check(bool(torch.isfinite(out).all()) and err <= 1e-4,
+              f"post-refinement max err {err} (thr {thr})")
+        check(torch.equal(iters, rounds_), f"refinement rounds {iters.tolist()} against the "
+              f"plain loop's {rounds_.tolist()}")
+        return err, int(iters.sum())
+
     init = x["init"]
-    out, iters = kref.fused_post_refinement(init, src, tgt, mask, 0.1, 20, return_iters=True)
-    ref = kref.fused_post_refinement_plain(init, src, tgt, mask, 0.1, 20)
-    err = float((out - ref).abs().max())
-    check(err <= 1e-4, f"post-refinement max err {err}")
-    rounds = int(iters.sum())
+    err, rounds = refine_check(init, src, tgt, mask, 0.1)
+    far = far_pair(torch, dev, N_KITTI)
+    far_err, far_rounds = refine_check(*far, 1.2)
     row("fused_post_refinement", "refine.cu", "refine.py:55", err,
         lambda: kref.fused_post_refinement(init, src, tgt, mask, 0.1, 20),
         lambda: kref.fused_post_refinement_plain(init, src, tgt, mask, 0.1, 20),
-        8 * N * 4 + 2 * 16 * 4, rounds * N * OPS_PER_REFINE_POINT, rounds=rounds)
+        N * (3 * 4 * 2 + 1) + 16 * 4 * 2 + 4,
+        rounds * N * OPS_PER_REFINE_POINT + N * OPS_PER_REFINE_MEAN_POINT, rounds=rounds,
+        far_from_origin=dict(n=N_KITTI, thr=1.2, max_abs_err=far_err, rounds=far_rounds,
+                             ms=time_ms(lambda: kref.fused_post_refinement(*far, 1.2, 20))))
     return rows
 
 

@@ -53,7 +53,7 @@ SIGNATURES = {
     "nms": {"nms_local_max": [P, P, I, I, F, P]},
     "seed_knn": {"seed_knn_exact": [P, P, P, P, P, I, I, I, I, P]},
     "scoring": {"seed_inlier_counts": [P, P, P, I, I, I, F, P]},
-    "refine": {"fused_post_refinement": [P, P, P, P, I, I, F, I, P]},
+    "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},
     "nn_search": {"nearest_neighbors": [P, P, P, P, I, I, I, P]},
     "compat_cache_sym": {"compat_cache_tri": [P, P, P, I, I, I, I, F, P],
                          "compat_cache_mirror": [P, P, I, I, I, I, P]},

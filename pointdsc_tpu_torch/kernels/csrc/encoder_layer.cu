@@ -45,6 +45,10 @@
 // shared memory one 64 KB piece at a time (W1, then the q, k and v thirds of
 // Wqkv; Wm0, Wm1, Wm2 into the V region after the key loop), so the block
 // stays within the attention loop's 99 KB and two blocks fit an SM.
+// The split pair's PointCN + QKV kernel has a design of its own (below
+// pcn_qkv_tile).
+
+#include <atomic>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -268,9 +272,215 @@ __global__ void __launch_bounds__(THREADS, 2) fused_layer_kernel(LayerArgs a) {
     attn_mlp_tile(a, w / tiles, (w % tiles) * BQ, smem);
 }
 
-__global__ void __launch_bounds__(THREADS) pcn_qkv_kernel(LayerArgs a) {
+// ---------------------------------------------------------------- the split kernel (7b)
+//
+// PointCN + QKV alone, for the split pair above N = 6144. It runs no
+// attention, so it is not held to the attention arena's 99 KB: a block owns
+// R = 96 rows in 82 KB of dynamic shared memory.
+//
+// What bounds it: 2 N C (C + 3C) = 1.61 GFLOP at N = 12288 in f32 FMAs
+// (24 us at 67 TFLOP/s; its bytes, ~22 MB, take 7 us). What the design does:
+// - Each thread accumulates a 4 x 8 tile in registers. The A operand (x,
+//   then h) sits transposed in shared memory, [C][R + 4], and the weight
+//   slab row-major, so that per k a thread reads its rows and its columns
+//   with 16-byte loads: 3 LDS.128 for 32 FMAs. A warp spans 4 row groups and
+//   8 column groups, so each load is one 64- or 128-byte wavefront. Rows
+//   ty*4..+3, columns tx*4..+3 and 64 + tx*4..+3: neighbouring lanes read
+//   neighbouring 16 bytes.
+// - The weights stream through a double buffer of 32-row k-slabs with
+//   cp.async (W1, then the q, v and k thirds of Wqkv: 16 slabs of 16 KB), so
+//   the L2 reads of slab s + 1 overlap the FMAs of slab s. Weights are read
+//   from L2 once per R rows (256 KB each): 32 MiB at N = 12288.
+// - h stays in shared memory (it overwrites x, transposed) between the two
+//   products; q, v and k are three passes over it. Each product sums its
+//   128 terms in k order with fmaf from 0, as pcn_qkv_tile does, so h, q, k
+//   and v are the one-launch kernel's bit for bit.
+// - The key norms: k comes last, so that its rounded rows can go through the
+//   free A tile and be summed in pcn_qkv_tile's order; then one block
+//   maximum and one atomicMax per block.
+// The grid is (ceil(n / R), batch). R = 96 was chosen by measurement over
+// 48, 64, 96 and 128 at N = 12288 and 20480 (PERF.md): it fills the 132 SMs
+// most evenly at those sizes.
+
+constexpr int PR = 96;             // rows of a block
+constexpr int PTM = 4;             // rows of a thread's tile
+constexpr int PNT = PR / PTM * 16; // threads: row groups x 16 column groups
+constexpr int PAP = PR + 4;        // row of the transposed A tile
+constexpr int MAX_DEVICES = 64;    // the devices whose shared-memory opt-in is remembered
+constexpr int KS = 32;             // k rows of a weight slab
+constexpr int SLABS_PER_MATRIX = C / KS;
+constexpr int SLABS = 4 * SLABS_PER_MATRIX;  // W1, then the q, v and k thirds of Wqkv
+
+constexpr size_t SPLIT_SMEM_BYTES = (C * PAP + 2 * KS * C + 32) * sizeof(float);
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(oa::smem_addr(dst)),
+               "l"(src));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+__global__ void __launch_bounds__(PNT, 2) pcn_qkv_kernel(LayerArgs a) {
+  constexpr int R = PR, TM = PTM, NT = PNT, AP = PAP;
+  static_assert((R / TM) % 4 == 0 && R % 16 == 0, "tile shape");
   extern __shared__ __align__(16) float smem[];
-  pcn_qkv_tile(a, blockIdx.y, blockIdx.x * BQ, smem);
+  float* As = smem;              // [C][AP]: x, then h, transposed
+  float* Ws = As + C * AP;       // [2][KS][C]: weight slabs
+  float* wmax = Ws + 2 * KS * C;  // [32]: the warps' maxima of the key norms
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // row group
+  const int tx = (warp & 1) * 8 + (lane & 7);    // column group
+  const int b = blockIdx.y, r0 = blockIdx.x * R;
+  const size_t base = static_cast<size_t>(b) * a.n;
+
+  auto load_slab = [&](int s) {
+    const int m = s / SLABS_PER_MATRIX, k0 = (s % SLABS_PER_MATRIX) * KS;
+    const int part = m == 1 ? 0 : (m == 2 ? 2 : 1);  // q, v, then k
+    const float* src = m == 0 ? a.w1 + k0 * C : a.wqkv + k0 * 3 * C + part * C;
+    const int stride = m == 0 ? C : 3 * C;
+    float* dst = Ws + (s & 1) * KS * C;
+    for (int i = tid; i < KS * C / 4; i += NT) {
+      const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
+      cp_async16(dst + r * C + c4, src + r * stride + c4);
+    }
+    cp_async_commit();
+  };
+
+  load_slab(0);
+  // x transposed; the lanes of a warp take consecutive rows of one channel
+  // group, so that their shared-memory stores fall in distinct banks
+#pragma unroll 4
+  for (int i = tid; i < R * C / 4; i += NT) {
+    const int r = i % R, c4 = (i / R) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < a.n) x = oa::load4(a.x + (base + r0 + r) * C + c4);
+    As[(c4 + 0) * AP + r] = x.x;
+    As[(c4 + 1) * AP + r] = x.y;
+    As[(c4 + 2) * AP + r] = x.z;
+    As[(c4 + 3) * AP + r] = x.w;
+  }
+
+  float acc[TM][8];
+  for (int s = 0; s < SLABS; ++s) {
+    if (s + 1 < SLABS) {
+      load_slab(s + 1);  // into the buffer slab s - 1 used: done, by the barrier below
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slab s, and the A tile of its matrix, are in shared memory
+    const int m = s / SLABS_PER_MATRIX;
+    if (s % SLABS_PER_MATRIX == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    const float* W = Ws + (s & 1) * KS * C;
+    const float* A = As + (s % SLABS_PER_MATRIX) * KS * AP;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const float4 a0 = oa::load4(A + kk * AP + ty * 4);
+      const float4 w0 = oa::load4(W + kk * C + tx * 4), w1 = oa::load4(W + kk * C + 64 + tx * 4);
+      const float av[TM] = {a0.x, a0.y, a0.z, a0.w};
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+    __syncthreads();  // buffer s & 1 is free, and at a matrix's end so is its A tile
+    if (s % SLABS_PER_MATRIX != SLABS_PER_MATRIX - 1) continue;
+
+    if (m == 0) {
+      // h = relu(x W1 + b1): to device memory, and transposed over x
+      const float4 bl = oa::load4(a.b1 + tx * 4), bh = oa::load4(a.b1 + 64 + tx * 4);
+      const float bias[8] = {bl.x, bl.y, bl.z, bl.w, bh.x, bh.y, bh.z, bh.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaxf(acc[i][j] + bias[j], 0.f);
+        const int row = ty * 4 + i;
+        if (r0 + row < a.n) {
+          float* hrow = a.h + (base + r0 + row) * C;
+          *reinterpret_cast<float4*>(hrow + tx * 4) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          *reinterpret_cast<float4*>(hrow + 64 + tx * 4) =
+              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+        *reinterpret_cast<float4*>(As + col * AP + ty * 4) =
+            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+      }
+      continue;  // the next iteration's barrier publishes h
+    }
+
+    // q, v, then k = h W + b, rounded to bf16
+    const int part = m == 1 ? 0 : (m == 2 ? 2 : 1);
+    __nv_bfloat16* out = part == 0 ? a.q : (part == 1 ? a.k : a.v);
+    const float* bp = a.bqkv + part * C;
+    const float4 bl = oa::load4(bp + tx * 4), bh = oa::load4(bp + 64 + tx * 4);
+    const float bias[8] = {bl.x, bl.y, bl.z, bl.w, bh.x, bh.y, bh.z, bh.w};
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      uint32_t bits[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const __nv_bfloat16 val = __float2bfloat16_rn(acc[i][j] + bias[j]);
+        bits[j] = __bfloat16_as_ushort(val);
+        acc[i][j] = __bfloat162float(val);
+      }
+      const int row = ty * 4 + i;
+      if (r0 + row < a.n) {
+        __nv_bfloat16* orow = out + (base + r0 + row) * C;
+        *reinterpret_cast<uint2*>(orow + tx * 4) =
+            make_uint2(bits[0] | (bits[1] << 16), bits[2] | (bits[3] << 16));
+        *reinterpret_cast<uint2*>(orow + 64 + tx * 4) =
+            make_uint2(bits[4] | (bits[5] << 16), bits[6] | (bits[7] << 16));
+      }
+    }
+    if (part != 1) continue;
+    // The norms of the rounded key rows, summed as pcn_qkv_tile sums them (so
+    // that kscale is the one-launch kernel's, bit for bit): lane l of a warp
+    // takes columns l + 32 j of a row, then a butterfly over the 32 lanes.
+    // The rows go through the A tile, free after the last product.
+    constexpr int KP = C + 4;  // row of the rounded keys
+    static_assert(R * KP <= C * AP, "the key rows must fit the A tile");
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float* krow = As + (ty * 4 + i) * KP;
+      *reinterpret_cast<float4*>(krow + tx * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(krow + 64 + tx * 4) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    __syncthreads();
+    float kmax_sq = 0.f;
+    for (int row = warp; row < R; row += NT / 32) {
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float vf = As[row * KP + lane + 32 * j];
+        sq = fmaf(vf, vf, sq);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      if (r0 + row < a.n) kmax_sq = fmaxf(kmax_sq, sq);
+    }
+    if (lane == 0) wmax[warp] = kmax_sq;
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < NT / 32; ++w) kmax_sq = fmaxf(kmax_sq, wmax[w]);
+      atomicMax(reinterpret_cast<unsigned int*>(a.kscale + b),
+                __float_as_uint(sqrtf(kmax_sq) * a.inv_sqrt_c));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 2) attn_mlp_kernel(LayerArgs a) {
@@ -346,12 +556,21 @@ extern "C" int pcn_qkv(const void* x, const void* w1, const void* b1, const void
   a.n = n;
   a.inv_sqrt_c = inv_sqrt_c;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = opt_in_smem(pcn_qkv_kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // The attribute belongs to the device: set it once per device.
+  static std::atomic<bool> opted_in[MAX_DEVICES] = {};
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(pcn_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(SPLIT_SMEM_BYTES));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[dev].store(true, std::memory_order_release);
+  }
   err = cudaMemsetAsync(kscale, 0, sizeof(float) * batch, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BQ - 1) / BQ, batch);
-  pcn_qkv_kernel<<<grid, THREADS, oa::SMEM_BYTES, s>>>(a);
+  pcn_qkv_kernel<<<dim3((n + PR - 1) / PR, batch), PNT, SPLIT_SMEM_BYTES, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

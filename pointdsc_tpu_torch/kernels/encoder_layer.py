@@ -12,9 +12,9 @@ into the Dense before them:
     out = h + (relu(relu(o Wm0 + bm0) Wm1 + bm1) Wm2 + bm2)  f32
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel or raises. The kernels take C = 128 and N a multiple of
-64 (every bucket of data/pipeline.py is one); the plain versions take any C
-and N.
+it launches its kernel or raises. The kernels take C = 128; those that hold
+the attention also N a multiple of 64 (every bucket of data/pipeline.py is
+one). The plain versions take any C and N.
 """
 
 from __future__ import annotations
@@ -134,10 +134,10 @@ def _check_weights(weights, c, device):
         expect(w, f"weights[{i}]", dtype=torch.float32, shape=shape, device=device)
 
 
-def _check_kernel_size(n, c):
+def _check_kernel_size(n, c, any_n=False):
     if c != C_KERNEL:
         raise ValueError(f"the encoder-layer kernels take C={C_KERNEL}, got C={c}")
-    if n % N_MULTIPLE:
+    if n % N_MULTIPLE and not any_n:
         raise ValueError(f"the encoder-layer kernels take N a multiple of {N_MULTIPLE}, got {n}")
 
 
@@ -155,23 +155,41 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _workspace(b, n, c, device):
+def new_workspace(b, n, c, device):
+    """(h f32, q, k, v bf16, kscale [B] f32), uninitialised: what ``pcn_qkv``
+    and ``fused_encoder_layer`` write. Launches are ordered on the stream, so
+    one workspace serves every layer of a forward."""
     h = torch.empty((b, n, c), dtype=torch.float32, device=device)
     q, k, v = (torch.empty((b, n, c), dtype=torch.bfloat16, device=device) for _ in range(3))
     kscale = torch.empty((b,), dtype=torch.float32, device=device)
     return h, q, k, v, kscale
 
 
-def fused_encoder_layer(x, compat, kbias, weights):
+def _take_workspace(workspace, b, n, c, device):
+    if workspace is None:
+        return new_workspace(b, n, c, device)
+    if len(workspace) != 5:
+        raise ValueError(f"expected a workspace of 5 tensors, got {len(workspace)}")
+    for name, t, dtype, shape in zip(
+            ("h", "q", "k", "v", "kscale"), workspace,
+            (torch.float32,) + (torch.bfloat16,) * 3 + (torch.float32,),
+            ((b, n, c),) * 4 + ((b,),)):
+        expect(t, f"workspace {name}", dtype=dtype, shape=shape, device=device)
+    expect_aligned(dict(zip(("h", "q", "k", "v"), workspace)))
+    return workspace
+
+
+def fused_encoder_layer(x, compat, kbias, weights, workspace=None):
     """One encoder layer in one launch. x [B, N, C] f32, compat [B, N, N]
-    int8, kbias [B, N] f32 or None (no mask), weights from ``fold_layer``.
-    Returns [B, N, C] f32. The kernel needs a cooperative launch (a grid-wide
+    int8, kbias [B, N] f32 or None (no mask), weights from ``fold_layer``,
+    ``workspace`` from ``new_workspace`` (allocated here if None). Returns
+    [B, N, C] f32. The kernel needs a cooperative launch (a grid-wide
     barrier between its two phases) and raises if the card refuses it."""
     b, n, c = _check_layer_inputs(x, compat, kbias, weights)
     if not on_cuda(x):
         return fused_layer_plain(x, compat, kbias, weights)
     _check_kernel_size(n, c)
-    h, q, k, v, kscale = _workspace(b, n, c, x.device)
+    h, q, k, v, kscale = _take_workspace(workspace, b, n, c, x.device)
     out = torch.empty_like(x)
     fused_encoder_layer.launches += 1
     _build.launch("encoder_layer", "fused_encoder_layer", x.device,
@@ -185,15 +203,23 @@ def fused_encoder_layer(x, compat, kbias, weights):
 fused_encoder_layer.launches = 0
 
 
-def pcn_qkv(x, weights):
-    """PointCN + QKV in one launch: (h f32, q, k, v bf16, kscale [B] f32)."""
+def pcn_qkv(x, weights, workspace=None):
+    """PointCN + QKV in one launch: (h f32, q, k, v bf16, kscale [B] f32),
+    written into ``workspace`` (from ``new_workspace``) when one is given, or
+    into new tensors. Any N."""
     expect(x, "x", dtype=torch.float32, ndim=3)
     b, n, c = x.shape
     _check_weights(weights, c, x.device)
     if not on_cuda(x):
-        return pcn_qkv_plain(x, weights)
-    _check_kernel_size(n, c)
-    h, q, k, v, kscale = _workspace(b, n, c, x.device)
+        ref = pcn_qkv_plain(x, weights)
+        if workspace is None:
+            return ref
+        for dst, src in zip(_take_workspace(workspace, b, n, c, x.device), ref):
+            dst.copy_(src)
+        return workspace
+    _check_kernel_size(n, c, any_n=True)
+    expect_aligned({"x": x, **{f"weights[{i}]": w for i, w in enumerate(weights[:4])}})
+    h, q, k, v, kscale = _take_workspace(workspace, b, n, c, x.device)
     pcn_qkv.launches += 1
     _build.launch("encoder_layer", "pcn_qkv", x.device,
                   x.data_ptr(), *(w.data_ptr() for w in weights[:4]),
@@ -233,11 +259,11 @@ def attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights):
 attn_mlp_residual.launches = 0
 
 
-def fused_layer(x, compat, kbias, weights):
+def fused_layer(x, compat, kbias, weights, workspace=None):
     """The JAX dispatch: one launch up to ``MAX_FUSED_LAYER_N``, the pair above."""
     if x.shape[1] <= MAX_FUSED_LAYER_N:
-        return fused_encoder_layer(x, compat, kbias, weights)
-    h, q, k, v, kscale = pcn_qkv(x, weights)
+        return fused_encoder_layer(x, compat, kbias, weights, workspace)
+    h, q, k, v, kscale = pcn_qkv(x, weights, workspace)
     return attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights)
 
 
@@ -245,12 +271,18 @@ def make_fused_layer_fn(compat_cache, mask=None, fold_cache: dict | None = None)
     """The per-layer hook of ``NonLocalNet.forward(fused_layer_fn=...)``:
     fn(x, pcn_params, nl_params) -> x over the shared [B, N, N] int8 cache.
     With ``mask=None`` no key bias is read (all keys valid). ``fold_cache``:
-    see ``folded_weights``; without it the BatchNorms are folded per call."""
+    see ``folded_weights``; without it the BatchNorms are folded per call. On
+    the card the layers share one workspace (h, q, k, v, kscale), allocated
+    at the first layer."""
     b, n = compat_cache.shape[:2]
     kbias = None if mask is None else key_bias(mask, b, n, compat_cache.device)
+    workspace = []
 
     def layer_fn(x, pcn_params, nl_params):
         weights = folded_weights(pcn_params, nl_params, fold_cache)
-        return fused_layer(x.float().contiguous(), compat_cache, kbias, weights)
+        x = x.float().contiguous()
+        if not workspace and on_cuda(x):
+            workspace.extend(new_workspace(b, n, x.shape[-1], x.device))
+        return fused_layer(x, compat_cache, kbias, weights, workspace or None)
 
     return layer_fn

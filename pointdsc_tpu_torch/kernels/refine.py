@@ -6,8 +6,9 @@ sample freezes once its inlier count stops changing. Each round needs only
 the sums of the Gram form (w s t^T, w s, w t, w and the inlier count), so
 both clouds are first centred on their masked means: the uncentred second
 moments then cancel over the cloud's extent, not its distance from the
-origin (KITTI clouds sit ~100 m out). The kernel runs every round of every
-sample in one launch; on a CPU tensor the wrapper runs its plain version.
+origin (KITTI clouds sit ~100 m out). The kernel runs the whole function
+(the means, the centring, both frame shifts and every round of every
+sample) in one launch; on a CPU tensor the wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -66,26 +67,22 @@ def procrustes_from_sums(g):
 
 def refine_plain(strip, trans0, thr, max_iters):
     """Plain version of the kernel's loop (centred frame): every round runs,
-    a frozen sample stays frozen, which is the early-exit loop's result."""
+    a frozen sample stays frozen, which is the early-exit loop's result.
+    Returns the transforms and the rounds each sample ran, [B] int32, counted
+    as the kernel counts them: the rounds in which it was active, the one
+    that saw no change included."""
     trans = trans0
     prev = torch.zeros(trans.shape[0], dtype=torch.float32, device=trans.device)
     active = torch.ones(trans.shape[0], dtype=torch.bool, device=trans.device)
+    rounds = torch.zeros(trans.shape[0], dtype=torch.int32, device=trans.device)
     for _ in range(max_iters):
+        rounds += active.int()
         g = refine_sums(strip, trans, thr)
         num = g[:, 16]
         active = active & (torch.abs(num - prev) >= 1)
         trans = torch.where(active[:, None, None], procrustes_from_sums(g), trans)
         prev = num
-    return trans
-
-
-def _launch_refine(strip, trans0, thr, max_iters):
-    b, _, n = strip.shape
-    out = torch.empty((b, 4, 4), dtype=torch.float32, device=strip.device)
-    iters = torch.empty((b,), dtype=torch.int32, device=strip.device)
-    _build.launch("refine", "fused_post_refinement", strip.device, strip.data_ptr(),
-                  trans0.data_ptr(), out.data_ptr(), iters.data_ptr(), b, n, thr, max_iters)
-    return out, iters
+    return trans, rounds
 
 
 def _centre(initial_trans, src_keypts, tgt_keypts, mask):
@@ -96,39 +93,47 @@ def _centre(initial_trans, src_keypts, tgt_keypts, mask):
     a_src = torch.sum(src_keypts * m, dim=1) / count
     a_tgt = torch.sum(tgt_keypts * m, dim=1) / count
     strip = pack_refine_strip(src_keypts - a_src[:, None], tgt_keypts - a_tgt[:, None], mask)
-    return strip, _shift(initial_trans, a_src, a_tgt, 1.0).contiguous(), a_src, a_tgt
+    return strip, _shift(initial_trans, a_src, a_tgt, 1.0), a_src, a_tgt
 
 
-def fused_post_refinement_plain(initial_trans, src_keypts, tgt_keypts, mask, thr, max_iters):
-    """Plain version of the wrapper on any device."""
+def fused_post_refinement_plain(initial_trans, src_keypts, tgt_keypts, mask, thr, max_iters,
+                                return_iters=False):
+    """Plain version of the wrapper on any device; with ``return_iters`` also
+    the rounds of ``refine_plain``."""
     strip, trans0, a_src, a_tgt = _centre(initial_trans, src_keypts, tgt_keypts, mask)
-    return _shift(refine_plain(strip, trans0, thr, max_iters), a_src, a_tgt, -1.0)
+    trans, rounds = refine_plain(strip, trans0, thr, max_iters)
+    trans = _shift(trans, a_src, a_tgt, -1.0)
+    return (trans, rounds) if return_iters else trans
 
 
 def fused_post_refinement(initial_trans, src_keypts, tgt_keypts, mask, thr, max_iters,
                           return_iters=False):
     """Refined [B, 4, 4] from initial_trans [B, 4, 4], src/tgt [B, N, 3]
-    and mask [B, N] bool. With ``return_iters`` (CUDA tensors only) also the
-    rounds each sample ran, [B] int32, as the kernel counted them."""
-    expect(initial_trans, "initial_trans", dtype=torch.float32, ndim=3, last=4)
+    and mask [B, N] bool. With ``return_iters`` also the rounds each sample
+    ran, [B] int32 (the kernel's count on the card, the plain loop's on the
+    CPU)."""
+    expect(initial_trans, "initial_trans", dtype=torch.float32, ndim=3)
     b = initial_trans.shape[0]
+    expect(initial_trans, "initial_trans", shape=(b, 4, 4))
     expect(src_keypts, "src_keypts", dtype=torch.float32, ndim=3, last=3,
            device=initial_trans.device)
-    expect(tgt_keypts, "tgt_keypts", shape=src_keypts.shape, device=initial_trans.device)
+    expect(tgt_keypts, "tgt_keypts", dtype=torch.float32, shape=src_keypts.shape,
+           device=initial_trans.device)
     expect(mask, "mask", dtype=torch.bool, shape=src_keypts.shape[:2],
            device=initial_trans.device)
     if src_keypts.shape[0] != b:
         raise ValueError(f"initial_trans has batch {b}, src_keypts {src_keypts.shape[0]}")
     if not on_cuda(initial_trans):
-        if return_iters:
-            raise ValueError("return_iters needs CUDA tensors: only the kernel counts rounds")
         return fused_post_refinement_plain(initial_trans, src_keypts, tgt_keypts, mask, thr,
-                                           max_iters)
-    strip, trans0, a_src, a_tgt = _centre(initial_trans, src_keypts, tgt_keypts, mask)
+                                           max_iters, return_iters=return_iters)
+    out = torch.empty((b, 4, 4), dtype=torch.float32, device=initial_trans.device)
+    iters = torch.empty((b,), dtype=torch.int32, device=initial_trans.device)
     fused_post_refinement.launches += 1
-    trans, iters = _launch_refine(strip, trans0, float(np.float32(thr)), max_iters)
-    trans = _shift(trans, a_src, a_tgt, -1.0)
-    return (trans, iters) if return_iters else trans
+    _build.launch("refine", "fused_post_refinement", initial_trans.device,
+                  initial_trans.data_ptr(), src_keypts.data_ptr(), tgt_keypts.data_ptr(),
+                  mask.data_ptr(), out.data_ptr(), iters.data_ptr(), b, src_keypts.shape[1],
+                  float(np.float32(thr)), max_iters)
+    return (out, iters) if return_iters else out
 
 
 fused_post_refinement.launches = 0

@@ -4,7 +4,8 @@ machine with the CUDA toolkit.
     python -m pointdsc_tpu_torch.tools.kernel_report [--csrc DIR] [--out FILE]
 
 Compiles the two sources of ``kernels/csrc`` that hold the attention loop,
-``sc_attention`` and ``encoder_layer``, and the seed k-NN's ``seed_knn``,
+``sc_attention`` and ``encoder_layer`` (which also holds the split PointCN +
+QKV kernel), the seed k-NN's ``seed_knn`` and the refinement's ``refine``,
 with the build's flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
 ``cuobjdump --dump-sass``. Prints one JSON object per kernel: registers,
 spill stores and loads (bytes), stack frame, and the count of each ``HMMA``
@@ -28,7 +29,7 @@ from collections import Counter
 
 from pointdsc_tpu_torch.kernels import _build
 
-SOURCES = ("sc_attention", "encoder_layer", "seed_knn")
+SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine")
 
 
 def _tool(name: str) -> str:

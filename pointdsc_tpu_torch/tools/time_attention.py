@@ -1,4 +1,5 @@
-"""Kernel-only times of the attention loops, on a CUDA card.
+"""Kernel-only times of the attention loops, of the split PointCN + QKV
+kernel and of the post-refinement, on a CUDA card.
 
     python -m pointdsc_tpu_torch.tools.time_attention [--out FILE]
 
@@ -13,6 +14,19 @@ residual kernel, the PointCN + QKV kernel and, up to N = 6144, the
 one-launch layer kernel.
 ``chip_smoke.py`` times the public wrappers; this tool separates the loops
 from their wrappers' host work. Prints one JSON object per N.
+
+Then, through the public wrappers only (so that the same file times another
+tree's package: run it by path with that tree on ``PYTHONPATH``), one
+object per case: the PointCN + QKV kernel at N = 12288 and 20480, and the
+post-refinement at N = 5120 (a Synthetic pair, threshold 0.1), 12288 and
+20480 (SyntheticKITTI-scale pairs, threshold 1.2), the last 5% of points
+padded, the initial transform the ground truth moved by 3 cm, with the
+rounds it ran. ``wrapper_ms``: CUDA events around one wrapper call;
+``kernel_ms``: the kernel's own device time per call from ``torch.profiler``
+(``profile_forward``'s device summary over 20 calls), beside all the call's
+device operations (``device_ops``, ``device_ms``); PointCN + QKV also with
+its two products as ``torch.addmm`` in f32 (TF32 off): two calls, the
+products only.
 """
 
 from __future__ import annotations
@@ -27,8 +41,9 @@ import torch
 
 from pointdsc_tpu_torch.data import SyntheticPairDataset
 from pointdsc_tpu_torch.kernels import encoder_layer as kenc
+from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
-from pointdsc_tpu_torch.tools.profile_forward import SNAPSHOTS
+from pointdsc_tpu_torch.tools.profile_forward import SNAPSHOTS, _device_profile
 
 C = 128
 
@@ -48,20 +63,74 @@ def _event_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def _layer_inputs(n, dev, gen):
+    """A layer's ten random weights of scale 1/sqrt(C), and x [1, n, C]."""
+    shapes = ((C, C), (C,), (C, 3 * C), (3 * C,), (C, C // 2), (C // 2,), (C // 2, C // 2),
+              (C // 2,), (C // 2, C), (C,))
+    weights = tuple((torch.randn(s, generator=gen) * C ** -0.5).to(dev) for s in shapes)
+    return torch.randn((1, n, C), generator=gen).to(dev), weights
+
+
 def _inputs(n, sigma_d, ds_kw, dev):
     ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1, **ds_kw)[0]
     src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
     tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
     mask = (torch.arange(n) < n - n // 20)[None].to(dev)
     gen = torch.Generator().manual_seed(0)
-    shapes = ((C, C), (C,), (C, 3 * C), (3 * C,), (C, C // 2), (C // 2,), (C // 2, C // 2),
-              (C // 2,), (C // 2, C), (C,))
-    weights = tuple((torch.randn(s, generator=gen) * C ** -0.5).to(dev) for s in shapes)
-    x = torch.randn((1, n, C), generator=gen).to(dev)
+    x, weights = _layer_inputs(n, dev, gen)
     qkv = [torch.randn((1, n, C), generator=gen).to(dev) for _ in range(3)]
     cache = katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask)
     return (x, weights, qkv, cache, katt.key_bias(mask, 1, n, dev),
             katt.pack_geometry(src, tgt, mask))
+
+
+def _device_split(fn, kernel):
+    """Per call of fn: its device operations and device ms, and the named
+    kernel's own device ms ("not measured" without device activity)."""
+    prof = _device_profile(fn, forwards=20)
+    if prof["device_ms_per_forward"] == "not measured":
+        return {"kernel_ms": "not measured", "device_ops": "not measured",
+                "device_ms": "not measured"}
+    return {"kernel_ms": sum(op["ms_per_forward"] for op in prof["top_ops"]
+                             if kernel in op["name"]),
+            "device_ops": prof["device_ops_per_forward"],
+            "device_ms": prof["device_ms_per_forward"]}
+
+
+def pcn_qkv_case(n, dev):
+    x, w = _layer_inputs(n, dev, torch.Generator().manual_seed(0))
+    res = {"kernel": "pcn_qkv", "n": n, "wrapper_ms": _event_ms(lambda: kenc.pcn_qkv(x, w)),
+           **_device_split(lambda: kenc.pcn_qkv(x, w), "pcn_qkv_kernel")}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x2, h2 = x.reshape(n, C), torch.empty((n, C), device=dev)
+
+        def products():
+            torch.addmm(w[1], x2, w[0], out=h2)
+            return torch.addmm(w[3], h2, w[2])
+
+        res["addmm_products_ms"] = _event_ms(products)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return res
+
+
+def refine_case(n, dev):
+    thr, ds_kw = (0.1, {}) if n <= 5120 else (1.2, SNAPSHOTS["kitti"][2])
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1, **ds_kw)[0]
+    src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
+    tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
+    mask = (torch.arange(n) < n - n // 20)[None].to(dev)
+    init = torch.as_tensor(ex["gt_trans"])[None].to(dev).clone()
+    init[:, :3, 3] += 0.03
+    _, iters = kref.fused_post_refinement(init, src, tgt, mask, thr, 20, return_iters=True)
+
+    def call():
+        return kref.fused_post_refinement(init, src, tgt, mask, thr, 20)
+
+    return {"kernel": "fused_post_refinement", "n": n, "thr": thr, "rounds": int(iters.sum()),
+            "wrapper_ms": _event_ms(call), **_device_split(call, "refine_kernel")}
 
 
 def main(argv=None) -> int:
@@ -98,6 +167,12 @@ def main(argv=None) -> int:
                 lambda: kenc.fused_encoder_layer(x, cache, kbias, w))
         lines.append(json.dumps(res))
         print(lines[-1], flush=True)
+    with torch.no_grad():
+        cases = [(pcn_qkv_case, n) for n in (12288, 20480)]
+        cases += [(refine_case, n) for n in (5120, 12288, 20480)]
+        for case, n in cases:
+            lines.append(json.dumps({"card": card, **case(n, dev)}))
+            print(lines[-1], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

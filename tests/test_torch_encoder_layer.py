@@ -213,6 +213,27 @@ def test_fold_cache_follows_the_parameters(rng):
         assert torch.equal(got, want)
 
 
+def test_pcn_qkv_with_a_workspace(rng):
+    """pcn_qkv given a caller's workspace (as the forward shares one across
+    its layers) returns that workspace, holding the tensors it returns
+    without one; a workspace of the wrong shape or type is refused."""
+    x = torch.from_numpy(np.asarray(rng.normal(size=(2, 96, 16)), np.float32))
+    shapes = ((16, 16), (16,), (16, 48), (48,), (16, 8), (8,), (8, 8), (8,), (8, 16), (16,))
+    weights = tuple(torch.from_numpy(np.asarray(rng.normal(size=s), np.float32) * 0.3)
+                    for s in shapes)
+    fresh = t_el.pcn_qkv(x, weights)
+    ws = t_el.new_workspace(2, 96, 16, x.device)
+    t_el.pcn_qkv(x + 1.0, weights, ws)
+    got = t_el.pcn_qkv(x, weights, ws)
+    assert all(g is w for g, w in zip(got, ws))
+    for g, f in zip(got, fresh):
+        assert g.dtype == f.dtype and torch.equal(g, f)
+    with pytest.raises(ValueError):
+        t_el.pcn_qkv(x, weights, t_el.new_workspace(2, 64, 16, x.device))
+    with pytest.raises(ValueError):
+        t_el.pcn_qkv(x, weights, ws[:4])
+
+
 def test_encoder_layer_wrappers_check_arguments():
     x = torch.zeros(1, 64, 16)
     cache = torch.zeros(1, 64, 64, dtype=torch.int8)

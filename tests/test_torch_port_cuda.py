@@ -150,12 +150,10 @@ def test_sc_attention_offset(dev, n, half):
     assert torch.equal(out2, out)
 
 
-def layer_case(n, dev, masked, seed=3):
-    """x, cache, kbias and folded weights of one layer at C = 128, B = 2. The
-    q and k projections are scaled so that the logits have a standard
-    deviation of ~3 (a sharp softmax, offsets near 40 nats: in regime)."""
-    src, tgt, mask, _ = pair(n, dev)
-    gen = torch.Generator().manual_seed(seed)
+def layer_weights(gen, dev):
+    """Folded weights of one layer at C = 128 from ``gen``. The q and k
+    projections are scaled so that the logits have a standard deviation of
+    ~3 (a sharp softmax, offsets near 40 nats: in regime)."""
     c = 128
 
     def rnd(*shape, scale=1.0):
@@ -171,11 +169,28 @@ def layer_case(n, dev, masked, seed=3):
           rnd(c, c, scale=s), rnd(c, scale=0.1), rnd(c // 2, c, scale=s), rnd(c // 2, scale=0.1),
           bn(c // 2), rnd(c // 2, c // 2, scale=s), rnd(c // 2, scale=0.1), bn(c // 2),
           rnd(c, c // 2, scale=s), rnd(c, scale=0.1))
-    weights = kenc.fold_layer(pcn, nl)
-    x = rnd(B, n, c)
+    return kenc.fold_layer(pcn, nl)
+
+
+def layer_case(n, dev, masked, seed=3):
+    """x, cache, kbias and folded weights of one layer at C = 128, B = 2."""
+    src, tgt, mask, _ = pair(n, dev)
+    gen = torch.Generator().manual_seed(seed)
+    weights = layer_weights(gen, dev)
+    x = (torch.randn((B, n, 128), generator=gen)).to(dev)
     cache = katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
     kbias = katt.key_bias(mask, B, n, dev) if masked else None
     return x, cache, kbias, weights
+
+
+def pcn_case(n, dev, seed=3):
+    """x [B, n, 128] and folded weights; the second sample's last 10% of rows
+    are padding (zeros, as the model's padded correspondences give)."""
+    gen = torch.Generator().manual_seed(seed)
+    weights = layer_weights(gen, dev)
+    x = torch.randn((B, n, 128), generator=gen)
+    x[1, n - n // 10:] = 0.0
+    return x.to(dev), weights
 
 
 def assert_bf16_equal_but_boundaries(got, want, max_share=1e-3):
@@ -188,18 +203,47 @@ def assert_bf16_equal_but_boundaries(got, want, max_share=1e-3):
     assert float((diff > 0).float().mean()) <= max_share
 
 
-@pytest.mark.parametrize("n", [512, 1024])
+def assert_pcn_qkv_close(got, ref):
+    h, q, k, v, kscale = got
+    hp, qp, kp, vp, ksp = ref
+    torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
+    for g, want in ((q, qp), (k, kp), (v, vp)):
+        assert_bf16_equal_but_boundaries(g, want)
+    torch.testing.assert_close(kscale, ksp, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [512, 1024, 6145, 12288, 20480])
 def test_pcn_qkv(dev, n):
     """h atol = rtol = 1e-5 (f32 dot products of 128 terms in another order);
     q, k, v equal in bf16 except at rounding boundaries (<= 0.1% of entries,
-    by one step); kscale rtol 1e-5."""
-    x, _, _, weights = layer_case(n, dev, False)
-    h, q, k, v, kscale = kenc.pcn_qkv(x, weights)
-    hp, qp, kp, vp, ksp = kenc.pcn_qkv_plain(x, weights)
-    torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
-    for got, want in ((q, qp), (k, kp), (v, vp)):
-        assert_bf16_equal_but_boundaries(got, want)
-    torch.testing.assert_close(kscale, ksp, atol=0, rtol=1e-5)
+    by one step); kscale rtol 1e-5. Batch 2 with padded rows; N = 6145 ends
+    in a tail tile of one row."""
+    x, weights = pcn_case(n, dev)
+    assert_pcn_qkv_close(kenc.pcn_qkv(x, weights), kenc.pcn_qkv_plain(x, weights))
+
+
+def test_pcn_qkv_workspace(dev):
+    """A workspace written twice (two inputs in a row, as the layers of a
+    forward) holds the second input's results, equal bit for bit to fresh
+    tensors, at N = 6145 (a tail tile)."""
+    x, weights = pcn_case(6145, dev)
+    ws = kenc.new_workspace(B, 6145, 128, dev)
+    kenc.pcn_qkv(2.0 * x, weights, ws)
+    got = kenc.pcn_qkv(x, weights, ws)
+    assert all(g is w for g, w in zip(got, ws))
+    for g, fresh in zip(got, kenc.pcn_qkv(x, weights)):
+        assert torch.equal(g, fresh)
+
+
+def test_pcn_qkv_is_the_one_launch_phase(dev):
+    """The split kernel sums as the one-launch kernel's first phase does: its
+    h, q, k, v and kscale equal that phase's (read from the workspace the
+    one-launch kernel was given) bit for bit."""
+    x, cache, kbias, weights = layer_case(1024, dev, True)
+    ws = kenc.new_workspace(B, 1024, 128, dev)
+    kenc.fused_encoder_layer(x, cache, kbias, weights, ws)
+    for got, want in zip(kenc.pcn_qkv(x, weights), ws):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -233,7 +277,8 @@ def test_fused_encoder_layer(dev, n, masked):
 
 
 def test_new_wrappers_refuse(dev):
-    """Wrong dtype, C != 128, an N the encoder-layer kernels do not take."""
+    """Wrong dtype, C != 128, an N the encoder-layer kernels do not take, a
+    workspace of the wrong shape."""
     x, cache, kbias, weights = layer_case(512, dev, True)
     with pytest.raises(ValueError):
         kenc.fused_encoder_layer(x.double(), cache, kbias, weights)
@@ -241,7 +286,7 @@ def test_new_wrappers_refuse(dev):
         kenc.fused_encoder_layer(x[:, :500].contiguous(), cache[:, :500, :500].contiguous(),
                                  kbias[:, :500].contiguous(), weights)
     with pytest.raises(ValueError):
-        kenc.pcn_qkv(x[:, :500].contiguous(), weights)
+        kenc.pcn_qkv(x, weights, kenc.new_workspace(B, 500, 128, dev))
     with pytest.raises(ValueError):
         kenc.pcn_qkv(x[..., :64].contiguous(), weights)
     h, q, k, v, kscale = kenc.pcn_qkv(x, weights)
@@ -404,18 +449,72 @@ def test_seed_inlier_counts(dev, n):
     assert float(counts.sum()) > 0
 
 
-@pytest.mark.parametrize("n", [1000, 2048])
-def test_post_refinement(dev, n):
-    """atol 1e-4 on the refined transform: the kernel sums the Gram terms in
-    another order than the plain einsums, and solves in the same f32 closed
-    form."""
-    src, tgt, mask, gt = pair(n, dev)
+def refine_case(n, dev, far=False, seed=0):
+    """B pairs, each with its own mask (sample 0 drops a random 5%, sample 1
+    its last 10%), padded points set to junk 1 km out (the kernel must read
+    the mask), and an initial transform near the ground truth. ``far``:
+    clouds ~100 m from the origin (KITTI's case: 30 m extent, 0.2 m noise,
+    half the targets moved off, threshold 1.2), else the Synthetic pairs of
+    ``pair`` (threshold 0.1). Returns (init, src, tgt, mask, thr)."""
+    if far:
+        rng = np.random.default_rng(seed)
+        src, tgt, gt = [], [], []
+        for _ in range(B):
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            rot = q * np.sign(np.linalg.det(q))
+            t = rng.normal(size=3) * 2.0
+            s_ = rng.uniform(-30.0, 30.0, size=(n, 3)) + 100.0
+            t_ = s_ @ rot.T + t + rng.normal(size=(n, 3)) * 0.2
+            t_[: n // 2] += rng.normal(size=(n // 2, 3)) * 10.0
+            g = np.eye(4)
+            g[:3, :3], g[:3, 3] = rot, t
+            src.append(s_)
+            tgt.append(t_)
+            gt.append(g)
+        src, tgt, gt = (torch.as_tensor(np.stack(a), dtype=torch.float32).to(dev)
+                        for a in (src, tgt, gt))
+        thr = 1.2
+    else:
+        src, tgt, _, gt = pair(n, dev, seed=seed)
+        thr = 0.1
+    gen = torch.Generator().manual_seed(seed)
+    mask = torch.ones((B, n), dtype=torch.bool)
+    mask[0, torch.randperm(n, generator=gen)[: n // 20]] = False
+    mask[1, n - n // 10:] = False
+    mask = mask.to(dev)
+    src, tgt = src.clone(), tgt.clone()
+    src[~mask], tgt[~mask] = 1000.0, -1000.0
     init = gt.clone()
-    init[:, :3, 3] += 0.03
-    out, iters = kref.fused_post_refinement(init, src, tgt, mask, 0.1, 20, return_iters=True)
-    ref = kref.fused_post_refinement_plain(init, src, tgt, mask, 0.1, 20)
+    init[:, :3, 3] += thr * 0.3
+    return init, src.contiguous(), tgt.contiguous(), mask, thr
+
+
+@pytest.mark.parametrize("n", [1000, 2048, 5120, 12288, 20480])
+def test_post_refinement(dev, n):
+    """atol 1e-4 on the refined transform: the kernel sums the Gram terms and
+    the means in another order than the plain einsums, and solves in the same
+    f32 closed form. Its rounds equal the plain loop's, sample by sample."""
+    init, src, tgt, mask, thr = refine_case(n, dev)
+    out, iters = kref.fused_post_refinement(init, src, tgt, mask, thr, 20, return_iters=True)
+    ref, rounds = kref.fused_post_refinement_plain(init, src, tgt, mask, thr, 20,
+                                                   return_iters=True)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(iters, rounds)
     assert bool(((iters >= 1) & (iters <= 20)).all())
+
+
+@pytest.mark.parametrize("n", [5120, 12288])
+def test_post_refinement_far_from_origin(dev, n):
+    """Clouds ~100 m out with padded junk, threshold 1.2: translations of
+    ~100 m, where f32's ulp is ~7.6e-6, so atol 1e-4 still holds means
+    reduced in another order; the rounds equal the plain loop's."""
+    init, src, tgt, mask, thr = refine_case(n, dev, far=True)
+    out, iters = kref.fused_post_refinement(init, src, tgt, mask, thr, 20, return_iters=True)
+    ref, rounds = kref.fused_post_refinement_plain(init, src, tgt, mask, thr, 20,
+                                                   return_iters=True)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(iters, rounds)
+    assert float((out[:, :3, 3] - init[:, :3, 3]).abs().max()) < 1.0
 
 
 def test_wrappers_launch_and_check(dev):

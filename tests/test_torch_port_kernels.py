@@ -259,6 +259,44 @@ def test_fused_post_refinement(rng, scene):
     np.testing.assert_allclose(out[:, :, 3], ref[:, :, 3], atol=max(1e-5, ulps))
 
 
+def test_post_refinement_far_masked_batch(rng):
+    """The plain refinement (the CPU path of the wrapper, whose kernel now
+    centres the clouds itself) against JAX's fused refinement on a batch of
+    two pairs ~100 m from the origin, threshold 1.2, each with its own mask
+    and its padded points set to junk 1 km out. Tolerances as in
+    test_fused_post_refinement (4 ulps of the largest valid coordinate for
+    the translation). The plain loop's round count means what the kernel's
+    means: the last counted round saw no change, so stopping one round
+    earlier gives the same transform and two rounds earlier another one."""
+    n, thr = 1024, 1.2
+    src = rng.uniform(-30.0, 30.0, size=(2, n, 3)) + 100.0
+    tgt = np.empty_like(src)
+    init = np.tile(np.eye(4), (2, 1, 1))
+    for i in range(2):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        rot = q * np.sign(np.linalg.det(q))
+        t = rng.normal(size=3) * 2.0
+        tgt[i] = src[i] @ rot.T + t + rng.normal(size=(n, 3)) * thr * 0.2
+        tgt[i, : n // 2] += rng.normal(size=(n // 2, 3)) * 10.0
+        init[i, :3, :3], init[i, :3, 3] = rot, t + thr * 0.3
+    mask = np.ones((2, n), bool)
+    mask[0, rng.permutation(n)[: n // 20]] = False
+    mask[1, n - n // 10:] = False
+    ulps = 4 * np.spacing(np.float32(np.abs(np.concatenate([src[mask], tgt[mask]])).max()))
+    src[~mask], tgt[~mask] = 1000.0, -1000.0
+    (ij, it), (sj, st), (tj, tt), (mj, mt) = both(init), both(src), both(tgt), mask_pair(mask)
+    ref = np.asarray(j_ref.fused_post_refinement(ij, sj, tj, mj, thr, 20))
+    out, rounds = t_ref.fused_post_refinement(it, st, tt, mt, thr, 20, return_iters=True)
+    out = out.numpy()
+    np.testing.assert_allclose(out[:, :3, :3], ref[:, :3, :3], atol=1e-5)
+    np.testing.assert_allclose(out[:, :, 3], ref[:, :, 3], atol=max(1e-5, ulps))
+    assert rounds.dtype == torch.int32 and bool(((rounds >= 2) & (rounds < 20)).all())
+    for i, r in enumerate(rounds.tolist()):
+        one = (it[i:i + 1], st[i:i + 1], tt[i:i + 1], mt[i:i + 1], thr)
+        assert np.array_equal(t_ref.fused_post_refinement(*one, r - 1)[0].numpy(), out[i])
+        assert not np.array_equal(t_ref.fused_post_refinement(*one, r - 2)[0].numpy(), out[i])
+
+
 def test_cpu_tensors_take_the_plain_versions(rng):
     """On CPU tensors no wrapper counts a launch."""
     kernels.reset_launches()
