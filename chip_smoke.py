@@ -9,9 +9,11 @@ Phases, in order (any failure raises and the exit code is not 0):
   3. hold each kernel's public wrapper against its plain PyTorch version on
      the card at the main paths' shapes (N = 5120, C = 128, S = 512, the last
      5% of points padded; the split pair of encoder-layer kernels, and the
-     seed k-NN a second time, at N = 12288; the PointCN + QKV kernel also at
-     N = 20480; the refinement also on a pair ~100 m from the origin), and
-     time both with CUDA events;
+     seed k-NN a second time and the NMS prefilter's top-M select, at
+     N = 12288; the PointCN + QKV kernel also at N = 20480; the refinement
+     also on a pair ~100 m from the origin), and time both with CUDA events;
+     then the seed NMS's gated prefilter at N = 12288, one input per branch,
+     against the same entry on the CPU;
   4. load the Synthetic snapshot in the running-max configuration
      (``offset_softmax=False``) and run it through ``register`` (the fused
      path, which launches the kernels) with every launch count set
@@ -393,6 +395,56 @@ def far_pair(torch, dev, n, seed=4):
         (init, torch.float32), (src, torch.float32), (tgt, torch.float32), (mask, torch.bool)))
 
 
+def prefilter_case(torch, dev, case):
+    """One cloud of N_KITTI points in the cube [-1, 1]^3 (the last 5%
+    padded) with scores and radius for one branch of the seed NMS's
+    prefilter: ``certificate`` (positive scores, radius 0.05: the subset's
+    seeds stand), ``scarce_maxima`` (the cloud shrunk into a 0.02 cube,
+    radius 0.2: the precheck holds, the certificate fails) and
+    ``all_negative`` (the precheck fails)."""
+    gen = torch.Generator().manual_seed(9)
+    src = torch.rand((1, N_KITTI, 3), generator=gen) * 2.0 - 1.0
+    radius = 0.05
+    if case == "scarce_maxima":
+        src, radius = src * 0.01, 0.2
+    scores = 0.01 + 0.99 * torch.rand((1, N_KITTI), generator=gen)
+    if case == "all_negative":
+        scores = -scores
+    mask = (torch.arange(N_KITTI) < N_KITTI - int(N_KITTI * PAD_FRACTION))[None]
+    return src.to(dev), scores.to(dev), radius, mask.to(dev)
+
+
+def prefilter_checks(torch, dev, knms, s_k, m_k) -> None:
+    """End of phase 3: the seed NMS at N_KITTI through the entry the model
+    calls (``pick_seeds_nms_prefiltered``: top-M select, the subset's flags
+    and select behind the precheck, the full grid's behind the
+    certificate), one input per branch, held exactly against the same entry
+    on the same tensors on the CPU (the plain versions, the gates read on
+    the host); the branch from the decisions ``pick_seeds_gated`` returns,
+    on the card and on the CPU alike; the entry's time on the card."""
+    want = {"certificate": "certificate", "scarce_maxima": "full grid after the subset",
+            "all_negative": "full grid"}
+    cases = []
+    for case, expected in want.items():
+        src, scores, radius, mask = prefilter_case(torch, dev, case)
+        seeds = knms.pick_seeds_nms_prefiltered(src, scores, radius, s_k, mask=mask)
+        ref = knms.pick_seeds_nms_prefiltered(src.cpu(), scores.cpu(), radius, s_k,
+                                              mask=mask.cpu())
+        _, pre_ok, cert = knms.pick_seeds_gated(src, scores, radius, s_k, mask, m_k)
+        _, pre_ref, cert_ref = knms.pick_seeds_gated(src.cpu(), scores.cpu(), radius, s_k,
+                                                     mask.cpu(), m_k)
+        branch = ("certificate" if bool(cert.all()) else
+                  "full grid after the subset" if bool(pre_ok.all()) else "full grid")
+        same = (torch.equal(seeds.cpu(), ref) and torch.equal(pre_ok.cpu(), pre_ref)
+                and torch.equal(cert.cpu(), cert_ref))
+        cases.append(dict(case=case, branch=branch, equal=same, ms=time_ms(
+            lambda: knms.pick_seeds_nms_prefiltered(src, scores, radius, s_k, mask=mask))))
+        check(same, f"seed NMS prefilter ({case}): the card's seeds or decisions differ")
+        check(branch == expected, f"seed NMS prefilter ({case}): took the {branch} branch")
+    print(json.dumps({"phase": "seed_nms_prefilter", "n": N_KITTI, "s": s_k, "m": m_k,
+                      "cases": cases}), flush=True)
+
+
 def check_kernels(torch, dev) -> list[dict]:
     """Phase 3: every kernel's public wrapper against its plain version, on
     the card, on the same inputs.
@@ -418,6 +470,7 @@ def check_kernels(torch, dev) -> list[dict]:
     from pointdsc_tpu_torch.kernels import sc_attention as katt
     from pointdsc_tpu_torch.kernels import scoring as kscore
     from pointdsc_tpu_torch.kernels import seed_knn as kknn
+    from pointdsc_tpu_torch.ops.nms import _total_order_key, nms_key
 
     x = kernel_inputs(torch, dev)
     src, tgt, mask = x["src"], x["tgt"], x["mask"]
@@ -583,24 +636,66 @@ def check_kernels(torch, dev) -> list[dict]:
         lambda: kconf.confidence_head(q, *head), lambda: kconf.confidence_head_plain(q, *head),
         N * C * 4 + sum(t.numel() for t in head) * 4 + N * 4, N * OPS_PER_CONF_ROW)
 
-    # -- NMS flags. Tolerance: the kernel's and cuBLAS's gram-form d2 round
-    # differently, so a pair with |d2 - R^2| < 1e-5 may fall on either side
-    # of the radius: flags equal except on queries that have such a pair.
+    # -- NMS flags and seed keys, equal to the plain version's bit for bit:
+    # both round each product and sum of d2 and of the squared norms on its
+    # own, in one order (``flags_off``, the flags that differ, is 0). A
+    # block's warps leave their key loops once its 32 queries are all
+    # suppressed; the kernel counts the 32-key tiles its warps walked, and the
+    # bound counts the pair tests of those tiles (``walked_share``: of the
+    # full grid's). The timed call reads src, scores and mask and writes the
+    # keys.
     scores = x["scores"]
-    ngeom = knms.pack_nms_geometry(src, scores, mask)
     r2 = knms.radius_sq(0.1)
     flags = knms.nms_local_max(src, scores, 0.1, mask=mask)
-    ref = knms.nms_local_max_plain(ngeom, r2)
-    xyz = ngeom[:, 0:3]
-    d2 = torch.clamp(ngeom[:, 3, :, None] + ngeom[:, 3, None, :]
-                     - 2.0 * (xyz.transpose(1, 2) @ xyz), min=0.0)
-    near = torch.any((d2 - r2).abs() < 1e-5, dim=-1)
-    bad = (flags != ref) & ~near
-    check(not bool(bad.any()), f"NMS flags differ on {int(bad.sum())} far-from-boundary points")
+    keys = knms.nms_local_max(src, scores, 0.1, mask=mask, keys=True)
+    ref = knms.nms_local_max_plain(src, scores, mask, r2)
+    flags_off = int((flags != ref).sum())
+    check(flags_off == 0, f"NMS flags differ on {flags_off} points")
+    check(torch.equal(keys, _total_order_key(nms_key(scores, ref, mask))), "NMS keys differ")
+    tiles = torch.zeros(1, dtype=torch.int64, device=dev)
+    knms._launch_flags(src, scores, mask, None, None, r2, True, tiles=tiles)
+    walked = int(tiles)
+    per_warp = -(-N // (32 * knms.FLAG_WARPS)) * 32
+    grid_tiles = -(-N // 32) * sum(-(-(min(N, (w + 1) * per_warp) - w * per_warp) // 32)
+                                   for w in range(knms.FLAG_WARPS) if w * per_warp < N)
     row("nms_local_max", "nms.cu", "nms.py:40", float((flags - ref).abs().max()),
-        lambda: knms.nms_local_max(src, scores, 0.1, mask=mask),
-        lambda: knms.nms_local_max_plain(knms.pack_nms_geometry(src, scores, mask), r2),
-        src.numel() * 4 + N * 4 * 2 + N * 4, N * N * OPS_PER_NMS_PAIR)
+        lambda: knms.nms_local_max(src, scores, 0.1, mask=mask, keys=True),
+        lambda: knms.nms_local_max_plain(src, scores, mask, r2),
+        src.numel() * 4 + N * 4 + N + N * 4, walked * 32 * 32 * OPS_PER_NMS_PAIR,
+        flags_off=flags_off, tiles_walked=walked, walked_share=walked / grid_tiles)
+
+    # -- the seed select on those keys (S = 512), exact against the plain
+    # version's stable sort (JAX's lax.top_k order: +0.0 above -0.0, ties to
+    # the lower index). ``library_ms`` stays null: torch.topk promises no
+    # order on ties; one torch.topk call on the keys stands beside as
+    # ``torch_topk_ms``. The bound: the keys read once, the seeds written
+    # once, one compare a key.
+    seeds = knms.nms_select(keys, S)
+    check(torch.equal(seeds, knms.nms_select_plain(keys, S)), "NMS seed select differs")
+    row("nms_select", "nms.cu", "nms.py:119", 0.0, lambda: knms.nms_select(keys, S),
+        lambda: knms.nms_select_plain(keys, S), N * 4 + S * 8, N,
+        torch_topk_ms=time_ms(lambda: torch.topk(keys, S, dim=-1)))
+
+    # -- the prefilter's top-M select at the SyntheticKITTI scale (N = 12288,
+    # M = 5120, S = 1228, the last 5% padded), exact against its plain
+    # version: the indices in index order, tau_M and the precheck. The
+    # bound: the scores and mask read once, the indices written once, one
+    # compare a score.
+    s_k = N_KITTI // 10
+    m_k = -(-max(4 * s_k, 4096) // 1024) * 1024
+    scores_k = torch.randn((1, N_KITTI), generator=torch.Generator().manual_seed(8)).to(dev)
+    mask_k = (torch.arange(N_KITTI) < N_KITTI - int(N_KITTI * PAD_FRACTION))[None].to(dev)
+    got = knms.nms_top_m(scores_k, mask_k, m_k, s_k)
+    check(all(torch.equal(a, b) for a, b in zip(got, knms.nms_top_m_plain(scores_k, mask_k, m_k,
+                                                                         s_k))),
+          "NMS top-M select differs")
+    row("nms_top_m", "nms.cu", "nms.py:170", 0.0,
+        lambda: knms.nms_top_m(scores_k, mask_k, m_k, s_k),
+        lambda: knms.nms_top_m_plain(scores_k, mask_k, m_k, s_k),
+        N_KITTI * 5 + m_k * 4 + 8, N_KITTI, n=N_KITTI, m=m_k,
+        torch_topk_ms=time_ms(lambda: torch.topk(scores_k, m_k, dim=-1)))
+    del scores_k, mask_k
+    prefilter_checks(torch, dev, knms, s_k, m_k)
 
     # -- seed k-NN, at N = 5120 / S = 512 and at the SyntheticKITTI scale
     # N = 12288 / S = 1228 (the n12288 extra). Tolerance: index sets equal
@@ -725,7 +820,7 @@ def seed_checks(torch, out, model, cp, src, tgt, tag: str) -> None:
 
 
 RUNNING_MAX_KERNELS = ("compat_cache_int8", "sc_attention_cached", "confidence_head",
-                       "nms_local_max", "seed_knn_exact", "seed_inlier_counts",
+                       "nms_local_max", "nms_select", "seed_knn_exact", "seed_inlier_counts",
                        "fused_post_refinement")
 
 
@@ -799,14 +894,17 @@ def run_cell(torch, pt, kernels, dev, tag, model, ds, expect, trans_atol, golden
 
 
 def default_configuration(torch, pt, kernels, dev) -> dict:
-    """Phases 8 to 11. Returns the launches of the four kernels of these
+    """Phases 8 to 11. Returns the launches of the five kernels of these
     paths, each from its own path's run."""
     import numpy as np
 
     from pointdsc_tpu_torch.data import SyntheticPairDataset
 
-    tail = {"compat_cache_int8": 1, "confidence_head": 1, "nms_local_max": 1,
+    # the seed NMS: flags and keys, then the select (N = 5120); at 12288 the
+    # prefilter's top-M select and both gated pairs, whatever the branch
+    tail = {"compat_cache_int8": 1, "confidence_head": 1, "nms_local_max": 1, "nms_select": 1,
             "seed_knn_exact": 1, "seed_inlier_counts": 1, "fused_post_refinement": 1}
+    tail_kitti = {**tail, "nms_top_m": 1, "nms_local_max": 2, "nms_select": 2}
     launches = {}
 
     # 8a. Synthetic snapshot, N = 5120: one kernel per layer. Against the
@@ -830,10 +928,11 @@ def default_configuration(torch, pt, kernels, dev) -> dict:
     ds_k = SyntheticPairDataset(num_pairs=PAIRS_KITTI, num_corr=N_KITTI, **DEFAULT_DATA_KITTI,
                                 **KITTI_DATA)
     rec_k, counts = run_cell(torch, pt, kernels, dev, "default N=12288", kitti, ds_k,
-                             {**tail, "pcn_qkv": 12, "attn_mlp_residual": 12}, 5e-3)
+                             {**tail_kitti, "pcn_qkv": 12, "attn_mlp_residual": 12}, 5e-3)
     check(not rec_k.ev.flipped, "the guard flipped on the SyntheticKITTI snapshot")
     launches["pcn_qkv"] = counts["pcn_qkv"]
     launches["attn_mlp_residual"] = counts["attn_mlp_residual"]
+    launches["nms_top_m"] = counts["nms_top_m"]
 
     # 9. half precision: the per-op bf16 encoder around the offset attention
     # kernel, held against the f32 model's dense path. bf16 activations
@@ -1526,7 +1625,7 @@ def registration_demo(torch, kernels, dev) -> int:
                                              "times in the demo, expected 20")
     attention = "sc_attention_cached" if report["flipped"] else "fused_encoder_layer"
     for name in ("compat_cache_int8", attention, "confidence_head", "nms_local_max",
-                 "seed_knn_exact", "seed_inlier_counts", "fused_post_refinement"):
+                 "nms_select", "seed_knn_exact", "seed_inlier_counts", "fused_post_refinement"):
         check(counts[name] > 0, f"the demo's forward did not launch {name}")
 
     s = torch.as_tensor(skp, device=dev)

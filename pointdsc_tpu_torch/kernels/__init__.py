@@ -13,7 +13,7 @@ from pointdsc_tpu_torch.kernels.encoder_layer import (
     fused_encoder_layer,
     pcn_qkv,
 )
-from pointdsc_tpu_torch.kernels.nms import nms_local_max
+from pointdsc_tpu_torch.kernels.nms import nms_local_max, nms_select, nms_top_m
 from pointdsc_tpu_torch.kernels.nn_search import nearest_neighbors
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
@@ -39,6 +39,8 @@ WRAPPERS = {
     "attn_mlp_residual": attn_mlp_residual,
     "confidence_head": confidence_head,
     "nms_local_max": nms_local_max,
+    "nms_select": nms_select,
+    "nms_top_m": nms_top_m,
     "seed_knn_exact": seed_knn_exact,
     "seed_inlier_counts": seed_inlier_counts,
     "fused_post_refinement": fused_post_refinement,

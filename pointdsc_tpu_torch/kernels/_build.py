@@ -37,7 +37,7 @@ NVCC_FLAGS = (*COMPILE_FLAGS, "-shared", "-Xcompiler", "-fPIC")
 # C signatures: (argtypes, restype) per entry point
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "compat_cache": {"compat_cache_int8": [P, P, I, I, F, P]},
+    "compat_cache": {"compat_cache_int8": [P, P, P, I, I, F, P]},
     "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P],
                      "sc_attention_cached_offset": [P, P, P, P, P, P, P, I, I, F, P],
                      "sc_attention_nocache": [P] * 5 + [I, I, F, F, P]},
@@ -50,7 +50,9 @@ SIGNATURES = {
                       "pcn_qkv": [P] * 10 + [I, I, F, P],
                       "attn_mlp_residual": [P] * 14 + [I, I, F, P]},
     "conf_mlp": {"confidence_head": [P, P, P, P, P, P, P, P, I, P]},
-    "nms": {"nms_local_max": [P, P, I, I, F, P]},
+    "nms": {"nms_local_max": [P] * 5 + [I, I, I, I, F, P, P, P, P],
+            "nms_select": [P, P, P, I, P, P, P, I, I, I, P],
+            "nms_top_m": [P] * 5 + [I, I, I, I, P]},
     "seed_knn": {"seed_knn_exact": [P, P, P, P, P, I, I, I, I, P]},
     "scoring": {"seed_inlier_counts": [P, P, P, I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},
@@ -133,11 +135,18 @@ def library(name: str) -> ctypes.CDLL:
 def launch(name: str, entry: str, device, *args) -> None:
     """Call C entry ``entry`` of library ``name`` with ``args`` and the
     current stream of ``device`` (a CUDA torch.device), with that device
-    current; raise if the launch failed."""
+    current; raise if the launch failed. The raw stream handle and the
+    current device are read without Stream objects or a device switch when
+    the device is already current: a launch's host time is the forward's
+    (the eval forward is host-bound)."""
     import torch
 
     fn = getattr(library(name), entry)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if torch.cuda.current_device() == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {entry} failed with cudaError {err}")

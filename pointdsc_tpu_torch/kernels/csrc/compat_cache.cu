@@ -7,43 +7,194 @@
 //   out[b, i, j] = round(max(127 - coef * (d_s - d_t)^2, 0)),  coef = 127 / sigma_d^2
 //
 // with the one-sqrt form (d_s - d_t)^2 = s2 + t2 - 2 sqrt(s2 t2) and the gram
-// form s2 = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0), from the packed [B, 16, N]
-// geometry strip (rows 0-2 src xyz, 3 |src|^2, 4-6 tgt xyz, 7 |tgt|^2).
-// Nothing is masked: the attention kernel's key bias handles invalid keys.
-// The value is clamped at 127 so a rounding excess can never wrap the int8.
-// The tile body is csrc/compat_tile.cuh, shared with compat_cache_sym.cu.
+// form s2 = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0): compat::compat_level of
+// csrc/compat_tile.cuh, the entry the symmetric build (compat_cache_sym.cu)
+// shares, with IEEE sqrtf (its branch-free path, compat::sqrt_in_range, for
+// every entry of a row whose products all lie in its range, and sqrtf for
+// the rows that hold a zero distance), rounded and packed four bytes at a
+// time by compat::pack_levels: the symmetric build's compat_value, bit for
+// bit. Nothing is masked: the attention kernel's key bias
+// handles invalid keys. The value is clamped at 127 so a rounding excess can
+// never wrap the int8.
 //
-// Bound on the H100: the N^2 int8 bytes written (26.2 MB at N = 5120, 7.8 us
-// at 3.35 TB/s); the ~25 flops and one sqrt per entry are far below the
-// compute roof. Design: a block owns a 64 x 256 output tile, stages the 64
-// query and 256 key geometry columns in shared memory once, and each thread
-// writes 4 consecutive bytes per row as one 32-bit store, so a warp writes
-// 128 contiguous bytes of a row. The symmetric half-build of the TPU version
-// is not used here: measured on an H100 (compat_cache_sym.cu, the experiment),
-// it takes 0.91x this kernel's time at N = 20480 and more at N = 5120, its
-// mirror pass costing about what the skipped arithmetic saves.
+// The kernel reads src and tgt [B, N, 3] in place and computes the squared
+// norms itself (compat::sq_norm, as the symmetric build does from its strip's
+// coordinates): the bytes equal the symmetric build's.
+//
+// Bound on the H100: issue, not bytes. Each entry takes ~30 instructions on
+// its common path (two 3-dots, two gram distances, the IEEE sqrtf and its
+// range check, the clamps, the rounding and a share of the packing; the
+// count of the compiled row loop is tools/kernel_report.py's) against one
+// byte written: at 132 SMs x 128 lanes x 1.98 GHz that floor is ~0.023 ms at
+// N = 5120 and ~0.13 ms at 12288, above the N^2 bytes' 7.8 and 45 us at
+// 3.35 TB/s. Design: each thread keeps the geometry of 16 consecutive key
+// columns in registers (loaded once, as 16-byte loads, no shared memory) and
+// walks a band of rows; a row's query point is the same for the whole warp
+// (a broadcast load), and the thread stores its 16 bytes of the row in one
+// 128-bit store, so a warp writes 512 contiguous bytes. A block of 4 warps
+// owns 512 columns and walks bands of 4 rows; the grid is sized to the card
+// (the resident blocks of all SMs shared out over the column strips), so
+// every block stays resident, loads its keys once and takes the same number
+// of rows, give or take a band.
+// Where N is not a multiple of 16, a second instantiation guards the ragged
+// edge with byte stores. The symmetric half-build of the TPU version is not
+// used here: measured on an H100 (compat_cache_sym.cu, the experiment), it
+// took 0.91x an earlier full-grid kernel's time at N = 20480, and takes
+// 1.35x this one's (its mirror pass costs about what the skipped arithmetic
+// saves).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "compat_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(compat::THREADS)
-compat_cache_kernel(const float* __restrict__ geom, int8_t* __restrict__ out, int n, float coef) {
-  __shared__ compat::TileSmem sm;
-  const int b = blockIdx.z;
-  compat::cache_tile(geom + static_cast<size_t>(b) * 16 * n, out + static_cast<size_t>(b) * n * n,
-                     n, blockIdx.y * compat::TQ, blockIdx.x * compat::TK, coef, sm);
+constexpr int COLS = 16;               // key columns a thread
+constexpr int WARPS = 4;               // warps a block, one row each at a time
+constexpr int BLOCK_COLS = 32 * COLS;  // 512 columns a block (each warp all of them)
+constexpr int MIN_BLOCKS = 2;          // resident blocks an SM (at 3, 168 registers, it spills)
+
+// xyz of points j0 .. j0 + COLS - 1 (0 past n) into v[COLS * 3]
+__device__ __forceinline__ void load_points(const float* __restrict__ p, int j0, int n,
+                                            float (&v)[COLS * 3]) {
+  const float* base = p + static_cast<size_t>(j0) * 3;
+  if (j0 + COLS <= n && (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
+#pragma unroll
+    for (int c = 0; c < COLS * 3 / 4; ++c) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(base) + c);
+      v[4 * c] = f.x;
+      v[4 * c + 1] = f.y;
+      v[4 * c + 2] = f.z;
+      v[4 * c + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < COLS * 3; ++c) v[c] = j0 + c / 3 < n ? __ldg(base + c) : 0.0f;
+  }
+}
+
+// a thread's COLS bytes of a row in one store (dst aligned to COLS bytes)
+__device__ __forceinline__ void store_row(int8_t* dst, const uint32_t (&w)[COLS / 4]) {
+  static_assert(COLS == 8 || COLS == 16, "one 64- or 128-bit store a row");
+  if constexpr (COLS == 16)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+}
+
+// kVector: n % COLS == 0, so every thread's columns lie inside the row and
+// start on a COLS-byte boundary (one store a row); else guarded stores
+template <bool kVector>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+compat_cache_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
+                    int8_t* __restrict__ out, int n, float coef) {
+  const int b = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = static_cast<int>(blockIdx.x) * BLOCK_COLS + lane * COLS;  // first column
+  if (j0 >= n) return;
+  const float* s = src + static_cast<size_t>(b) * n * 3;
+  const float* t = tgt + static_cast<size_t>(b) * n * 3;
+
+  // the keys' geometry in compat_level's layout: xyz, |.|^2 of src then tgt
+  float k[COLS][8];
+  {
+    float v[COLS * 3];
+    load_points(s, j0, n, v);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      k[c][0] = v[3 * c];
+      k[c][1] = v[3 * c + 1];
+      k[c][2] = v[3 * c + 2];
+      k[c][3] = compat::sq_norm(k[c][0], k[c][1], k[c][2]);
+    }
+    load_points(t, j0, n, v);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      k[c][4] = v[3 * c];
+      k[c][5] = v[3 * c + 1];
+      k[c][6] = v[3 * c + 2];
+      k[c][7] = compat::sq_norm(k[c][4], k[c][5], k[c][6]);
+    }
+  }
+
+  // bands of WARPS rows, block y taking bands y, y + gridDim.y, ...
+  for (int row = static_cast<int>(blockIdx.y) * WARPS + warp; row < n;
+       row += static_cast<int>(gridDim.y) * WARPS) {
+    float q[8];
+    q[0] = __ldg(s + 3 * row);
+    q[1] = __ldg(s + 3 * row + 1);
+    q[2] = __ldg(s + 3 * row + 2);
+    q[3] = compat::sq_norm(q[0], q[1], q[2]);
+    q[4] = __ldg(t + 3 * row);
+    q[5] = __ldg(t + 3 * row + 1);
+    q[6] = __ldg(t + 3 * row + 2);
+    q[7] = compat::sq_norm(q[4], q[5], q[6]);
+    // the row's entries without a branch (sqrt_in_range), then once for the
+    // row: if any s2 t2 fell outside that path's range (a zero distance: the
+    // diagonal, a repeated point), the row again with sqrtf itself
+    bool in_range = true;
+    const auto fast_root = [&](float x) {
+      in_range &= compat::in_sqrt_range(x);
+      return compat::sqrt_in_range(x);
+    };
+    uint32_t w[COLS / 4];
+#pragma unroll
+    for (int g = 0; g < COLS / 4; ++g)
+      w[g] = compat::pack_levels(compat::compat_level(q, k[4 * g], coef, fast_root),
+                                 compat::compat_level(q, k[4 * g + 1], coef, fast_root),
+                                 compat::compat_level(q, k[4 * g + 2], coef, fast_root),
+                                 compat::compat_level(q, k[4 * g + 3], coef, fast_root));
+    if (!in_range) {
+#pragma unroll  // constant indices keep k in registers
+      for (int g = 0; g < COLS / 4; ++g)
+        w[g] = compat::pack_levels(compat::compat_level(q, k[4 * g], coef, compat::ieee_sqrt),
+                                   compat::compat_level(q, k[4 * g + 1], coef, compat::ieee_sqrt),
+                                   compat::compat_level(q, k[4 * g + 2], coef, compat::ieee_sqrt),
+                                   compat::compat_level(q, k[4 * g + 3], coef, compat::ieee_sqrt));
+    }
+    int8_t* dst = out + (static_cast<size_t>(b) * n + row) * n + j0;
+    if (kVector) {
+      store_row(dst, w);
+    } else {
+      for (int c = 0; c < COLS && j0 + c < n; ++c)
+        dst[c] = static_cast<int8_t>((w[c / 4] >> (8 * (c % 4))) & 0xFFu);
+    }
+  }
+}
+
+// blocks a column strip gets: the card's resident blocks shared out over
+// the strips and samples (per device, computed once), at most one band each
+int grid_rows(int strips, int batch, int n) {
+  static int resident[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compat_cache_kernel<true>,
+                                                  32 * WARPS, 0);
+    resident[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int bands = (n + WARPS - 1) / WARPS;
+  return std::max(1, std::min(bands, resident[dev] / (strips * batch)));
 }
 
 }  // namespace
 
-extern "C" int compat_cache_int8(const void* geom, void* out, int batch, int n, float coef,
-                                 void* stream) {
-  const dim3 grid((n + compat::TK - 1) / compat::TK, (n + compat::TQ - 1) / compat::TQ, batch);
-  compat_cache_kernel<<<grid, compat::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(geom), static_cast<int8_t*>(out), n, coef);
+extern "C" int compat_cache_int8(const void* src, const void* tgt, void* out, int batch, int n,
+                                 float coef, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int strips = (n + BLOCK_COLS - 1) / BLOCK_COLS;
+  const dim3 grid(strips, grid_rows(strips, batch, n), batch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(src);
+  const float* t = static_cast<const float*>(tgt);
+  int8_t* o = static_cast<int8_t*>(out);
+  if (n % COLS == 0)
+    compat_cache_kernel<true><<<grid, 32 * WARPS, 0, st>>>(s, t, o, n, coef);
+  else
+    compat_cache_kernel<false><<<grid, 32 * WARPS, 0, st>>>(s, t, o, n, coef);
   return static_cast<int>(cudaGetLastError());
 }

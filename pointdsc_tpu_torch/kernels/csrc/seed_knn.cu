@@ -34,9 +34,10 @@
 //    staged in shared memory as order-preserving uint32 keys (larger float,
 //    larger key; -0.0 is taken as +0.0, which the plain sort treats as
 //    equal), and an exact radix select over four 8-bit digits, most
-//    significant first, finds the k-th largest key T (a shared-memory
-//    histogram per digit, then a block scan over the bins from the top) and
-//    how many entries equal to T belong to the top k. Each thread then
+//    significant first (radix_select.cuh, shared with nms.cu), finds the
+//    k-th largest key T (a shared-memory histogram per digit, then a block
+//    scan over the bins from the top) and how many entries equal to T
+//    belong to the top k. Each thread then
 //    counts, in its contiguous run of indices, the entries above T and
 //    equal to T; one block scan gives every entry its slot, the ties taken
 //    strictly in index order (the plain version's stable sort). One warp
@@ -49,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "radix_select.cuh"
 
 namespace {
 
@@ -160,7 +163,7 @@ seed_sim_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
 // ---------------------------------------------------------------- selection
 
 constexpr int SEL_THREADS = 256;  // one histogram bin per thread
-constexpr int BINS = 256;
+constexpr int BINS = radix::BINS;
 constexpr int WARPS = SEL_THREADS / 32;
 // rows up to this length are staged in shared memory (160 KB); longer rows
 // read their keys from the scratch on every pass
@@ -173,31 +176,6 @@ __device__ __forceinline__ uint32_t order_key(float v) {
   if (v == 0.0f) v = 0.0f;
   const uint32_t u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// inclusive prefix sum over the block, in thread order
-__device__ __forceinline__ int block_scan(int x, int* warp_sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < WARPS; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += y;
-    }
-    if (lane < WARPS) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) x += warp_sums[warp - 1];
-  __syncthreads();  // warp_sums may be reused
-  return x;
 }
 
 // (key a, index ia) comes before (key b, index ib)
@@ -223,33 +201,11 @@ seed_select_kernel(const float* __restrict__ sim, int64_t* __restrict__ idx_out,
     for (int i = tid; i < n; i += SEL_THREADS) keys[i] = order_key(r[i]);
   auto key_at = [&](int i) { return staged ? keys[i] : order_key(r[i]); };
 
-  // radix select: after the pass of shift, prefix holds the top digits of
-  // the k-th largest key and kk its rank among the keys that share them
-  uint32_t prefix = 0, pmask = 0;
-  int kk = k;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    hist[tid] = 0;
-    __syncthreads();  // the keys are staged, the bins cleared
-    for (int i = tid; i < n; i += SEL_THREADS) {
-      const uint32_t key = key_at(i);
-      if ((key & pmask) == prefix) atomicAdd(&hist[(key >> shift) & 0xFFu], 1);
-    }
-    __syncthreads();
-    // bins from the top: thread t holds digit 255 - t
-    const int h = hist[BINS - 1 - tid];
-    const int above_and_own = block_scan(h, warp_sums);
-    if (above_and_own >= kk && above_and_own - h < kk) {
-      digit_s = BINS - 1 - tid;
-      rank_s = kk - (above_and_own - h);
-    }
-    __syncthreads();
-    prefix |= digit_s << shift;
-    pmask |= 0xFFu << shift;
-    kk = rank_s;
-  }
-  const uint32_t kth = prefix;  // the k-th largest key
-  const int ties = kk;          // entries equal to it among the top k
-  const int above = k - ties;   // entries larger than it
+  const uint2 sel = radix::radix_select<SEL_THREADS, false>(key_at, n, k, hist, warp_sums,
+                                                             digit_s, rank_s);
+  const uint32_t kth = sel.x;                 // the k-th largest key
+  const int ties = static_cast<int>(sel.y);  // entries equal to it among the top k
+  const int above = k - ties;                 // entries larger than it
 
   // compaction in index order: a contiguous run of indices per thread
   const int run = (n + SEL_THREADS - 1) / SEL_THREADS;
@@ -262,7 +218,7 @@ seed_select_kernel(const float* __restrict__ sim, int64_t* __restrict__ idx_out,
   }
   // above < k <= 128: the count of larger keys fits the low 8 bits
   const int own = (n_eq << 8) | n_gt;
-  const int before_me = block_scan(own, warp_sums) - own;
+  const int before_me = radix::block_scan<WARPS>(own, warp_sums) - own;
   int slot_gt = before_me & 0xFF, rank_eq = before_me >> 8;
   for (int i = lo; i < hi && (slot_gt < above || rank_eq < ties); ++i) {
     const uint32_t key = key_at(i);

@@ -68,28 +68,31 @@ def compat_cache_plain(geom: torch.Tensor, coef: float) -> torch.Tensor:
     return torch.clamp(torch.round(torch.clamp(scaled, min=0.0)), max=127.0).to(torch.int8)
 
 
-def _launch_compat_cache(geom: torch.Tensor, coef: float) -> torch.Tensor:
-    b, _, n = geom.shape
-    out = torch.empty((b, n, n), dtype=torch.int8, device=geom.device)
-    _build.launch("compat_cache", "compat_cache_int8", geom.device,
-                  geom.data_ptr(), out.data_ptr(), b, n, coef)
+def _launch_compat_cache(src: torch.Tensor, tgt: torch.Tensor, coef: float) -> torch.Tensor:
+    """src, tgt f32 [B, N, 3], contiguous: the whole cache in one launch,
+    the squared norms computed by the kernel (no packed strip)."""
+    b, n, _ = src.shape
+    out = torch.empty((b, n, n), dtype=torch.int8, device=src.device)
+    _build.launch("compat_cache", "compat_cache_int8", src.device,
+                  src.data_ptr(), tgt.data_ptr(), out.data_ptr(), b, n, coef)
     return out
 
 
 def build_compat_cache_int8(src: torch.Tensor, tgt: torch.Tensor, sigma_d: float,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
     """[B, N, N] int8 cache of round(127 * compat) from src/tgt [B, N, 3].
-    Nothing is masked: the attention's key bias handles invalid keys."""
+    Nothing is masked: the attention's key bias handles invalid keys (the
+    mask is checked and otherwise unused). On the card one launch reads src
+    and tgt in place."""
     expect(src, "src", ndim=3, last=3)
     expect(tgt, "tgt", shape=src.shape, device=src.device)
     if mask is not None:
         expect(mask, "mask", dtype=torch.bool, shape=src.shape[:2], device=src.device)
-    geom = pack_geometry(src, tgt, mask)
     coef = cache_coef(sigma_d)
-    if not on_cuda(geom):
-        return compat_cache_plain(geom, coef)
+    if not on_cuda(src):
+        return compat_cache_plain(pack_geometry(src, tgt, mask), coef)
     build_compat_cache_int8.launches += 1
-    return _launch_compat_cache(geom, coef)
+    return _launch_compat_cache(src.float(), tgt.float(), coef)
 
 
 build_compat_cache_int8.launches = 0

@@ -56,7 +56,7 @@ import torch.nn as nn
 from pointdsc_tpu_torch._device import full_f32_matmul, resolve_device
 from pointdsc_tpu_torch.kernels.conf_mlp import confidence_head, confidence_head_plain
 from pointdsc_tpu_torch.kernels.encoder_layer import make_fused_layer_fn
-from pointdsc_tpu_torch.kernels.nms import pick_seeds_nms_prefiltered
+from pointdsc_tpu_torch.kernels.nms import MAX_SELECT, pick_seeds_nms_prefiltered
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
     C_KERNEL,
@@ -159,7 +159,10 @@ class PointDSC(nn.Module):
     @full_f32_matmul()
     def forward(self, corr_pos, src_keypts, tgt_keypts, mask=None, testing: bool = True,
                 fused: bool = True, skip_M: bool = False) -> PointDSCOutput:
-        """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool."""
+        """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool. The
+        fused eval path on the card picks at most 8192 seeds (pairs of up to
+        81,929 correspondences at ratio 0.1); a larger pair raises before the
+        encoder runs: pass fused=False."""
         train = self.training
         corr_pos = corr_pos.float().contiguous()
         src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
@@ -172,6 +175,11 @@ class PointDSC(nn.Module):
                 f"the fused path's attention, encoder-layer and SM-loss kernels take "
                 f"num_channels={C_KERNEL}, this model has num_channels={self.num_channels}: "
                 f"pass fused=False")
+        num_seeds = max(1, int(num_corr * self.ratio))
+        if fused and testing and corr_pos.device.type == "cuda" and num_seeds > MAX_SELECT:
+            raise ValueError(f"the seed NMS kernel picks at most {MAX_SELECT} seeds, this pair "
+                             f"needs {num_seeds} ({num_corr} x ratio {self.ratio}): "
+                             f"pass fused=False")
         mask_arg = mask
         if mask is None:
             mask = torch.ones((bs, num_corr), dtype=torch.bool, device=corr_pos.device)
@@ -234,7 +242,6 @@ class PointDSC(nn.Module):
         else:
             confidence = confidence_head_plain(corr_features, *head)
 
-        num_seeds = max(1, int(num_corr * self.ratio))
         if not testing:
             seeds = pick_seeds_topk(confidence.detach(), num_seeds, mask=mask)
         elif fused:

@@ -1,5 +1,6 @@
 """Kernel-only times of the attention loops, of the split PointCN + QKV
-kernel and of the post-refinement, on a CUDA card.
+kernel, of the post-refinement, of the int8 cache build, of the seed NMS,
+of the scoring kernel and of the confidence head, on a CUDA card.
 
     python -m pointdsc_tpu_torch.tools.time_attention [--out FILE]
 
@@ -21,12 +22,16 @@ object per case: the PointCN + QKV kernel at N = 12288 and 20480, and the
 post-refinement at N = 5120 (a Synthetic pair, threshold 0.1), 12288 and
 20480 (SyntheticKITTI-scale pairs, threshold 1.2), the last 5% of points
 padded, the initial transform the ground truth moved by 3 cm, with the
-rounds it ran. ``wrapper_ms``: CUDA events around one wrapper call;
-``kernel_ms``: the kernel's own device time per call from ``torch.profiler``
-(``profile_forward``'s device summary over 20 calls), beside all the call's
-device operations (``device_ops``, ``device_ms``); PointCN + QKV also with
-its two products as ``torch.addmm`` in f32 (TF32 off): two calls, the
-products only.
+rounds it ran; the int8 cache build (``build_compat_cache_int8``) and the
+seed NMS (``pick_seeds_nms_prefiltered``: S = N / 10, normal scores, radius
+0.1; the prefilter runs at 12288) on the same pairs at N = 5120 and 12288;
+scoring (``seed_inlier_counts``, S = 512 transforms near the ground truth)
+and the confidence head at N = 5120. ``wrapper_ms``: CUDA events around one
+wrapper call; ``kernel_ms``: the kernel's own device time per call from
+``torch.profiler`` (``profile_forward``'s device summary over 20 calls; the
+seed NMS's kernels each in ``kernels_ms``), beside all the call's device
+operations (``device_ops``, ``device_ms``); PointCN + QKV also with its two
+products as ``torch.addmm`` in f32 (TF32 off): two calls, the products only.
 """
 
 from __future__ import annotations
@@ -40,9 +45,12 @@ import subprocess
 import torch
 
 from pointdsc_tpu_torch.data import SyntheticPairDataset
+from pointdsc_tpu_torch.kernels import conf_mlp as kconf
 from pointdsc_tpu_torch.kernels import encoder_layer as kenc
+from pointdsc_tpu_torch.kernels import nms as knms
 from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
+from pointdsc_tpu_torch.kernels import scoring as kscore
 from pointdsc_tpu_torch.tools.profile_forward import SNAPSHOTS, _device_profile
 
 C = 128
@@ -71,11 +79,19 @@ def _layer_inputs(n, dev, gen):
     return torch.randn((1, n, C), generator=gen).to(dev), weights
 
 
-def _inputs(n, sigma_d, ds_kw, dev):
+def _pair(n, dev):
+    """One pair at N = n (SyntheticKITTI's data above 5120), the last 5%
+    padded: src, tgt, mask, the ground truth."""
+    ds_kw = {} if n <= 5120 else SNAPSHOTS["kitti"][2]
     ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1, **ds_kw)[0]
     src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
     tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
     mask = (torch.arange(n) < n - n // 20)[None].to(dev)
+    return src, tgt, mask, torch.as_tensor(ex["gt_trans"]).to(dev)
+
+
+def _inputs(n, sigma_d, dev):
+    src, tgt, mask, _ = _pair(n, dev)
     gen = torch.Generator().manual_seed(0)
     x, weights = _layer_inputs(n, dev, gen)
     qkv = [torch.randn((1, n, C), generator=gen).to(dev) for _ in range(3)]
@@ -85,16 +101,65 @@ def _inputs(n, sigma_d, ds_kw, dev):
 
 
 def _device_split(fn, kernel):
-    """Per call of fn: its device operations and device ms, and the named
-    kernel's own device ms ("not measured" without device activity)."""
+    """Per call of fn: its device operations and device ms, the device ms of
+    the operations whose name holds ``kernel`` (``kernel_ms``), and of each
+    such operation (``kernels_ms``); "not measured" without device activity."""
     prof = _device_profile(fn, forwards=20)
     if prof["device_ms_per_forward"] == "not measured":
         return {"kernel_ms": "not measured", "device_ops": "not measured",
                 "device_ms": "not measured"}
-    return {"kernel_ms": sum(op["ms_per_forward"] for op in prof["top_ops"]
-                             if kernel in op["name"]),
+    mine = {op["name"]: op["ms_per_forward"] for op in prof["top_ops"] if kernel in op["name"]}
+    return {"kernel_ms": sum(mine.values()), "kernels_ms": mine,
             "device_ops": prof["device_ops_per_forward"],
             "device_ms": prof["device_ms_per_forward"]}
+
+
+def cache_case(n, dev):
+    src, tgt, mask, _ = _pair(n, dev)
+    sigma_d = 0.1 if n <= 5120 else 1.2
+
+    def call():
+        return katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask)
+
+    return {"kernel": "compat_cache_int8", "n": n, "wrapper_ms": _event_ms(call),
+            **_device_split(call, "compat_cache_kernel")}
+
+
+def nms_case(n, dev):
+    src, _, mask, _ = _pair(n, dev)
+    scores = torch.randn((1, n), generator=torch.Generator().manual_seed(3)).to(dev)
+
+    def call():
+        return knms.pick_seeds_nms_prefiltered(src, scores, 0.1, n // 10, mask=mask)
+
+    return {"kernel": "seed NMS", "n": n, "s": n // 10, "wrapper_ms": _event_ms(call),
+            **_device_split(call, "nms")}
+
+
+def scoring_case(n, dev):
+    src, tgt, mask, gt = _pair(n, dev)
+    gen = torch.Generator().manual_seed(4)
+    trans = gt.expand(1, 512, 4, 4).clone()
+    trans[:, :, :3, 3] += 0.05 * torch.randn((1, 512, 3), generator=gen).to(dev)
+
+    def call():
+        return kscore.seed_inlier_counts(trans, src, tgt, 0.1, mask=mask)
+
+    return {"kernel": "seed_inlier_counts", "n": n, "s": 512, "wrapper_ms": _event_ms(call),
+            **_device_split(call, "scoring_kernel")}
+
+
+def confidence_case(n, dev):
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, n, C), generator=gen).to(dev)
+    head = [(torch.randn(shape, generator=gen) * 0.2).to(dev)
+            for shape in ((32, C), (32,), (32, 32), (32,), (1, 32), (1,))]
+
+    def call():
+        return kconf.confidence_head(x, *head)
+
+    return {"kernel": "confidence_head", "n": n, "wrapper_ms": _event_ms(call),
+            **_device_split(call, "conf_mlp_kernel")}
 
 
 def pcn_qkv_case(n, dev):
@@ -117,12 +182,9 @@ def pcn_qkv_case(n, dev):
 
 
 def refine_case(n, dev):
-    thr, ds_kw = (0.1, {}) if n <= 5120 else (1.2, SNAPSHOTS["kitti"][2])
-    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1, **ds_kw)[0]
-    src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
-    tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
-    mask = (torch.arange(n) < n - n // 20)[None].to(dev)
-    init = torch.as_tensor(ex["gt_trans"])[None].to(dev).clone()
+    thr = 0.1 if n <= 5120 else 1.2
+    src, tgt, mask, gt = _pair(n, dev)
+    init = gt[None].clone()
     init[:, :3, 3] += 0.03
     _, iters = kref.fused_post_refinement(init, src, tgt, mask, thr, 20, return_iters=True)
 
@@ -145,8 +207,8 @@ def main(argv=None) -> int:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     lines = []
     for name, sigma_d in (("synthetic", 0.1), ("kitti", 1.2)):
-        _, n, ds_kw = SNAPSHOTS[name]
-        x, w, (q, k, v), cache, kbias, geom = _inputs(n, sigma_d, ds_kw, dev)
+        n = SNAPSHOTS[name][1]
+        x, w, (q, k, v), cache, kbias, geom = _inputs(n, sigma_d, dev)
         qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
         h, qb, kb, vb, kscale = kenc.pcn_qkv(x, w)
         res = {
@@ -170,6 +232,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         cases = [(pcn_qkv_case, n) for n in (12288, 20480)]
         cases += [(refine_case, n) for n in (5120, 12288, 20480)]
+        cases += [(case, n) for case in (cache_case, nms_case) for n in (5120, 12288)]
+        cases += [(scoring_case, 5120), (confidence_case, 5120)]
         for case, n in cases:
             lines.append(json.dumps({"card": card, **case(n, dev)}))
             print(lines[-1], flush=True)

@@ -50,3 +50,29 @@ def test_sass_digest():
     changed = SASS.replace("FFMA R1, R2, R3, R1", "FFMA R1, R2, R3, R2")
     assert kernel_report.sass_digest(changed)["_Z1av"] != digest["_Z1av"]
     assert kernel_report.sass_digest(changed)["_Z1bv"] == digest["_Z1bv"]
+
+
+def test_sass_loops():
+    """Each branch to a lower address is a loop of the instructions from its
+    target to it, those of the regions that a forward branch skips and that
+    hold a call counted as rare; forward branches and a branch to itself are
+    no loops."""
+    sass = """
+\t\tFunction : _Z1av
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FFMA R1, R2, R3, R1 ;
+        /*0020*/              @!P0 BRA P2, 0x60 ;
+        /*0030*/                   MOV R4, R1 ;
+        /*0040*/                   CALL.REL.NOINC 0x100 ;
+        /*0050*/                   BRA 0x70 ;
+        /*0060*/                   FMUL R1, R1, R1 ;
+        /*0070*/              @P1 BRA 0x10 ;
+        /*0080*/                   BRA.U 0x0 ;
+        /*0090*/                   BRA 0xb0 ;
+        /*00a0*/                   BRA 0xa0 ;
+\t\tFunction : _Z1bv
+        /*0000*/                   EXIT ;
+"""
+    assert kernel_report.sass_loops(sass) == {
+        "_Z1av": [{"instructions": 9, "rare": 3}, {"instructions": 7, "rare": 3}],
+        "_Z1bv": []}

@@ -52,11 +52,11 @@ def pair(n, dev, seed=0):
     return src, tgt, mask.to(dev), gt
 
 
-@pytest.mark.parametrize("n", [1000, 2048])
+@pytest.mark.parametrize("n", [1000, 2048, 5120, 12288])
 def test_compat_cache(dev, n):
     """+-1 on at most 0.1% of entries: the kernel's FMAs and cuBLAS round the
     gram-form distances differently, so an entry near a .5 boundary may round
-    either way."""
+    either way. N = 1000 takes the guarded stores of a ragged edge."""
     src, tgt, mask, _ = pair(n, dev)
     plain = katt.compat_cache_plain(katt.pack_geometry(src, tgt, mask), katt.cache_coef(0.1))
     diff = (katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask).int() - plain.int()).abs()
@@ -316,19 +316,143 @@ def test_confidence_head(dev, n):
 
 @pytest.mark.parametrize("n", [1000, 2048])
 def test_nms_flags(dev, n):
-    """Equal except on queries with a key at |d2 - R^2| < 1e-5, where the two
-    roundings of d2 may fall on either side of the radius."""
+    """Equal to the plain version bit for bit: both round each product and
+    sum of d2 and of the squared norms on its own, in one order."""
     src, _, mask, _ = pair(n, dev)
     scores = torch.randn((B, n), generator=torch.Generator().manual_seed(2)).to(dev)
-    geom = knms.pack_nms_geometry(src, scores, mask)
-    r2 = knms.radius_sq(0.1)
     flags = knms.nms_local_max(src, scores, 0.1, mask=mask)
-    ref = knms.nms_local_max_plain(geom, r2)
-    xyz = geom[:, 0:3]
-    d2 = (geom[:, 3, :, None] + geom[:, 3, None, :] - 2.0 * (xyz.transpose(1, 2) @ xyz)).clamp(0)
-    near = torch.any((d2 - r2).abs() < 1e-5, dim=-1)
-    assert not bool(((flags != ref) & ~near).any())
+    assert torch.equal(flags, knms.nms_local_max_plain(src, scores, mask, knms.radius_sq(0.1)))
     assert 0 < float(flags.sum()) < B * n
+
+
+def device_operations(fn) -> int:
+    """The device operations (kernels, copies, sets) of one call of fn, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def nms_case(n, case, dev):
+    """B = 2 clouds in the cube [-1, 1]^3 (the second's last 10% padded),
+    scores and radius chosen for one branch of the prefilter at N >= 12288:
+    ``certificate`` (positive scores, radius 0.05: enough local maxima in the
+    top M), ``mixed_signs`` (normal scores: suppressed points at +0.0 and
+    -0.0), ``scarce_maxima`` (the cloud shrunk into a 0.02 cube, radius 0.2:
+    one local maximum, S above the positive keys, +0.0 ties to the index) and
+    ``all_negative`` (the precheck fails: -0.0 ties)."""
+    rng = np.random.default_rng(n + len(case))
+    src = rng.uniform(-1.0, 1.0, size=(B, n, 3))
+    radius = 0.05
+    if case == "scarce_maxima":
+        src, radius = src * 0.01, 0.2
+    if case == "mixed_signs":
+        scores = rng.normal(size=(B, n))
+    else:
+        scores = rng.uniform(0.01, 1.0, size=(B, n)) * (-1.0 if case == "all_negative" else 1.0)
+    mask = np.ones((B, n), bool)
+    mask[1, n - n // 10:] = False
+    return (torch.as_tensor(src, dtype=torch.float32).to(dev),
+            torch.as_tensor(scores, dtype=torch.float32).to(dev), radius,
+            torch.as_tensor(mask).to(dev))
+
+
+@pytest.mark.parametrize("case", ["certificate", "mixed_signs", "scarce_maxima", "all_negative"])
+@pytest.mark.parametrize("n", [1000, 5120, 12288, 20480])
+def test_pick_seeds_nms(dev, n, case):
+    """The card's seeds (the flags-and-key, select and top-M kernels, the
+    prefilter's decisions on the device) equal the plain path's indices
+    exactly: the CPU path on the same inputs, the gates read on the host.
+    The flags' d2 is rounded alike in both. S = N / 10; the prefilter runs
+    from N = 12288, where the card's precheck and certificate equal the
+    CPU's and each case takes its branch."""
+    src, scores, radius, mask = nms_case(n, case, dev)
+    s = n // 10
+    out = knms.pick_seeds_nms_prefiltered(src, scores, radius, s, mask=mask)
+    ref = knms.pick_seeds_nms_prefiltered(src.cpu(), scores.cpu(), radius, s, mask=mask.cpu())
+    assert torch.equal(out.cpu(), ref)
+    if n >= 12288:
+        m = -(-max(4 * s, 4096) // 1024) * 1024
+        _, pre_ok, cert = knms.pick_seeds_gated(src, scores, radius, s, mask, m)
+        _, pre_ref, cert_ref = knms.pick_seeds_gated(src.cpu(), scores.cpu(), radius, s,
+                                                     mask.cpu(), m)
+        assert torch.equal(pre_ok.cpu(), pre_ref) and torch.equal(cert.cpu(), cert_ref)
+        want = {"certificate": (True, True), "mixed_signs": (True, True),
+                "scarce_maxima": (True, False), "all_negative": (False, False)}[case]
+        assert (bool(pre_ok.all()), bool(cert.all())) == want
+
+
+@pytest.mark.parametrize("n,k", [(1000, 1), (1000, 1000), (5120, 512), (12288, 1228),
+                                 (40000, 4000), (20480, 8192)])
+def test_nms_select_ties(dev, n, k):
+    """The select kernel against top_k_like_jax on keys with many ties
+    (values from {-inf, -1, -0.0, +0.0, 0.5, 1}; +0.0 above -0.0, ties to
+    the lower index), also on rows too long to stage (N = 40000) and at the
+    largest k; through a subset, the positions map to its indices."""
+    from pointdsc_tpu_torch.ops.nms import _total_order_key, top_k_like_jax
+
+    rng = np.random.default_rng(k)
+    vals = np.array([-np.inf, -1.0, -0.0, 0.0, 0.5, 1.0], np.float32)
+    x = torch.as_tensor(vals[rng.integers(0, len(vals), size=(B, n))]).to(dev)
+    keys = _total_order_key(x)
+    got = knms.nms_select(keys, k)
+    assert torch.equal(got, top_k_like_jax(x, k))
+    subset = torch.as_tensor(np.sort(rng.choice(3 * n, size=(B, n)), axis=1).astype(np.int32))
+    subset = subset.to(dev)
+    got = knms.nms_select(keys, k, subset=subset)
+    assert torch.equal(got, torch.gather(subset.long(), 1, top_k_like_jax(x, k)))
+
+
+@pytest.mark.parametrize("n,m", [(12288, 5120), (20480, 8192), (40000, 8192)])
+def test_nms_top_m(dev, n, m):
+    """The prefilter's select equals its plain version (indices in index
+    order, tau, the precheck) on scores with ties and a masked tail."""
+    rng = np.random.default_rng(n)
+    scores = torch.as_tensor(rng.integers(-3, 6, size=(B, n)).astype(np.float32) / 4).to(dev)
+    mask = torch.ones((B, n), dtype=torch.bool, device=dev)
+    mask[1, n - n // 10:] = False
+    for s_need in (1, m // 2, m):
+        got = knms.nms_top_m(scores, mask, m, s_need)
+        ref = knms.nms_top_m_plain(scores, mask, m, s_need)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [5120, 12288])
+def test_seed_nms_and_cache_make_no_host_sync(dev, n):
+    """Both wrappers run under set_sync_debug_mode("error"), the seed NMS at
+    N = 12288 through the prefilter's five gated launches."""
+    src, scores, radius, mask = nms_case(n, "certificate", dev)
+    tgt = src.flip(-1).contiguous()
+    knms.pick_seeds_nms_prefiltered(src, scores, radius, n // 10, mask=mask)  # built, warm
+    katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        knms.pick_seeds_nms_prefiltered(src, scores, radius, n // 10, mask=mask)
+        katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_seed_nms_and_cache_device_operations(dev):
+    """The cache build is one device operation a call; the seed NMS two at
+    N = 5120 (flags and keys, select) and five at 12288 (the prefilter's
+    gated launches), whichever branch the data takes."""
+    src, tgt, mask, _ = pair(5120, dev)
+    assert device_operations(lambda: katt.build_compat_cache_int8(src, tgt, 0.1,
+                                                                  mask=mask)) == 1
+    for n, ops in ((5120, 2), (12288, 5)):
+        for case in ("certificate", "all_negative"):
+            src, scores, radius, mask = nms_case(n, case, dev)
+            assert device_operations(lambda: knms.pick_seeds_nms_prefiltered(
+                src, scores, radius, n // 10, mask=mask)) == ops
 
 
 def knn_sets_agree(idx, ref, sim, k):
@@ -533,7 +657,9 @@ def test_wrappers_launch_and_check(dev):
     w = [torch.zeros(shape, device=dev) for shape in ((32, 128), (32,), (32, 32), (32,),
                                                        (1, 32), (1,))]
     kconf.confidence_head(q, *w)
-    knms.nms_local_max(src, q[..., 0].contiguous(), 0.1, mask=mask)
+    keys = knms.nms_local_max(src, q[..., 0].contiguous(), 0.1, mask=mask, keys=True)
+    knms.nms_select(keys, 51)
+    knms.nms_top_m(q[..., 0].contiguous(), mask, 256, 51)
     seeds = torch.arange(51, device=dev).expand(B, 51).contiguous()
     kknn.seed_knn_exact(torch.nn.functional.normalize(q, dim=-1), seeds, 8, mask=mask)
     kscore.seed_inlier_counts(gt[:, None].contiguous(), src, tgt, 0.1, mask=mask)
@@ -614,6 +740,19 @@ def test_fused_forward_refuses_other_widths(dev):
     with torch.no_grad():
         out = model(*args, fused=False)
     assert bool(torch.isfinite(out.final_trans).all())
+
+
+def test_fused_forward_refuses_too_many_seeds(dev):
+    """More seeds than the select kernel sorts (8192) fused on the card: the
+    named ValueError before any kernel runs."""
+    model = PointDSC(num_layers=2, ratio=1.0, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    n = knms.MAX_SELECT + 1
+    args = [torch.zeros((1, n, d), device=dev) for d in (6, 3, 3)]
+    kernels.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="at most 8192 seeds.*fused=False"):
+        model(*args, fused=True)
+    assert not any(kernels.launch_counts().values())
 
 
 # ------------------------------------------------------------ training kernels

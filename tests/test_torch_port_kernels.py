@@ -100,10 +100,12 @@ def test_pick_seeds_nms_fused(rng, n, masked):
 
 @pytest.mark.parametrize("case,subset_runs,full_runs", [
     ("certificate", 1, 0), ("scarce_maxima", 1, 1), ("all_negative", 0, 1)])
-def test_pick_seeds_nms_prefiltered(rng, monkeypatch, case, subset_runs, full_runs):
+def test_pick_seeds_nms_prefiltered(rng, case, subset_runs, full_runs):
     """prefilter=1024 at N=4096: the certificate branch, its fallback when
     local maxima are scarce, and the positivity precheck's direct route to
-    the full kernel all give JAX's indices; each case takes its branch."""
+    the full kernel all give JAX's indices; each case takes its branch (the
+    subset's launches run when the precheck holds, the full grid's when the
+    certificate fails)."""
     n, s = 4096, 128
     half = 0.01 if case == "scarce_maxima" else 1.0
     src = rng.uniform(-half, half, size=(1, n, 3))
@@ -113,13 +115,61 @@ def test_pick_seeds_nms_prefiltered(rng, monkeypatch, case, subset_runs, full_ru
     mj, mt = mask_pair(mask)
     ref = np.asarray(j_nms.pick_seeds_nms_prefiltered(sj, cj, 0.2, s, mask=mj,
                                                       prefilter=1024))
-    sizes = []
-    flags_fn = t_nms.nms_local_max
-    monkeypatch.setattr(t_nms, "nms_local_max",
-                        lambda src, *a, **k: sizes.append(src.shape[1]) or flags_fn(src, *a, **k))
     out = t_nms.pick_seeds_nms_prefiltered(st, ct, 0.2, s, mask=mt, prefilter=1024)
     np.testing.assert_array_equal(out.numpy(), ref)
-    assert (sizes.count(1024), sizes.count(n)) == (subset_runs, full_runs)
+    _, pre_ok, cert = t_nms.pick_seeds_gated(st, ct, 0.2, s, mt, 1024)
+    assert (int(pre_ok.all()), int(not cert.all())) == (subset_runs, full_runs)
+
+
+@pytest.mark.parametrize("case,branch", [
+    ("certificate", "subset"), ("scarce_maxima", "full"), ("all_negative", "full")])
+def test_pick_seeds_gated(rng, case, branch):
+    """The prefilter, both decisions as gates of its five launches
+    (``pick_seeds_gated``; the gates read on the host on CPU tensors), gives
+    JAX's indices in all three branches, over a batch of two whose second
+    sample has a masked tail; the precheck and the certificate it returns
+    are the branch's, and agree with JAX's top-M values."""
+    import jax
+
+    n, s, m = 4096, 128, 1024
+    half = 0.01 if case == "scarce_maxima" else 1.0
+    src = rng.uniform(-half, half, size=(2, n, 3))
+    lo, hi = (-1.0, -0.01) if case == "all_negative" else (0.01, 1.0)
+    scores = rng.uniform(lo, hi, size=(2, n))
+    mask = np.ones((2, n), bool)
+    mask[1, 3500:] = False
+    (sj, st), (cj, ct), (mj, mt) = both(src), both(scores), mask_pair(mask)
+    ref = np.asarray(j_nms.pick_seeds_nms_prefiltered(sj, cj, 0.2, s, mask=mj, prefilter=m))
+    out, pre_ok, cert = t_nms.pick_seeds_gated(st, ct, 0.2, s, mt, m)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    vals_m = np.asarray(jax.lax.top_k(jnp.where(mj, cj, -jnp.inf), m)[0])
+    np.testing.assert_array_equal(pre_ok.numpy(), vals_m[:, s - 1] > 0)
+    assert bool(pre_ok.all()) == (case != "all_negative")
+    assert bool(cert.all()) == (branch == "subset")
+
+
+def test_nms_selects_match_jax_top_k(rng):
+    """The plain selects: the seed select on int32 total-order keys and the
+    top-M select on masked scores against jax.lax.top_k on tied values (+0.0
+    above -0.0, ties to the lower index); tau and the precheck from JAX's
+    top-M values."""
+    import jax
+
+    from pointdsc_tpu_torch.ops.nms import _total_order_key
+
+    vals = np.array([-np.inf, -1.0, -0.0, 0.0, 0.5, 1.0], np.float32)
+    x = vals[rng.integers(0, len(vals), size=(2, 3000))]
+    xj, xt = both(x)
+    for k in (1, 300, 3000):
+        ref = np.asarray(jax.lax.top_k(xj, k)[1])
+        np.testing.assert_array_equal(t_nms.nms_select(_total_order_key(xt), k).numpy(), ref)
+    mask = rng.uniform(size=x.shape) < 0.9
+    ranked = jnp.where(jnp.asarray(mask), xj, -jnp.inf)
+    vals_m, top = jax.lax.top_k(ranked, 1024)
+    idx_m, tau, pre_ok = t_nms.nms_top_m(xt, torch.from_numpy(mask), 1024, 300)
+    np.testing.assert_array_equal(idx_m.numpy(), np.sort(np.asarray(top), axis=-1))
+    np.testing.assert_array_equal(tau.numpy(), np.asarray(vals_m)[:, -1])
+    np.testing.assert_array_equal(pre_ok.numpy(), np.asarray(vals_m[:, 299] > 0))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -306,7 +356,9 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     q = torch.randn(1, 256, 128)
     t_att.fused_sc_attention_cached(q, q, q, cache, st, tt, offset_softmax=False)
     t_att.fused_sc_attention_cached(q, q, q, cache, st, tt, offset_softmax=True)
-    t_nms.nms_local_max(st, torch.randn(1, 256), 0.1)
+    keys = t_nms.nms_local_max(st, torch.randn(1, 256), 0.1, keys=True)
+    t_nms.nms_select(keys, 25)
+    t_nms.nms_top_m(torch.randn(1, 256), None, 64, 25)
     t_score.seed_inlier_counts(torch.eye(4).expand(1, 8, 4, 4).contiguous(), st, tt, 0.1)
     head = [torch.zeros(shape) for shape in ((32, 128), (32,), (32, 32), (32,), (1, 32), (1,))]
     t_conf.confidence_head(q, *head)
@@ -325,7 +377,7 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     t_sm.sm_loss_grads(q, strips, scalars)
     t_nn.nearest_neighbors(st[0], tt[0])
     t_sym.build_compat_cache_int8_sym(st, tt, 0.1)
-    assert len(kernels.WRAPPERS) == 19
+    assert len(kernels.WRAPPERS) == 21
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 
 
