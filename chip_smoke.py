@@ -11,9 +11,11 @@ Phases, in order (any failure raises and the exit code is not 0):
      5% of points padded; the split pair of encoder-layer kernels, and the
      seed k-NN a second time and the NMS prefilter's top-M select, at
      N = 12288; the PointCN + QKV kernel also at N = 20480; the refinement
-     also on a pair ~100 m from the origin), and time both with CUDA events;
-     then the seed NMS's gated prefilter at N = 12288, one input per branch,
-     against the same entry on the CPU;
+     also on a pair ~100 m from the origin; the seed stage after the seed
+     k-NN, hypotheses, counts and selection, also at N = 12288 in a 100 m
+     cube), and time both with CUDA events; then the seed NMS's gated
+     prefilter at N = 12288, one input per branch, against the same entry on
+     the CPU;
   4. load the Synthetic snapshot in the running-max configuration
      (``offset_softmax=False``) and run it through ``register`` (the fused
      path, which launches the kernels) with every launch count set
@@ -44,7 +46,18 @@ Phases, in order (any failure raises and the exit code is not 0):
      the offset attention kernel), against the f32 dense path;
  10. one pair through a copy whose key projections are scaled by 100: the
      guard must switch it to the running-max kernel;
- 11. time the default forward at both sizes as in 7.
+ 11. time the default forward at both sizes as in 7;
+ 11b. the limits the card used to have: a two-layer C = 32, k = 16 model
+     fused at N = 4096 (the kernels on the width zero-padded to 128), and a
+     two-layer model at ratio 1.0 on N = 8256 (8256 seeds, above the 8192
+     the select sorts in shared memory), each against its dense path, the
+     seeds of the second equal to the same selection on the CPU.
+ 11c. the seed stage on the seeds of a real forward: each snapshot fused at
+     batch 2 (sample 1 with only 36 valid points, so that the NMS seeds hold
+     outliers and masked points with fewer than k valid neighbours), every
+     seed's transform from the hypotheses kernel inside the forward, and
+     from the plain version on the card, against the f64 plain version within
+     the seed's tolerance (``kernels/scoring.py::seed_trans_reference``).
 Then training (``train/trainer.py``), at the reference training shape: 12
 layers, C = 128, k = 40, bs 16, 1000 correspondences padded to 1024:
  12. hold the five training kernels' public entries (attention forward with
@@ -131,6 +144,13 @@ BF16_TENSOR_FLOP_PER_S = 989e12
 OPS_PER_CACHE_ENTRY = 28  # two 3-dots (10), two gram distances (8), one-sqrt diff (5), scale+round (5)
 OPS_PER_NMS_PAIR = 13  # 3-dot (5), gram distance (4), two compares and the AND (4)
 OPS_PER_SCORING_PAIR = 29  # three 4-term rows (18), residual (3), squared norm (5), test+count (3)
+# per unordered neighbour pair (M is symmetric: the kernel builds its upper
+# triangle): two distances (18), spatial (5) and feature (4) compat, product (1),
+# beside the 2C of the feature gram
+OPS_PER_HYP_PAIR = 28
+OPS_PER_POWER_ENTRY = 2  # one multiply-add of M v per entry of M, per power step
+HYP_ITERS = 10
+OPS_PER_LABEL_POINT = 25  # three 4-term rows (18), residual (3), norm (4)
 OPS_PER_ATTN_PAIR_EXTRA = 8  # scale, compat multiply, bias add, max, exp, sum per (q, k)
 OPS_PER_CONF_ROW = 2 * (128 * 32 + 32 * 32 + 32) + 2 * 32 + 1  # three layers, biases, ReLUs
 OPS_PER_KNN_PAIR = 2 * C + 1  # the 128-term dot product and one compare of the selection
@@ -143,6 +163,8 @@ OPS_PER_NN_PAIR = 9  # 3-dot (5), norm sum (1), 2x and subtract (2), compare (1)
 OPS_PER_NN_POINT = 5  # |p|^2 of each query and base point, in the packing
 OPS_PER_REFINE_MEAN_POINT = 7  # masked sums of 6 coordinates and the count
 N_LARGE = 20480  # the Redwood scale: the split kernel is also timed there
+# phase 11b: a C = 32 model's pair, and a pair whose every point is a seed
+C32_N, ALL_SEEDS_N = 4096, 8256
 
 # the reference training shape and the KITTI regime of tools/train_synthetic.py
 TRAIN_BS, TRAIN_NODE, TRAIN_N = 16, 1000, 1024
@@ -282,8 +304,10 @@ def kernel_row(name, source, replaces, err, fn, plain_fn, bytes_moved, ops, tens
         b, o = bound_ms(bytes_moved, ops - tensor_ops, tensor_ops)
         fb, fo = bound_ms(bytes_moved, ops)
         extra.update(bound_ms_f32_cores=fb, bound_by_f32_cores=fo)
+    if not replaces.startswith("pointdsc_tpu/"):
+        replaces = f"pointdsc_tpu/kernels/{replaces}"
     return dict(name=name, route="cuda", source=f"pointdsc_tpu_torch/kernels/csrc/{source}",
-                replaces=f"pointdsc_tpu/kernels/{replaces}", max_abs_err=err,
+                replaces=replaces, max_abs_err=err,
                 ms=time_ms(fn, reps=reps), plain_ms=time_ms(plain_fn, reps=reps),
                 bound_ms=b, bound_by=o, library_ms=None, **extra)
 
@@ -311,6 +335,58 @@ def kernel_inputs(torch, dev):
     init[:, :3, 3] += 0.03
     return dict(src=src, tgt=tgt, mask=mask, qkv=qkv, scores=scores, trans=trans, head=head,
                 seeds=seeds, init=init)
+
+
+def hypothesis_inputs(torch, dev, n, kitti=False):
+    """The seed stage's arguments at N = n (batch 1, S = n / 10, k = 40,
+    C = 128, sigma 0.8) from ``data.synthetic.seed_stage_inputs``, the last
+    5% padded, the neighbours from the seed k-NN kernel."""
+    from pointdsc_tpu_torch.data.synthetic import seed_stage_inputs
+    from pointdsc_tpu_torch.kernels import seed_knn as kknn
+
+    d = seed_stage_inputs(n, kitti=kitti, pad_fraction=PAD_FRACTION)
+    f, sd, sp, tp, m = (torch.as_tensor(d[k]).to(dev)
+                        for k in ("feats", "seeds", "src", "tgt", "mask"))
+    return (f, sd, kknn.seed_knn_exact(f, sd, K, mask=m), sp, tp, m,
+            torch.full((1,), 0.8, device=dev), d["sigma_d"], d["inlier_threshold"], 10)
+
+
+def hypothesis_check(torch, kscore, args, atol) -> float:
+    """The seed stage's three kernels against their plain versions on args:
+    seed_trans within atol; the fitness equal to an [S, N] count of the
+    kernel's own transforms but for points within 1e-5 of tau^2 (FMA
+    rounding); final_trans the plain's where the argmax is the same seed,
+    else a tie of equal fitness moved it, and always the winner's own;
+    the labels those of its own final_trans but within 1e-5 of tau. Returns
+    seed_trans's max error."""
+    feats, seeds, knn, src, tgt, mask, sigma, sigma_d, thr, iters = args
+    seed_trans, fitness, final_trans, labels = kscore.seed_hypotheses(*args)
+    ref = kscore.seed_hypotheses_plain(*args)
+    err = float((seed_trans - ref[0]).abs().max())
+    check(err <= atol, f"seed hypotheses: seed_trans max err {err}")
+    t2 = kscore.thr_sq(thr)
+    own = kscore.seed_inlier_counts_plain(seed_trans, src, tgt, t2, mask)
+    pred = torch.einsum("bsij,bnj->bsni", seed_trans[:, :, :3, :3], src) \
+        + seed_trans[:, :, None, :3, 3]
+    res2 = torch.sum((pred - tgt[:, None]) ** 2, dim=-1)
+    near = torch.sum(((res2 - t2).abs() < 1e-5 * max(1.0, t2)) & mask[:, None, :], dim=-1)
+    denom = mask.sum(-1, keepdim=True).float()
+    check(bool(torch.all((fitness * denom - own).abs() <= near + 1e-2)),
+          "seed hypotheses: fitness disagrees with the [S, N] count of its own transforms")
+    check(float(fitness.max()) > 0.1, "seed hypotheses: no seed found the motion")
+    best, best_ref = int(torch.argmax(fitness)), int(torch.argmax(ref[1]))
+    if best == best_ref:
+        terr = float((final_trans - ref[2]).abs().max())
+        check(terr <= atol, f"seed hypotheses: final_trans max err {terr}")
+    else:
+        check(float(fitness[0, best]) == float(fitness[0, best_ref]),
+              "seed hypotheses: another winner without a tie")
+    check(torch.equal(final_trans[0], seed_trans[0, best]), "seed hypotheses: not the winner's")
+    dist = torch.linalg.norm(src @ final_trans[:, :3, :3].transpose(1, 2)
+                             + final_trans[:, None, :3, 3] - tgt, dim=-1)
+    off = (labels != ((dist < thr) & mask).float()) & ((dist - thr).abs() >= 1e-5 * max(1.0, thr))
+    check(not bool(off.any()), "seed hypotheses: labels disagree")
+    return err
 
 
 def layer_inputs(torch, dev, n, sigma_d, **data):
@@ -737,14 +813,43 @@ def check_kernels(torch, dev) -> list[dict]:
             bound_ms=bound_ms(*counts_k)[0]))
     del feats_k, seeds_k, mask_k
 
-    # -- scoring. Tolerance: a point whose squared residual is within 1e-5 of
-    # tau^2 may be counted by one version and not the other (FMA rounding),
-    # so per seed |count - plain| <= the number of such points.
+    # -- the seed stage after the seed k-NN (``seed_hypotheses``, three
+    # launches: the hypotheses, the counts (#11), the selection) at N = 5120
+    # in the unit cube (seed_trans atol 1e-4) and at the SyntheticKITTI scale
+    # N = 12288, S = 1228 in a 100 m cube (atol 1e-3: translations of tens of
+    # metres), with the checks of ``hypothesis_check``. Its row times the
+    # whole stage; its bound is the stage's: the neighbours' gather, the
+    # k (k + 1) / 2 entries of the symmetric compatibility (the feature gram
+    # at the f32 rate), the power steps over all k^2, the counts. No TPU
+    # kernel: the XLA glue of the JAX model.
+    hyp = hypothesis_inputs(torch, dev, N)
+    err = hypothesis_check(torch, kscore, hyp, 1e-4)
+    hyp_k = hypothesis_inputs(torch, dev, N_KITTI, kitti=True)
+    err_k = hypothesis_check(torch, kscore, hyp_k, 1e-3)
+
+    def stage_counts(n):
+        s = n // 10
+        return (s * K * (C + 7) * 4 + s * K * 8 + s * 8 + n * 25 + s * 16 * 4 + s * 4 + n * 4,
+                s * K * (K + 1) // 2 * (2 * C + OPS_PER_HYP_PAIR)
+                + s * HYP_ITERS * K * K * OPS_PER_POWER_ENTRY + s * n * OPS_PER_SCORING_PAIR
+                + n * OPS_PER_LABEL_POINT)
+
+    row("seed_hypotheses", "scoring.cu", "pointdsc_tpu/models/pointdsc.py:363", err,
+        lambda: kscore.seed_hypotheses(*hyp), lambda: kscore.seed_hypotheses_plain(*hyp),
+        *stage_counts(N), n12288=dict(
+            s=N_KITTI // 10, max_abs_err=err_k, ms=time_ms(lambda: kscore.seed_hypotheses(*hyp_k)),
+            plain_ms=time_ms(lambda: kscore.seed_hypotheses_plain(*hyp_k)),
+            bound_ms=bound_ms(*stage_counts(N_KITTI))[0]))
+    del hyp_k
+
+    # -- the counts (#11) on transforms near the pair's ground truth, read in
+    # place with the points. Tolerance: a point whose squared residual is
+    # within 1e-5 of tau^2 may be counted by one version and not the other
+    # (FMA rounding), so per seed |count - plain| <= the number of such points.
     trans = x["trans"]
     t2 = kscore.thr_sq(0.1)
     counts = kscore.seed_inlier_counts(trans, src, tgt, 0.1, mask=mask)
-    ref = kscore.seed_inlier_counts_plain(kscore.pack_scoring_trans(trans),
-                                          kscore.pack_scoring_points(src, tgt, mask), t2)
+    ref = kscore.seed_inlier_counts_plain(trans, src, tgt, t2, mask)
     pred = torch.einsum("bsij,bnj->bsni", trans[:, :, :3, :3], src) + trans[:, :, None, :3, 3]
     res2 = torch.sum((pred - tgt[:, None]) ** 2, dim=-1)
     near = torch.sum(((res2 - t2).abs() < 1e-5) & mask[:, None, :], dim=-1)
@@ -753,9 +858,27 @@ def check_kernels(torch, dev) -> list[dict]:
     check(float(counts.sum()) > 0, "scoring counted no inliers")
     row("seed_inlier_counts", "scoring.cu", "scoring.py:56", float(cdiff.max()),
         lambda: kscore.seed_inlier_counts(trans, src, tgt, 0.1, mask=mask),
-        lambda: kscore.seed_inlier_counts_plain(kscore.pack_scoring_trans(trans),
-                                                kscore.pack_scoring_points(src, tgt, mask), t2),
-        S * 16 * 4 + src.numel() * 4 * 2 + N * 4 + S * 4, S * N * OPS_PER_SCORING_PAIR)
+        lambda: kscore.seed_inlier_counts_plain(trans, src, tgt, t2, mask),
+        S * 16 * 4 + src.numel() * 4 * 2 + N + S * 4, S * N * OPS_PER_SCORING_PAIR)
+
+    # -- the selection on those counts: fitness, the first maximum, the
+    # winner's transform and labels. Fitness and winner exact (the same
+    # division and order); labels but within 1e-5 of tau (FMA rounding).
+    seeds_sel = x["seeds"]
+    got = kscore.select_hypothesis(trans, counts, seeds_sel, src, tgt, 0.1, mask)
+    want = kscore.select_hypothesis_plain(trans, counts, seeds_sel, src, tgt, 0.1, mask)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "selection: fitness or winner differs")
+    dist = torch.linalg.norm(src @ got[1][:, :3, :3].transpose(1, 2) + got[1][:, None, :3, 3]
+                             - tgt, dim=-1)
+    loff = int(((got[2] != want[2]) & ((dist - 0.1).abs() >= 1e-5)).sum())
+    check(loff == 0, f"selection: {loff} labels differ")
+    row("select_hypothesis", "scoring.cu", "pointdsc_tpu/models/pointdsc.py:415",
+        float((got[2] - want[2]).abs().max()),
+        lambda: kscore.select_hypothesis(trans, counts, seeds_sel, src, tgt, 0.1, mask),
+        lambda: kscore.select_hypothesis_plain(trans, counts, seeds_sel, src, tgt, 0.1, mask),
+        S * 16 * 4 + S * 4 + S * 8 + src.numel() * 4 * 2 + N + S * 4 + 64 + N * 4,
+        S * 2 + N * OPS_PER_LABEL_POINT)
 
     # -- post-refinement, the whole function in one launch. Tolerance atol
     # 1e-4 on the transform: the kernel sums the Gram terms and the means in
@@ -820,8 +943,8 @@ def seed_checks(torch, out, model, cp, src, tgt, tag: str) -> None:
 
 
 RUNNING_MAX_KERNELS = ("compat_cache_int8", "sc_attention_cached", "confidence_head",
-                       "nms_local_max", "nms_select", "seed_knn_exact", "seed_inlier_counts",
-                       "fused_post_refinement")
+                       "nms_local_max", "nms_select", "seed_knn_exact", "seed_hypotheses",
+                       "seed_inlier_counts", "select_hypothesis", "fused_post_refinement")
 
 
 class Recorded:
@@ -903,7 +1026,8 @@ def default_configuration(torch, pt, kernels, dev) -> dict:
     # the seed NMS: flags and keys, then the select (N = 5120); at 12288 the
     # prefilter's top-M select and both gated pairs, whatever the branch
     tail = {"compat_cache_int8": 1, "confidence_head": 1, "nms_local_max": 1, "nms_select": 1,
-            "seed_knn_exact": 1, "seed_inlier_counts": 1, "fused_post_refinement": 1}
+            "seed_knn_exact": 1, "seed_hypotheses": 1, "seed_inlier_counts": 1,
+            "select_hypothesis": 1, "fused_post_refinement": 1}
     tail_kitti = {**tail, "nms_top_m": 1, "nms_local_max": 2, "nms_select": 2}
     launches = {}
 
@@ -971,6 +1095,108 @@ def default_configuration(torch, pt, kernels, dev) -> dict:
         print(json.dumps({"metric": "fused_forward_ms_per_pair", "config": tag, "n": n,
                           "value": ms}), flush=True)
     return launches
+
+
+def lifted_limits(torch, pt, kernels, dev) -> None:
+    """Phase 11b: a width and a seed count the card used to refuse, each
+    model (random weights of seed 0, two layers) fused with the counts set
+    to 0 just before and read just after, and held against its dense path
+    (final_trans atol 1e-3, labels > 0.99): C = 32, k = 16 at N = 4096 in the
+    default configuration (the whole-layer kernels, the seed k-NN and the
+    seed stage on the width zero-padded to 128; the confidence head stays
+    plain below C = 128, as in JAX); ratio 1.0 at N = 8256 in the running
+    max (8256 seeds sorted in the select's workspace), whose seeds equal the
+    same selection on the CPU exactly."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+    from pointdsc_tpu_torch.kernels import nms as knms
+
+    cases = ((f"C=32 N={C32_N}", dict(num_layers=2, num_channels=32, k=16), C32_N,
+              {"fused_encoder_layer": 2, "seed_knn_exact": 1, "seed_hypotheses": 1,
+               "confidence_head": 0}),
+             (f"S=N={ALL_SEEDS_N}", dict(num_layers=2, ratio=1.0, offset_softmax=False),
+              ALL_SEEDS_N, {"sc_attention_cached": 2, "nms_select": 1, "seed_knn_exact": 1,
+                            "seed_hypotheses": 1}))
+    for tag, kw, n, want in cases:
+        model = pt.PointDSC(device=DEVICE, generator=torch.Generator().manual_seed(0), **kw)
+        p = SyntheticPairDataset(num_pairs=1, num_corr=n, seed=4)[0]
+        cp, src, tgt = (torch.as_tensor(p[k])[None].to(dev)
+                        for k in ("corr_pos", "src_keypts", "tgt_keypts"))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = model(cp, src, tgt, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        dense = model(cp, src, tgt, fused=False)
+        terr = float((out.final_trans - dense.final_trans).abs().max())
+        agree = float((out.final_labels == dense.final_labels).float().mean())
+        print(json.dumps({"phase": "lifted_limits", "case": tag, "seeds": out.seeds.shape[1],
+                          "trans_err_vs_dense": terr, "label_agreement": agree,
+                          "launches": {k: v for k, v in counts.items() if v}}), flush=True)
+        for name, count in want.items():
+            check(counts[name] == count, f"{tag}: {name} launched {counts[name]} times")
+        check(terr <= 1e-3 and agree > 0.99, f"{tag}: the fused forward disagrees with dense")
+        if kw.get("ratio") == 1.0:
+            plain = knms.pick_seeds_nms_prefiltered(src.cpu(), out.confidence.cpu(),
+                                                    model.nms_radius, n)
+            check(out.seeds.shape == (1, n) and torch.equal(out.seeds.cpu(), plain),
+                  f"{tag}: the seeds differ from the CPU's selection")
+
+
+def real_seeds(torch, pt, kernels, dev) -> None:
+    """Phase 11c: each snapshot fused at batch 2 on Synthetic pairs of its
+    scale (sample 0 with its last 5% masked, sample 1 with only its first 36
+    points valid), the counts set to 0 just before and read just after; the
+    forward's seed transforms (the hypotheses kernel's) and the plain
+    version's on the card, on the forward's own features, NMS seeds and
+    neighbours, against the f64 plain version: every seed's rotation and
+    translation within its tolerance. Prints each one's largest error over
+    its tolerance, for the inlier seeds and the others."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+    from pointdsc_tpu_torch.kernels import scoring as kscore
+    from pointdsc_tpu_torch.kernels import seed_knn as kknn
+
+    for tag, snap, n, data in (("Synthetic", SNAPSHOT, N, {}),
+                               ("SyntheticKITTI", SNAPSHOT_KITTI, N_KITTI, KITTI_DATA)):
+        model = pt.load_pretrained(snap, device=DEVICE)
+        ds = SyntheticPairDataset(num_pairs=2, num_corr=n, inlier_ratio=0.2, seed=5, **data)
+        cp, src, tgt, labels = (torch.stack([torch.as_tensor(ds[i][k]) for i in range(2)]).to(dev)
+                                for k in ("corr_pos", "src_keypts", "tgt_keypts", "gt_labels"))
+        mask = torch.ones((2, n), dtype=torch.bool, device=dev)
+        mask[0, n - int(n * PAD_FRACTION):] = False
+        mask[1, 36:] = False
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = model(cp, src, tgt, mask=mask, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts["seed_hypotheses"] == 1 and counts["seed_knn_exact"] == 1,
+              f"real seeds {tag}: the seed stage's kernels were not launched")
+        feats, seeds, sigma = out.normed_features, out.seeds, model.sigma.detach()
+        knn = kknn.seed_knn_exact(feats, seeds, model.k, mask=mask)
+        args = (feats, knn, src, tgt, mask, sigma, model.sigma_d, model.num_iterations)
+        ref, tol_rot, tol_trans = kscore.seed_trans_reference(*args)
+        inlier = torch.gather(labels.bool() & mask, 1, seeds)
+        valid_nb = torch.gather(mask[:, None, :].expand(-1, seeds.shape[1], -1), 2, knn).sum(-1)
+        line = {"phase": "real_seeds", "case": tag, "n": n, "seeds": seeds.shape[1],
+                "outlier_seeds": int((~inlier).sum()),
+                "masked_seeds": int((~torch.gather(mask, 1, seeds)).sum()),
+                "fewest_valid_neighbours": int(valid_nb.min()),
+                "tol_rot_max": float(tol_rot.max())}
+        for name, got in (("kernel", out.seed_trans),
+                          ("plain_f32", kscore.seed_transforms_plain(*args))):
+            err = (got.double() - ref).abs()
+            ratio = torch.maximum(err[..., :3, :3].amax((-1, -2)) / tol_rot,
+                                  err[..., :3, 3].amax(-1) / tol_trans)
+            line[name] = {"max_err_over_tol_inliers": float(ratio[inlier].max()),
+                          "max_err_over_tol_others": float(ratio[~inlier].max()),
+                          "max_abs_err_inliers": float(err[inlier].max()),
+                          "max_abs_err_others": float(err[~inlier].max())}
+            check(bool(torch.all(ratio <= 1.0)),
+                  f"real seeds {tag}: the {name} transforms leave the f64 tolerance")
+        print(json.dumps(line), flush=True)
+        check(line["outlier_seeds"] > 0 and line["masked_seeds"] > 0
+              and line["fewest_valid_neighbours"] < model.k,
+              f"real seeds {tag}: the case lacks outlier or masked seeds")
 
 
 TRAIN_KERNELS = ("sc_attention_forward", "sc_attention_backward_dq", "sc_attention_backward_dkv",
@@ -1625,7 +1851,8 @@ def registration_demo(torch, kernels, dev) -> int:
                                              "times in the demo, expected 20")
     attention = "sc_attention_cached" if report["flipped"] else "fused_encoder_layer"
     for name in ("compat_cache_int8", attention, "confidence_head", "nms_local_max",
-                 "nms_select", "seed_knn_exact", "seed_inlier_counts", "fused_post_refinement"):
+                 "nms_select", "seed_knn_exact", "seed_hypotheses", "seed_inlier_counts",
+                 "select_hypothesis", "fused_post_refinement"):
         check(counts[name] > 0, f"the demo's forward did not launch {name}")
 
     s = torch.as_tensor(skp, device=dev)
@@ -1890,6 +2117,8 @@ def main() -> int:
 
     # 8-11. the default configuration, half precision, the guard's flip
     launches.update(default_configuration(torch, pt, kernels, dev))
+    lifted_limits(torch, pt, kernels, dev)
+    real_seeds(torch, pt, kernels, dev)
 
     # 12-13. the training kernels and the no-cache eval attention against
     # their plain versions; the eval forward without a cache

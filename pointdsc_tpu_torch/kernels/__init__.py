@@ -25,7 +25,11 @@ from pointdsc_tpu_torch.kernels.sc_attention import (
     sc_attention_cached_offset,
     sc_attention_forward,
 )
-from pointdsc_tpu_torch.kernels.scoring import seed_inlier_counts
+from pointdsc_tpu_torch.kernels.scoring import (
+    seed_hypotheses,
+    seed_inlier_counts,
+    select_hypothesis,
+)
 from pointdsc_tpu_torch.kernels.seed_knn import seed_knn_exact
 from pointdsc_tpu_torch.kernels.sm_loss import sm_loss_grads, sm_loss_sums
 from pointdsc_tpu_torch.kernels.symcache import build_compat_cache_int8_sym
@@ -42,7 +46,9 @@ WRAPPERS = {
     "nms_select": nms_select,
     "nms_top_m": nms_top_m,
     "seed_knn_exact": seed_knn_exact,
+    "seed_hypotheses": seed_hypotheses,
     "seed_inlier_counts": seed_inlier_counts,
+    "select_hypothesis": select_hypothesis,
     "fused_post_refinement": fused_post_refinement,
     "fused_sc_attention": fused_sc_attention,
     "sc_attention_forward": sc_attention_forward,

@@ -51,10 +51,12 @@ SIGNATURES = {
                       "attn_mlp_residual": [P] * 14 + [I, I, F, P]},
     "conf_mlp": {"confidence_head": [P, P, P, P, P, P, P, P, I, P]},
     "nms": {"nms_local_max": [P] * 5 + [I, I, I, I, F, P, P, P, P],
-            "nms_select": [P, P, P, I, P, P, P, I, I, I, P],
+            "nms_select": [P, P, P, I, P, P, P, P, I, I, I, P],
             "nms_top_m": [P] * 5 + [I, I, I, I, P]},
     "seed_knn": {"seed_knn_exact": [P, P, P, P, P, I, I, I, I, P]},
-    "scoring": {"seed_inlier_counts": [P, P, P, I, I, I, F, P]},
+    "scoring": {"seed_hypotheses": [P] * 7 + [I] * 6 + [F, P],
+                "seed_inlier_counts": [P] * 5 + [I, I, I, F, P],
+                "select_hypothesis": [P] * 9 + [I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},
     "nn_search": {"nearest_neighbors": [P, P, P, P, I, I, I, P]},
     "compat_cache_sym": {"compat_cache_tri": [P, P, P, I, I, I, I, F, P],

@@ -41,3 +41,32 @@ def on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+# The channel width the attention, encoder-layer, SM-loss and seed k-NN
+# kernels are compiled for. A narrower input is zero-padded to it on the card
+# and the result sliced back: a zero channel adds exact zeros to every dot
+# product, norm and product, relu(0) = 0, and the padded gradient channels
+# are zeros that are sliced off. Above it the K/V tiles of the attention
+# loop do not fit in shared memory.
+C_KERNEL = 128
+
+
+def check_width(c: int, what: str) -> None:
+    """Raise ValueError for a channel width the kernels cannot take."""
+    if not 1 <= c <= C_KERNEL:
+        raise ValueError(f"{what} take C <= {C_KERNEL} (zero-padded to {C_KERNEL}), got C={c}")
+
+
+def pad_channels(t: torch.Tensor, width: int = C_KERNEL) -> torch.Tensor:
+    """t [..., C] zero-padded to [..., width], contiguous (t itself when C is
+    already ``width``)."""
+    c = t.shape[-1]
+    if c == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - c))
+
+
+def unpad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
+    """The first c channels of t [..., W], contiguous (t itself when W == c)."""
+    return t if t.shape[-1] == c else t[..., :c].contiguous()

@@ -40,7 +40,11 @@
 //    contiguous run of positions a thread and one block scan place every
 //    winner, the ties at the threshold taken in position order; a bitonic
 //    sort in shared memory orders the k winners by (key desc, position asc).
-//    Positions map through the subset's index list when there is one.
+//    Positions map through the subset's index list when there is one. Above
+//    MAX_SLOTS winners (8192, 64 KB) nms_select_wide_kernel does the same
+//    with the winners in a workspace in device memory that the caller
+//    allocates ([B, 2 * slots] int32: keys, positions), sorted there by the
+//    same network: any S, as JAX's lax.top_k takes any.
 // 3. nms_top_m_kernel: the same select of the M largest masked scores, whose
 //    winners stay in index order (no sort: ties at the subset's keys are
 //    equal scores, which the top-M list orders by index too), with the M-th
@@ -199,7 +203,7 @@ constexpr int BINS = radix::BINS;
 // rows up to this length are staged in shared memory (128 KB); longer rows
 // are read from device memory on every pass
 constexpr int MAX_STAGED = 32768;
-constexpr int MAX_SLOTS = 8192;  // the largest k the seed select sorts (64 KB)
+constexpr int MAX_SLOTS = 8192;  // the largest k the seed select sorts in shared memory (64 KB)
 
 struct SelectSmem {
   int hist[BINS];
@@ -311,6 +315,70 @@ nms_select_kernel(const int* __restrict__ keys, const int* __restrict__ subset,
   }
 }
 
+// nms_select_kernel for k > MAX_SLOTS: the winners are placed and sorted in
+// work [B, 2 * slots] (keys, then positions) in device memory. Writes and
+// reads of one block's threads are ordered by __syncthreads, as in shared
+// memory; the bitonic network, and so the order, is the one above. Its own
+// copy of that body: one inline body for both changed nms_select_kernel's
+// code (64 -> 92 bytes spilled), which the k <= 8192 path keeps.
+__global__ void __launch_bounds__(SEL_THREADS)
+nms_select_wide_kernel(const int* __restrict__ keys, const int* __restrict__ subset,
+                       const int* __restrict__ gate, int gate_want, const float* __restrict__ tau,
+                       int* __restrict__ cert, int64_t* __restrict__ out,
+                       uint32_t* __restrict__ work, int batch, int n, int k, int slots) {
+  extern __shared__ uint32_t staged[];  // [n] when staged
+  __shared__ SelectSmem sm;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  if (!gate_open(gate, batch, gate_want)) {
+    if (cert != nullptr && tid == 0) cert[b] = 0;
+    return;
+  }
+  uint32_t* win_key = work + static_cast<size_t>(b) * 2 * slots;
+  int* win_pos = reinterpret_cast<int*>(win_key + slots);
+  const int* kb = keys + static_cast<size_t>(b) * n;
+  const bool is_staged = n <= MAX_STAGED;
+  if (is_staged)
+    for (int i = tid; i < n; i += SEL_THREADS) staged[i] = unsigned_key(kb[i]);
+  __syncthreads();
+  const auto key_at = [&](int i) { return is_staged ? staged[i] : unsigned_key(kb[i]); };
+
+  const uint2 sel = select_kth(key_at, n, k, sm);
+  compact(key_at, n, sel, sm, [&](int slot, int i, uint32_t key) {
+    win_key[slot] = key;
+    win_pos[slot] = i;
+  });
+  for (int t = k + tid; t < slots; t += SEL_THREADS) {
+    win_key[t] = 0u;
+    win_pos[t] = INT32_MAX;
+  }
+  __syncthreads();
+  for (int size = 2; size <= slots; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = tid; p < slots / 2; p += SEL_THREADS) {
+        const int i = 2 * p - (p & (stride - 1));
+        const int j = i + stride;
+        const bool best_first = (i & size) == 0;
+        const uint32_t ki = win_key[i], kj = win_key[j];
+        const int pi = win_pos[i], pj = win_pos[j];
+        if (before(kj, pj, ki, pi) == best_first) {
+          win_key[i] = kj;
+          win_key[j] = ki;
+          win_pos[i] = pj;
+          win_pos[j] = pi;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int* ib = subset == nullptr ? nullptr : subset + static_cast<size_t>(b) * n;
+  int64_t* o = out + static_cast<size_t>(b) * k;
+  for (int t = tid; t < k; t += SEL_THREADS) o[t] = ib == nullptr ? win_pos[t] : ib[win_pos[t]];
+  if (cert != nullptr && tid == 0) {
+    const float v = key_value(sel.x);
+    cert[b] = (v > tau[b] && v > 0.0f) ? 1 : 0;
+  }
+}
+
 // scores, mask [B, n] -> idx_m [B, m] int32: the indices of the m largest
 // masked scores (invalid -inf; ties to the lower index) in index order;
 // tau [B]: the m-th largest; pre_ok [B]: at least s_need masked scores > 0.
@@ -358,6 +426,9 @@ bool raise_smem_limits() {
   if (cudaFuncSetAttribute(nms_top_m_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            MAX_STAGED * 4) != cudaSuccess)
     return false;
+  if (cudaFuncSetAttribute(nms_select_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_STAGED * 4) != cudaSuccess)
+    return false;
   raised[dev] = true;
   return true;
 }
@@ -378,13 +449,25 @@ extern "C" int nms_local_max(const void* src, const void* scores, const void* ma
   return static_cast<int>(cudaGetLastError());
 }
 
+// work: [batch, 2 * slots] int32 (slots the power of two >= k) when
+// k > MAX_SLOTS, else unused
 extern "C" int nms_select(const void* keys, const void* subset, const void* gate, int gate_want,
-                          const void* tau, void* cert, void* out, int batch, int n, int k,
-                          void* stream) {
-  if (k < 1 || k > n || k > MAX_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
+                          const void* tau, void* cert, void* out, void* work, int batch, int n,
+                          int k, void* stream) {
+  if (k < 1 || k > n) return static_cast<int>(cudaErrorInvalidValue);
   if (!raise_smem_limits()) return static_cast<int>(cudaGetLastError());
   int slots = 1;
   while (slots < k) slots <<= 1;
+  if (k > MAX_SLOTS) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t staged = (n <= MAX_STAGED ? static_cast<size_t>(n) : 0) * 4;
+    nms_select_wide_kernel<<<batch, SEL_THREADS, staged, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(keys), static_cast<const int*>(subset),
+        static_cast<const int*>(gate), gate_want, static_cast<const float*>(tau),
+        static_cast<int*>(cert), static_cast<int64_t*>(out), static_cast<uint32_t*>(work), batch,
+        n, k, slots);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t bytes = (2 * static_cast<size_t>(slots) + (n <= MAX_STAGED ? n : 0)) * 4;
   nms_select_kernel<<<batch, SEL_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(keys), static_cast<const int*>(subset),

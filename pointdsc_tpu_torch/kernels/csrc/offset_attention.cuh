@@ -104,7 +104,7 @@ namespace oa {
 // where a tile's compat entries come from (see the notes above)
 enum CompatSource { kCacheInt8, kGeometry };
 
-constexpr int C = 128;
+constexpr int C = 128;  // a narrower model is zero-padded to it by the wrapper
 constexpr int BQ = 32;
 constexpr int BK = 64;
 constexpr int THREADS = 256;

@@ -44,7 +44,7 @@
 
 namespace {
 
-constexpr int C = 128;
+constexpr int C = 128;  // a narrower model is zero-padded to it by the wrapper
 constexpr int BO = 32;  // rows a block owns
 constexpr int BT = 64;  // rows of the tile it walks over
 constexpr int THREADS = 256;

@@ -55,7 +55,7 @@
 
 namespace {
 
-constexpr int C = 128;
+constexpr int C = 128;  // a narrower model is zero-padded to it by the wrapper
 constexpr int KMAX = 128;
 constexpr float MASKED = -1e30f;
 constexpr float SELF = -3e38f;

@@ -33,7 +33,7 @@
 
 namespace {
 
-constexpr int C = 128;
+constexpr int C = 128;  // a narrower model is zero-padded to it by the wrapper
 constexpr int TS = 64;  // tile side
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;

@@ -12,9 +12,11 @@ into the Dense before them:
     out = h + (relu(relu(o Wm0 + bm0) Wm1 + bm1) Wm2 + bm2)  f32
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel or raises. The kernels take C = 128; those that hold
-the attention also N a multiple of 64 (every bucket of data/pipeline.py is
-one). The plain versions take any C and N.
+it launches its kernel or raises. The kernels are compiled for C = 128: a
+narrower layer is zero-padded to it (``pad_layer_weights``; the message MLP's
+C/2 to 64) and sliced back, with the 1/sqrt(C) constants of the layer's own
+width. Those that hold the attention also take N a multiple of 64 (every
+bucket of data/pipeline.py is one). The plain versions take any C and N.
 """
 
 from __future__ import annotations
@@ -22,9 +24,16 @@ from __future__ import annotations
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
-from pointdsc_tpu_torch.kernels._check import expect, expect_aligned, on_cuda
-from pointdsc_tpu_torch.kernels.sc_attention import (
+from pointdsc_tpu_torch.kernels._check import (
     C_KERNEL,
+    check_width,
+    expect,
+    expect_aligned,
+    on_cuda,
+    pad_channels,
+    unpad_channels,
+)
+from pointdsc_tpu_torch.kernels.sc_attention import (
     inv_sqrt_c,
     key_bias,
     offset_attention_math,
@@ -93,34 +102,60 @@ def folded_weights(pcn_params, nl_params, cache: dict | None):
 
 # ---------------------------------------------------------------- plain versions
 
-def pcn_qkv_plain(x, weights):
+def pcn_qkv_plain(x, weights, c=None):
     """Plain version of the PointCN + QKV kernel: h [B, N, C] f32, q, k, v
-    bf16, kscale [B] f32 = max_j ||k_j|| / sqrt(C) over the rounded keys."""
+    bf16, kscale [B] f32 = max_j ||k_j|| / sqrt(C) over the rounded keys.
+    ``c``: the model's width, whose 1/sqrt(C) kscale takes (the layer's
+    width when None; padded weights pass the unpadded width)."""
     w1, b1, wqkv, bqkv = weights[:4]
-    c = w1.shape[1]
+    w = w1.shape[1]
     h = torch.relu(x @ w1 + b1)
     qkv = h @ wqkv + bqkv
-    q, k, v = (qkv[..., i * c:(i + 1) * c].to(torch.bfloat16) for i in range(3))
+    q, k, v = (qkv[..., i * w:(i + 1) * w].to(torch.bfloat16) for i in range(3))
     kf = k.float()
     kmax = torch.sqrt(torch.amax(torch.sum(kf * kf, dim=-1), dim=-1))
-    return h, q, k, v, kmax * inv_sqrt_c(c)
+    return h, q, k, v, kmax * inv_sqrt_c(c or w)
 
 
-def attn_mlp_residual_plain(kscale, q, k, v, compat, kbias, h, weights):
+def attn_mlp_residual_plain(kscale, q, k, v, compat, kbias, h, weights, c=None):
     """Plain version of the attention + message MLP + residual kernel.
-    ``kbias`` [B, N] (0 valid, -1e9 masked) or None."""
+    ``kbias`` [B, N] (0 valid, -1e9 masked) or None; ``c`` as in
+    ``pcn_qkv_plain``."""
     wm0, bm0, wm1, bm1, wm2, bm2 = weights[4:]
     o = offset_attention_math(q.float(), k.float(), v.float(), compat, kbias, kscale,
-                              round_p=True)
+                              round_p=True, c=c)
     msg = torch.relu(o @ wm0 + bm0)
     msg = torch.relu(msg @ wm1 + bm1)
     return h + (msg @ wm2 + bm2)
 
 
-def fused_layer_plain(x, compat, kbias, weights):
+def fused_layer_plain(x, compat, kbias, weights, c=None):
     """Plain version of the one-launch kernel: the same function as the pair."""
-    h, q, k, v, kscale = pcn_qkv_plain(x, weights)
-    return attn_mlp_residual_plain(kscale, q, k, v, compat, kbias, h, weights)
+    h, q, k, v, kscale = pcn_qkv_plain(x, weights, c)
+    return attn_mlp_residual_plain(kscale, q, k, v, compat, kbias, h, weights, c)
+
+
+def pad_layer_weights(weights, c):
+    """``fold_layer``'s ten arrays of a C-wide layer zero-padded to the
+    kernels' C = 128 (the message MLP's C/2 to 64; q, k and v each padded in
+    their own third of wqkv), so that the padded channels of h, q, k, v, the
+    message and the output stay exact zeros. The weights themselves at
+    C = 128."""
+    if c == C_KERNEL:
+        return weights
+    w1, b1, wqkv, bqkv, wm0, bm0, wm1, bm1, wm2, bm2 = weights
+    full, half = C_KERNEL, C_KERNEL // 2
+
+    def pad2(w, rows, cols):
+        return torch.nn.functional.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0]))
+
+    def thirds(t):  # [..., 3c] -> [..., 3 * 128]
+        return torch.cat([pad_channels(t[..., i * c:(i + 1) * c]) for i in range(3)], dim=-1)
+
+    return (pad2(w1, full, full), pad_channels(b1), pad2(thirds(wqkv), full, 3 * full),
+            thirds(bqkv), pad2(wm0, full, half), pad_channels(bm0, half),
+            pad2(wm1, half, half), pad_channels(bm1, half), pad2(wm2, half, full),
+            pad_channels(bm2))
 
 
 # ---------------------------------------------------------------- wrappers
@@ -135,8 +170,7 @@ def _check_weights(weights, c, device):
 
 
 def _check_kernel_size(n, c, any_n=False):
-    if c != C_KERNEL:
-        raise ValueError(f"the encoder-layer kernels take C={C_KERNEL}, got C={c}")
+    check_width(c, "the encoder-layer kernels")
     if n % N_MULTIPLE and not any_n:
         raise ValueError(f"the encoder-layer kernels take N a multiple of {N_MULTIPLE}, got {n}")
 
@@ -182,14 +216,16 @@ def _take_workspace(workspace, b, n, c, device):
 def fused_encoder_layer(x, compat, kbias, weights, workspace=None):
     """One encoder layer in one launch. x [B, N, C] f32, compat [B, N, N]
     int8, kbias [B, N] f32 or None (no mask), weights from ``fold_layer``,
-    ``workspace`` from ``new_workspace`` (allocated here if None). Returns
-    [B, N, C] f32. The kernel needs a cooperative launch (a grid-wide
-    barrier between its two phases) and raises if the card refuses it."""
+    ``workspace`` from ``new_workspace`` at C = 128 (allocated here if None).
+    Returns [B, N, C] f32. The kernel needs a cooperative launch (a
+    grid-wide barrier between its two phases) and raises if the card
+    refuses it."""
     b, n, c = _check_layer_inputs(x, compat, kbias, weights)
     if not on_cuda(x):
         return fused_layer_plain(x, compat, kbias, weights)
     _check_kernel_size(n, c)
-    h, q, k, v, kscale = _take_workspace(workspace, b, n, c, x.device)
+    x, weights = pad_channels(x), pad_layer_weights(weights, c)
+    h, q, k, v, kscale = _take_workspace(workspace, b, n, C_KERNEL, x.device)
     out = torch.empty_like(x)
     fused_encoder_layer.launches += 1
     _build.launch("encoder_layer", "fused_encoder_layer", x.device,
@@ -197,7 +233,7 @@ def fused_encoder_layer(x, compat, kbias, weights, workspace=None):
                   *(w.data_ptr() for w in weights),
                   h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), kscale.data_ptr(),
                   out.data_ptr(), b, n, qk_scale(c), inv_sqrt_c(c))
-    return out
+    return unpad_channels(out, c)
 
 
 fused_encoder_layer.launches = 0
@@ -205,8 +241,9 @@ fused_encoder_layer.launches = 0
 
 def pcn_qkv(x, weights, workspace=None):
     """PointCN + QKV in one launch: (h f32, q, k, v bf16, kscale [B] f32),
-    written into ``workspace`` (from ``new_workspace``) when one is given, or
-    into new tensors. Any N."""
+    written into ``workspace`` (from ``new_workspace``, at the layer's width
+    on the CPU and at C = 128 on the card) when one is given, or into new
+    tensors. Any N. Below C = 128 the card returns new unpadded tensors."""
     expect(x, "x", dtype=torch.float32, ndim=3)
     b, n, c = x.shape
     _check_weights(weights, c, x.device)
@@ -218,14 +255,15 @@ def pcn_qkv(x, weights, workspace=None):
             dst.copy_(src)
         return workspace
     _check_kernel_size(n, c, any_n=True)
+    x, weights = pad_channels(x), pad_layer_weights(weights, c)
     expect_aligned({"x": x, **{f"weights[{i}]": w for i, w in enumerate(weights[:4])}})
-    h, q, k, v, kscale = _take_workspace(workspace, b, n, c, x.device)
+    h, q, k, v, kscale = _take_workspace(workspace, b, n, C_KERNEL, x.device)
     pcn_qkv.launches += 1
     _build.launch("encoder_layer", "pcn_qkv", x.device,
                   x.data_ptr(), *(w.data_ptr() for w in weights[:4]),
                   h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), kscale.data_ptr(),
                   b, n, inv_sqrt_c(c))
-    return h, q, k, v, kscale
+    return (*(unpad_channels(t, c) for t in (h, q, k, v)), kscale)
 
 
 pcn_qkv.launches = 0
@@ -246,6 +284,8 @@ def attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights):
     if not on_cuda(h):
         return attn_mlp_residual_plain(kscale, q, k, v, compat, kbias, h, weights)
     _check_kernel_size(n, c)
+    q, k, v, h = (pad_channels(t) for t in (q, k, v, h))
+    weights = pad_layer_weights(weights, c)
     expect_aligned({"q": q, "k": k, "v": v})
     out = torch.empty_like(h)
     attn_mlp_residual.launches += 1
@@ -253,7 +293,7 @@ def attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights):
                   kscale.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   compat.data_ptr(), _ptr(kbias), h.data_ptr(),
                   *(w.data_ptr() for w in weights[4:]), out.data_ptr(), b, n, qk_scale(c))
-    return out
+    return unpad_channels(out, c)
 
 
 attn_mlp_residual.launches = 0
@@ -272,8 +312,8 @@ def make_fused_layer_fn(compat_cache, mask=None, fold_cache: dict | None = None)
     fn(x, pcn_params, nl_params) -> x over the shared [B, N, N] int8 cache.
     With ``mask=None`` no key bias is read (all keys valid). ``fold_cache``:
     see ``folded_weights``; without it the BatchNorms are folded per call. On
-    the card the layers share one workspace (h, q, k, v, kscale), allocated
-    at the first layer."""
+    the card the layers share one workspace (h, q, k, v, kscale at C = 128),
+    allocated at the first layer."""
     b, n = compat_cache.shape[:2]
     kbias = None if mask is None else key_bias(mask, b, n, compat_cache.device)
     workspace = []
@@ -282,7 +322,7 @@ def make_fused_layer_fn(compat_cache, mask=None, fold_cache: dict | None = None)
         weights = folded_weights(pcn_params, nl_params, fold_cache)
         x = x.float().contiguous()
         if not workspace and on_cuda(x):
-            workspace.extend(new_workspace(b, n, x.shape[-1], x.device))
+            workspace.extend(new_workspace(b, n, C_KERNEL, x.device))
         return fused_layer(x, compat_cache, kbias, weights, workspace or None)
 
     return layer_fn

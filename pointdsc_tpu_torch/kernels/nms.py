@@ -9,8 +9,10 @@ On the card three kernels pick them without an [N, N] matrix or a sort:
 ``nms_local_max`` (the flags and the seed keys, read from src, scores and
 mask in place), ``nms_select`` (an exact radix select of the S largest keys)
 and, for the large-N prefilter, ``nms_top_m`` (the select of the top-M
-scores). The prefilter's two decisions, JAX's ``lax.cond`` on the device,
-are device flags that gate the later launches: no host sync. On a CPU tensor
+scores). The select sorts up to ``SHARED_SELECT`` seeds in shared memory and
+any more in a workspace in device memory (``select_workspace_size``): any S.
+The prefilter's two decisions, JAX's ``lax.cond`` on the device, are device
+flags that gate the later launches: no host sync. On a CPU tensor
 each wrapper runs its plain version, a gate read on the host.
 """
 
@@ -24,7 +26,7 @@ from pointdsc_tpu_torch.kernels._check import expect, on_cuda
 from pointdsc_tpu_torch.ops.nms import _total_order_key, nms_key, top_k_like_jax
 
 _NEG = -1e9
-MAX_SELECT = 8192  # the largest k the seed select kernel sorts
+SHARED_SELECT = 8192  # the largest k the seed select sorts in shared memory (csrc/nms.cu)
 FLAG_WARPS = 16  # warps of a flags block, each a slice of the keys (csrc/nms.cu KWARPS)
 
 
@@ -145,7 +147,13 @@ def nms_select_plain(keys, k):
     return torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def nms_select(keys, k, subset=None, gate=None, tau=None, cert=None, out=None):
+def select_workspace_size(k: int) -> int:
+    """int32 entries a sample of the select's workspace: 2 x the power of
+    two >= k (keys and positions) above ``SHARED_SELECT``, else 0."""
+    return 0 if k <= SHARED_SELECT else 2 * (1 << (k - 1).bit_length())
+
+
+def nms_select(keys, k, subset=None, gate=None, tau=None, cert=None, out=None, workspace=None):
     """Positions [B, k] int64 of the k largest of ``keys`` [B, K] (int32
     total-order keys), by key descending, ties to the lower position; with
     ``subset`` [B, K] (int32 indices, ascending) the indices it holds at
@@ -153,7 +161,9 @@ def nms_select(keys, k, subset=None, gate=None, tau=None, cert=None, out=None):
     the prefilter's certificate cert[b] = (k-th key > max(tau[b], 0)).
     ``gate`` as ``nms_local_max``'s; a gated-off call writes cert = 0 and
     leaves ``out`` as it was. ``out``: the [B, k] int64 result tensor to
-    write into (a new one when None)."""
+    write into (a new one when None). ``workspace``: for k above
+    ``SHARED_SELECT`` on the card, int32 [B, ``select_workspace_size(k)``]
+    where the winners are sorted (a new one when None)."""
     expect(keys, "keys", dtype=torch.int32, ndim=2)
     b, n = keys.shape
     if not 0 < k <= n:
@@ -169,14 +179,18 @@ def nms_select(keys, k, subset=None, gate=None, tau=None, cert=None, out=None):
         out = torch.empty((b, k), dtype=torch.int64, device=keys.device)
     expect(out, "out", dtype=torch.int64, shape=(b, k), device=keys.device)
     if on_cuda(keys):
-        if k > MAX_SELECT:
-            raise ValueError(f"the seed select kernel takes k <= {MAX_SELECT}, got {k}")
         gate_ptr, want = _gate_args(gate, b, keys.device)
+        wide = select_workspace_size(k)
+        if wide:
+            if workspace is None:
+                workspace = torch.empty((b, wide), dtype=torch.int32, device=keys.device)
+            expect(workspace, "workspace", dtype=torch.int32, shape=(b, wide), device=keys.device)
         nms_select.launches += 1
         _build.launch("nms", "nms_select", keys.device, keys.data_ptr(),
                       None if subset is None else subset.data_ptr(), gate_ptr, want,
                       None if tau is None else tau.data_ptr(),
-                      None if cert is None else cert.data_ptr(), out.data_ptr(), b, n, k)
+                      None if cert is None else cert.data_ptr(), out.data_ptr(),
+                      workspace.data_ptr() if wide else None, b, n, k)
         return out
     if gate is not None and not _gate_open(gate):
         if cert is not None:
@@ -245,8 +259,7 @@ nms_top_m.launches = 0
 
 
 def pick_seeds_nms_fused(src, scores, radius, max_num, mask=None):
-    """Same selection as ops.nms.pick_seeds_nms, from coordinates (on the
-    card max_num <= 8192)."""
+    """Same selection as ops.nms.pick_seeds_nms, from coordinates."""
     return nms_select(nms_local_max(src, scores, radius, mask=mask, keys=True), max_num)
 
 
@@ -256,22 +269,26 @@ def pick_seeds_gated(src, scores, radius, max_num, mask, m):
     branch, no host sync on the card. The subset's flags and select run
     only if every sample has max_num positive scores (the precheck); the
     full grid's only if some sample's certificate fails, and then over the
-    whole batch. The intermediates share one int32 workspace.
+    whole batch. The intermediates, and the two selects' sort space when
+    max_num is above ``SHARED_SELECT``, share one int32 workspace.
 
     Returns the seeds [B, max_num] int64 and each sample's precheck and
     certificate [B] int32 (the branch taken, read without a sync)."""
     b, n = scores.shape
-    ws = torch.empty(b * (2 * m + n + 3), dtype=torch.int32, device=scores.device)
-    idx_m, key_m, keys = (ws[o * b:(o + w) * b].view(b, w)
-                          for o, w in ((0, m), (m, m), (2 * m, n)))
+    wide = select_workspace_size(max_num)
+    ws = torch.empty(b * (2 * m + n + 3 + wide), dtype=torch.int32, device=scores.device)
+    idx_m, key_m, keys, sort_space = (ws[o * b:(o + w) * b].view(b, w) for o, w in (
+        (0, m), (m, m), (2 * m, n), (2 * m + n + 3, wide)))
     tau, pre_ok, cert = (ws[(2 * m + n + i) * b:(2 * m + n + i + 1) * b] for i in range(3))
     tau = tau.view(torch.float32)
     nms_top_m(scores, mask, m, max_num, out=(idx_m, tau, pre_ok))
     nms_local_max(src, scores, radius, mask=mask, subset=idx_m, gate=(pre_ok, 1), keys=True,
                   out=key_m)
-    seeds = nms_select(key_m, max_num, subset=idx_m, gate=(pre_ok, 1), tau=tau, cert=cert)
+    seeds = nms_select(key_m, max_num, subset=idx_m, gate=(pre_ok, 1), tau=tau, cert=cert,
+                       workspace=sort_space)
     nms_local_max(src, scores, radius, mask=mask, gate=(cert, 0), keys=True, out=keys)
-    return nms_select(keys, max_num, gate=(cert, 0), out=seeds), pre_ok, cert
+    seeds = nms_select(keys, max_num, gate=(cert, 0), out=seeds, workspace=sort_space)
+    return seeds, pre_ok, cert
 
 
 def pick_seeds_nms_prefiltered(src, scores, radius, max_num, mask=None, prefilter=None):
@@ -283,9 +300,7 @@ def pick_seeds_nms_prefiltered(src, scores, radius, max_num, mask=None, prefilte
     max_num-th selected key strictly exceeds max(tau_M, 0), tau_M being the
     M-th score (the certificate); otherwise the full kernel runs. A
     positivity precheck skips the subset when the certificate cannot pass.
-    Both decisions gate launches (``pick_seeds_gated``). On the card
-    max_num is at most 8192 (the select kernel's sort): pairs of up to
-    81,929 correspondences at the model's seed ratio of 0.1.
+    Both decisions gate launches (``pick_seeds_gated``).
     """
     n = src.shape[-2]
     if prefilter is None:

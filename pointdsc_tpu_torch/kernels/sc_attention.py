@@ -20,10 +20,17 @@ import numpy as np
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
-from pointdsc_tpu_torch.kernels._check import expect, expect_aligned, on_cuda
+from pointdsc_tpu_torch.kernels._check import (
+    C_KERNEL,
+    check_width,
+    expect,
+    expect_aligned,
+    on_cuda,
+    pad_channels,
+    unpad_channels,
+)
 
 _NEG = -1e9
-C_KERNEL = 128  # the attention kernel's compiled channel width
 
 
 def pack_geometry(src: torch.Tensor, tgt: torch.Tensor,
@@ -109,15 +116,17 @@ def qk_scale(c: int) -> float:
     return float(np.float32(1.0 / (c ** 0.5) / 127.0))
 
 
-def sc_attention_cached_plain(q, k, v, compat, key_bias):
+def sc_attention_cached_plain(q, k, v, compat, key_bias, c=None):
     """Plain version of the running-max attention kernel on the same inputs:
     softmax(compat * (q k^T * scale) + bias) v with the kernel's
     acc / (l + 1e-30) normalisation. q, k, v f32, or bf16, and then the
     product runs in f32 on the bf16 values and p is rounded to bf16 before
-    p v, with l summed from the unrounded p (the offset version's rule)."""
+    p v, with l summed from the unrounded p (the offset version's rule).
+    ``c``: the model's width, whose 1/sqrt(C) the scale takes (q's last
+    dimension when None; a zero-padded q passes the unpadded width)."""
     round_p = q.dtype == torch.bfloat16
     q, k, v = q.float(), k.float(), v.float()
-    scale = torch.tensor(qk_scale(q.shape[-1]), dtype=torch.float32, device=q.device)
+    scale = torch.tensor(qk_scale(c or q.shape[-1]), dtype=torch.float32, device=q.device)
     logits = torch.einsum("bnc,bmc->bnm", q, k) * scale
     s = compat.float() * logits + key_bias[:, None, :]
     m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=_NEG)
@@ -128,24 +137,25 @@ def sc_attention_cached_plain(q, k, v, compat, key_bias):
     return torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30)
 
 
-def _launch_sc_attention(q, k, v, compat, key_bias):
-    """q, k, v bf16, contiguous."""
-    b, n, c = q.shape
-    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+def _launch_sc_attention(q, k, v, compat, key_bias, c):
+    """q, k, v bf16 [B, N, 128], contiguous; c the model's width."""
+    b, n, w = q.shape
+    out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
     _build.launch("sc_attention", "sc_attention_cached", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
                   key_bias.data_ptr(), out.data_ptr(), b, n, qk_scale(c))
     return out
 
 
-def offset_attention_math(q, k, v, compat, bias, kscale, round_p: bool):
+def offset_attention_math(q, k, v, compat, bias, kscale, round_p: bool, c=None):
     """The offset softmax on f32 q, k, v [B, N, C]: offset_i = ||q_i|| *
     kscale (kscale [B]), p = exp(max(compat * (q k^T * scale) + bias -
     offset, -80)), zero where bias < 0 (``bias`` [B, N] or None), the sum of p
     in f32, p rounded to bf16 before p v when ``round_p``, acc / (l + 1e-30).
     Shared by the plain versions of the offset attention kernel and of the
-    encoder-layer kernels (kernels/encoder_layer.py)."""
-    scale = torch.tensor(qk_scale(q.shape[-1]), dtype=torch.float32, device=q.device)
+    encoder-layer kernels (kernels/encoder_layer.py). ``c``: as in
+    ``sc_attention_cached_plain``."""
+    scale = torch.tensor(qk_scale(c or q.shape[-1]), dtype=torch.float32, device=q.device)
     offset = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)) * kscale[:, None, None]
     s = compat.float() * (torch.einsum("bnc,bmc->bnm", q, k) * scale)
     if bias is not None:
@@ -159,26 +169,28 @@ def offset_attention_math(q, k, v, compat, bias, kscale, round_p: bool):
     return torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30)
 
 
-def offset_kscale(k):
+def offset_kscale(k, c=None):
     """max_j ||k_j|| / sqrt(C) per pair, [B] f32, left on k's device (the
-    kernel reads it by pointer, so no host read sits between the layers)."""
+    kernel reads it by pointer, so no host read sits between the layers).
+    ``c``: as in ``sc_attention_cached_plain``."""
     k = k.float()
     kmax = torch.sqrt(torch.amax(torch.sum(k * k, dim=-1), dim=-1))
-    return kmax / float(np.float32(k.shape[-1] ** 0.5))
+    return kmax / float(np.float32((c or k.shape[-1]) ** 0.5))
 
 
-def sc_attention_cached_offset_plain(q, k, v, compat, key_bias):
+def sc_attention_cached_offset_plain(q, k, v, compat, key_bias, c=None):
     """Plain version of the offset attention kernel on the same inputs: q, k,
-    v f32, or bf16, and then p is rounded to bf16 before p v."""
+    v f32, or bf16, and then p is rounded to bf16 before p v. ``c``: as in
+    ``sc_attention_cached_plain``."""
     return offset_attention_math(q.float(), k.float(), v.float(), compat, key_bias,
-                                 offset_kscale(k), round_p=q.dtype == torch.bfloat16)
+                                 offset_kscale(k, c), round_p=q.dtype == torch.bfloat16, c=c)
 
 
-def _launch_sc_attention_offset(q, k, v, compat, key_bias):
-    """q, k, v bf16, contiguous."""
-    b, n, c = q.shape
-    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
-    kscale = offset_kscale(k)  # alive until the launch is enqueued
+def _launch_sc_attention_offset(q, k, v, compat, key_bias, c):
+    """q, k, v bf16 [B, N, 128], contiguous; c the model's width."""
+    b, n, w = q.shape
+    out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
+    kscale = offset_kscale(k, c)  # alive until the launch is enqueued
     _build.launch("sc_attention", "sc_attention_cached_offset", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
                   key_bias.data_ptr(), kscale.data_ptr(), out.data_ptr(), b, n, qk_scale(c))
@@ -195,12 +207,11 @@ def _expect_qkv(q, k, v) -> None:
 
 
 def _kernel_operands(q, k, v):
-    """q, k, v as the bf16 attention kernels take them on the card: C = 128,
-    rounded to bf16 as the JAX wrappers round them off the CPU
-    (``use_bf16=True``), 16-byte aligned."""
-    if q.shape[-1] != C_KERNEL:
-        raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={q.shape[-1]}")
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    """q, k, v as the bf16 attention kernels take them on the card: rounded
+    to bf16 as the JAX wrappers round them off the CPU (``use_bf16=True``),
+    C <= 128 zero-padded to 128, 16-byte aligned."""
+    check_width(q.shape[-1], "the attention kernels")
+    q, k, v = (pad_channels(t.bfloat16()) for t in (q, k, v))
     expect_aligned({"q": q, "k": k, "v": v})
     return q, k, v
 
@@ -216,9 +227,10 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     take bf16 and round p to bf16 before p v, as the TPU kernels round it to
     their v's type: on a CUDA tensor f32 inputs are rounded to bf16, as the
     JAX wrapper rounds them off the CPU (``use_bf16=True``; on the CPU they
-    stay f32, there as here). The kernels take C = 128 and any N."""
+    stay f32, there as here). The kernels take C <= 128 (zero-padded to
+    128) and any N."""
     _expect_qkv(q, k, v)
-    b, n, _ = q.shape
+    b, n, c = q.shape
     expect(compat, "compat", dtype=torch.int8, shape=(b, n, n), device=q.device)
     expect(src, "src", shape=(b, n, 3), device=q.device)
     expect(tgt, "tgt", shape=(b, n, 3), device=q.device)
@@ -232,9 +244,9 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     q, k, v = _kernel_operands(q, k, v)
     if offset_softmax:
         sc_attention_cached_offset.launches += 1
-        return _launch_sc_attention_offset(q, k, v, compat, bias)
+        return unpad_channels(_launch_sc_attention_offset(q, k, v, compat, bias, c), c)
     fused_sc_attention_cached.launches += 1
-    return _launch_sc_attention(q, k, v, compat, bias)
+    return unpad_channels(_launch_sc_attention(q, k, v, compat, bias, c), c)
 
 
 def sc_attention_cached_offset(q, k, v, compat, src, tgt, mask=None):
@@ -275,12 +287,13 @@ def compat_from_geometry(geom: torch.Tensor, sig2: float) -> torch.Tensor:
     return torch.clamp(1.0 - diff * diff / geom.new_tensor(sig2), min=0.0)
 
 
-def _geometry_softmax(q, k, v, geom, sigma_d, round_p: bool):
+def _geometry_softmax(q, k, v, geom, sigma_d, round_p: bool, c=None):
     """(out, m, l) of s = compat * (q k^T / sqrt(C)) + bias with m clamped at
     -1e9, p = exp(s - m), l = sum p, out = p v / (l + 1e-30); p rounded to
-    bf16 before p v when ``round_p`` (l from the unrounded p)."""
+    bf16 before p v when ``round_p`` (l from the unrounded p). ``c``: as in
+    ``sc_attention_cached_plain``."""
     compat = compat_from_geometry(geom, sigma_d_sq(sigma_d))
-    s = compat * (torch.einsum("bnc,bmc->bnm", q, k) * inv_sqrt_c(q.shape[-1])) \
+    s = compat * (torch.einsum("bnc,bmc->bnm", q, k) * inv_sqrt_c(c or q.shape[-1])) \
         + geom[:, 8][:, None, :]
     m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=_NEG)
     p = torch.exp(s - m)
@@ -290,28 +303,31 @@ def _geometry_softmax(q, k, v, geom, sigma_d, round_p: bool):
     return torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30), m, l
 
 
-def sc_attention_forward_plain(q, k, v, geom, sigma_d):
+def sc_attention_forward_plain(q, k, v, geom, sigma_d, c=None):
     """Plain version of the forward kernel: (out [B, N, C], lse [B, N]) with
     s = compat * (q k^T / sqrt(C)) + bias, m clamped at -1e9,
-    out = p v / (l + 1e-30), lse = m + log(l + 1e-30)."""
-    out, m, l = _geometry_softmax(q, k, v, geom, sigma_d, round_p=False)
+    out = p v / (l + 1e-30), lse = m + log(l + 1e-30). ``c``: as in
+    ``sc_attention_cached_plain``."""
+    out, m, l = _geometry_softmax(q, k, v, geom, sigma_d, round_p=False, c=c)
     return out, (m + torch.log(l + 1e-30))[..., 0]
 
 
-def sc_attention_nocache_plain(q, k, v, geom, sigma_d):
+def sc_attention_nocache_plain(q, k, v, geom, sigma_d, c=None):
     """Plain version of the no-cache eval attention kernel, out [B, N, C] f32.
     q, k, v f32: ``sc_attention_forward_plain``'s out. bf16: the products run
     in f32 on the bf16 values and p is rounded to bf16 before p v, with l
-    summed from the unrounded p (``sc_attention_cached_plain``'s rule)."""
+    summed from the unrounded p (``sc_attention_cached_plain``'s rule).
+    ``c``: as in ``sc_attention_cached_plain``."""
     round_p = q.dtype == torch.bfloat16
-    return _geometry_softmax(q.float(), k.float(), v.float(), geom, sigma_d, round_p)[0]
+    return _geometry_softmax(q.float(), k.float(), v.float(), geom, sigma_d, round_p, c)[0]
 
 
-def sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d):
+def sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d, c=None):
     """Plain version of the two backward kernels: (dq, dk, dv) from the saved
     LSE, with P = exp(s - lse), dS = P (dO V^T - D), dlogits = dS * compat /
-    sqrt(C). ``dvec`` [B, N] is D = rowsum(dO * O)."""
-    scale = inv_sqrt_c(q.shape[-1])
+    sqrt(C). ``dvec`` [B, N] is D = rowsum(dO * O). ``c``: as in
+    ``sc_attention_cached_plain``."""
+    scale = inv_sqrt_c(c or q.shape[-1])
     compat = compat_from_geometry(geom, sigma_d_sq(sigma_d))
     s = compat * (torch.einsum("bnc,bmc->bnm", q, k) * scale) + geom[:, 8][:, None, :]
     p = torch.exp(s - lse[..., None])
@@ -333,24 +349,26 @@ def _check_qkv_geom(q, k, v, geom):
         expect(t, name, dtype=dtype, shape=q.shape, device=q.device)
     b, n, c = q.shape
     expect(geom, "geom", dtype=dtype, shape=(b, 16, n), device=q.device)
-    if cuda and c != C_KERNEL:
-        raise ValueError(f"the attention kernels take C={C_KERNEL}, got C={c}")
+    if cuda:
+        check_width(c, "the attention kernels")
     return cuda
 
 
 def sc_attention_forward(q, k, v, geom, sigma_d):
     """Forward of the trainable attention: q, k, v [B, N, C] f32, geom
-    [B, 16, N] (``pack_geometry``) -> (out [B, N, C], lse [B, N])."""
+    [B, 16, N] (``pack_geometry``) -> (out [B, N, C], lse [B, N]). On the
+    card C <= 128, zero-padded to 128."""
     if not _check_qkv_geom(q, k, v, geom):
         return sc_attention_forward_plain(q, k, v, geom, sigma_d)
     b, n, c = q.shape
-    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+    q, k, v = (pad_channels(t) for t in (q, k, v))
+    out = torch.empty((b, n, C_KERNEL), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     sc_attention_forward.launches += 1
     _build.launch("sc_attention_train", "sc_attention_train_fwd", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), b, n, sigma_d_sq(sigma_d), inv_sqrt_c(c))
-    return out, lse
+    return unpad_channels(out, c), lse
 
 
 def _check_backward(q, k, v, geom, lse, dvec, d_out):
@@ -366,13 +384,14 @@ def sc_attention_backward_dq(q, k, v, geom, lse, dvec, d_out, sigma_d):
     if not _check_backward(q, k, v, geom, lse, dvec, d_out):
         return sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d)[0]
     b, n, c = q.shape
+    q, k, v, d_out = (pad_channels(t) for t in (q, k, v, d_out))
     dq = torch.empty_like(q)
     sc_attention_backward_dq.launches += 1
     _build.launch("sc_attention_train", "sc_attention_train_bwd_dq", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), geom.data_ptr(),
                   lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, n, sigma_d_sq(sigma_d),
                   inv_sqrt_c(c))
-    return dq
+    return unpad_channels(dq, c)
 
 
 def sc_attention_backward_dkv(q, k, v, geom, lse, dvec, d_out, sigma_d):
@@ -380,13 +399,14 @@ def sc_attention_backward_dkv(q, k, v, geom, lse, dvec, d_out, sigma_d):
     if not _check_backward(q, k, v, geom, lse, dvec, d_out):
         return sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d)[1:]
     b, n, c = q.shape
+    q, k, v, d_out = (pad_channels(t) for t in (q, k, v, d_out))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     sc_attention_backward_dkv.launches += 1
     _build.launch("sc_attention_train", "sc_attention_train_bwd_dkv", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), geom.data_ptr(),
                   lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
                   sigma_d_sq(sigma_d), inv_sqrt_c(c))
-    return dk, dv
+    return unpad_channels(dk, c), unpad_channels(dv, c)
 
 
 class _SCAttentionTrainable(torch.autograd.Function):
@@ -421,10 +441,11 @@ def sc_attention_trainable(q, k, v, geom, sigma_d: float):
     return _SCAttentionTrainable.apply(q, k, v, geom, sigma_d)
 
 
-def _launch_sc_attention_nocache(q, k, v, geom, sigma_d):
-    """q, k, v bf16, contiguous; geom [B, 16, N] f32."""
-    b, n, c = q.shape
-    out = torch.empty((b, n, c), dtype=torch.float32, device=q.device)
+def _launch_sc_attention_nocache(q, k, v, geom, sigma_d, c):
+    """q, k, v bf16 [B, N, 128], contiguous; geom [B, 16, N] f32; c the
+    model's width."""
+    b, n, w = q.shape
+    out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
     _build.launch("sc_attention", "sc_attention_nocache", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
                   b, n, sigma_d_sq(sigma_d), inv_sqrt_c(c))
@@ -439,7 +460,8 @@ def fused_sc_attention(q, k, v, src, tgt, sigma_d: float, mask=None):
     kernel of the cached attention runs with its geometry compat source,
     rounding p to bf16 before p v as the TPU kernel rounds it to its v's
     type; on the CPU they keep their type, as in JAX's interpret mode (f32:
-    the trainable forward's out). The kernel takes C = 128 and any N."""
+    the trainable forward's out). The kernel takes C <= 128 (zero-padded to
+    128) and any N."""
     q, k, v = (t.contiguous() for t in (q, k, v))
     _expect_qkv(q, k, v)
     expect(src, "src", shape=(*q.shape[:2], 3), device=q.device)
@@ -449,9 +471,10 @@ def fused_sc_attention(q, k, v, src, tgt, sigma_d: float, mask=None):
     geom = pack_geometry(src, tgt, mask)
     if not on_cuda(q):
         return sc_attention_nocache_plain(q, k, v, geom, sigma_d)
+    c = q.shape[-1]
     q, k, v = _kernel_operands(q, k, v)
     fused_sc_attention.launches += 1
-    return _launch_sc_attention_nocache(q, k, v, geom, sigma_d)
+    return unpad_channels(_launch_sc_attention_nocache(q, k, v, geom, sigma_d, c), c)
 
 
 sc_attention_forward.launches = 0

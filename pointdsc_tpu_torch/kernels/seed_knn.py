@@ -7,8 +7,10 @@ invalid point, in descending order with ties to the lower index. On the
 card the kernel is two launches behind one entry: the [S, N] similarities
 into a scratch the wrapper allocates ([B, S, N rounded up to 64] f32: 10 MB
 at N = 5120, 60 MB at 12288, 168 MB at 20480 with S = 2048), then an exact
-radix select per seed row. On a CPU tensor the wrapper runs its plain
-version; on a CUDA tensor it launches the kernel or raises.
+radix select per seed row. The kernel is compiled for C = 128: narrower
+features are zero-padded to it (the same inner products). On a CPU tensor
+the wrapper runs its plain version; on a CUDA tensor it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -16,9 +18,9 @@ from __future__ import annotations
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
-from pointdsc_tpu_torch.kernels._check import expect, on_cuda
+from pointdsc_tpu_torch.kernels._check import check_width, expect, on_cuda, pad_channels
 
-C_KERNEL, K_MAX = 128, 128  # the kernel's compiled width and list capacity
+K_MAX = 128  # the kernel's list capacity
 TILE_N = 64  # the scratch rows are padded to the similarity kernel's tile
 _MASKED, _SELF = -1e30, -3e38  # below every real similarity; self below masked
 
@@ -38,7 +40,7 @@ def seed_knn_plain(features, seeds, k, bias):
     sim = torch.where(bias[:, None, :] != 0.0, torch.full_like(sim, _MASKED), sim)
     cols = torch.arange(features.shape[1], device=features.device)
     sim = torch.where(cols[None, None, :] == seeds[..., None], torch.full_like(sim, _SELF), sim)
-    return torch.sort(sim, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.sort(sim, dim=-1, descending=True, stable=True).indices[..., :k].contiguous()
 
 
 def _launch_knn(features, seeds32, k, bias):
@@ -69,9 +71,10 @@ def seed_knn_exact(features, seeds, k, mask=None):
     bias = knn_bias(mask, features)
     if not on_cuda(features):
         return seed_knn_plain(features, seeds, k, bias)
-    if c != C_KERNEL or k > K_MAX:
-        raise ValueError(f"the seed k-NN kernel takes C={C_KERNEL} and k<={K_MAX}, "
-                         f"got C={c}, k={k}")
+    check_width(c, "the seed k-NN kernel")
+    if k > K_MAX:
+        raise ValueError(f"the seed k-NN kernel takes k<={K_MAX}, got k={k}")
+    features = pad_channels(features)
     if features.data_ptr() % 16:
         raise ValueError("features must be 16-byte aligned (float4 rows)")
     seed_knn_exact.launches += 1

@@ -11,7 +11,8 @@ is a drop-in for ``feature_similarity`` -> ``spectral_matching_loss``,
 differentiable in (normed_features, sigma).
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel or raises. The kernels take C = 128 and any N.
+it launches its kernel or raises. The kernels take C <= 128 (F zero-padded
+to 128, dF sliced back) and any N.
 """
 
 from __future__ import annotations
@@ -19,9 +20,14 @@ from __future__ import annotations
 import torch
 
 from pointdsc_tpu_torch.kernels import _build
-from pointdsc_tpu_torch.kernels._check import expect, on_cuda
+from pointdsc_tpu_torch.kernels._check import (
+    check_width,
+    expect,
+    on_cuda,
+    pad_channels,
+    unpad_channels,
+)
 
-C_KERNEL = 128
 TILE = 64  # the kernels' tile side
 
 
@@ -98,8 +104,8 @@ def _check(f, strips, scalars) -> bool:
     b, n, c = f.shape
     expect(strips, "strips", dtype=dtype, shape=(b, 8, n), device=f.device)
     expect(scalars, "scalars", dtype=dtype, shape=(b, 4), device=f.device)
-    if cuda and c != C_KERNEL:
-        raise ValueError(f"the SM-loss kernels take C={C_KERNEL}, got C={c}")
+    if cuda:
+        check_width(c, "the SM-loss kernels")
     return cuda
 
 
@@ -110,6 +116,7 @@ def sm_loss_sums(f, strips, scalars):
     if not _check(f, strips, scalars):
         return sm_loss_sums_plain(f, strips, scalars)
     b, n, _ = f.shape
+    f = pad_channels(f)
     tiles = -(-n // TILE)
     partial = torch.empty((b, tiles * tiles, 2), dtype=torch.float32, device=f.device)
     sm_loss_sums.launches += 1
@@ -123,14 +130,15 @@ def sm_loss_grads(f, strips, scalars):
     """(dF [B, N, C], dsigma [B]) for a unit cotangent of the loss."""
     if not _check(f, strips, scalars):
         return sm_loss_grads_plain(f, strips, scalars)
-    b, n, _ = f.shape
+    b, n, c = f.shape
+    f = pad_channels(f)
     tiles = -(-n // TILE)
     df = torch.empty_like(f)
     partial = torch.empty((b, tiles), dtype=torch.float32, device=f.device)
     sm_loss_grads.launches += 1
     _build.launch("sm_loss", "sm_loss_bwd", f.device, f.data_ptr(), strips.data_ptr(),
                   scalars.data_ptr(), df.data_ptr(), partial.data_ptr(), b, n)
-    return df, torch.sum(partial, dim=1)
+    return unpad_channels(df, c), torch.sum(partial, dim=1)
 
 
 sm_loss_sums.launches = 0

@@ -12,12 +12,15 @@ Two paths give the same result within the JAX suite's fused-vs-dense bound:
   PyTorch. This is the oracle of the fused path.
 * ``fused=True`` (JAX ``fused_attention=True``): the compat matrix exists
   only as the int8 cache, and the cache build, confidence head, NMS flags,
-  seed k-NN, scoring and post-refinement are CUDA kernels on a CUDA input
-  (their plain versions on a CPU input); the confidence head and the seed
-  k-NN only inside the JAX model's gates (``use_confidence_kernel``,
-  ``use_seed_knn_kernel``), plain math outside them. The kernels are compiled
-  for C = 128: on the card a fused forward of another width raises before
-  any kernel runs. The encoder takes one of three
+  seed k-NN, the seed hypotheses with their scoring and selection, and the
+  post-refinement are CUDA kernels on a CUDA input (their plain versions on
+  a CPU input); the confidence head and the seed k-NN only inside the JAX
+  model's gates (``use_confidence_kernel``, ``use_seed_knn_kernel``), plain
+  math outside them; the seed hypotheses only where no gradient is asked for
+  (``use_hypothesis_kernel``). The kernels are compiled for C = 128 and
+  zero-pad a narrower model to it; on the card a fused forward of a wider
+  one, and a fused eval forward with more than 128 seed neighbours (k),
+  raise before any kernel runs. The encoder takes one of three
   forms, chosen by the constructor's flags as in JAX
   (``pointdsc_tpu/models/pointdsc.py:126-180``):
 
@@ -56,7 +59,7 @@ import torch.nn as nn
 from pointdsc_tpu_torch._device import full_f32_matmul, resolve_device
 from pointdsc_tpu_torch.kernels.conf_mlp import confidence_head, confidence_head_plain
 from pointdsc_tpu_torch.kernels.encoder_layer import make_fused_layer_fn
-from pointdsc_tpu_torch.kernels.nms import MAX_SELECT, pick_seeds_nms_prefiltered
+from pointdsc_tpu_torch.kernels.nms import pick_seeds_nms_prefiltered
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
     C_KERNEL,
@@ -66,11 +69,17 @@ from pointdsc_tpu_torch.kernels.sc_attention import (
     pack_geometry,
     sc_attention_trainable,
 )
-from pointdsc_tpu_torch.kernels.scoring import seed_inlier_counts
-from pointdsc_tpu_torch.kernels.seed_knn import knn_bias, seed_knn_exact, seed_knn_plain
+from pointdsc_tpu_torch.kernels.scoring import (
+    K_MAX as HYPOTHESIS_K_MAX,
+    seed_hypotheses,
+    seed_inlier_counts,
+    seed_transforms_plain,
+    select_hypothesis_plain,
+)
+from pointdsc_tpu_torch.kernels.seed_knn import seed_knn_exact
 from pointdsc_tpu_torch.models.blocks import NonLocalNet
 from pointdsc_tpu_torch.ops.compatibility import feature_similarity, spatial_consistency
-from pointdsc_tpu_torch.ops.eig import power_iteration
+from pointdsc_tpu_torch.ops.knn import seed_knn_sorted
 from pointdsc_tpu_torch.ops.nms import pick_seeds_nms, pick_seeds_topk
 from pointdsc_tpu_torch.ops.procrustes import weighted_procrustes
 from pointdsc_tpu_torch.ops.se3 import transform
@@ -90,6 +99,20 @@ def use_seed_knn_kernel(fused: bool, num_corr: int, k: int) -> bool:
     """Whether the fused forward runs the exact seed k-NN kernel (k is the
     neighbour count after its clamp to N - 1)."""
     return fused and num_corr >= _SEED_KNN_FUSED_MIN_N and k <= 128
+
+
+def use_hypothesis_kernel(fused: bool, testing: bool, needs_grad: bool) -> bool:
+    """Whether the forward runs the seed stage after the seed k-NN as
+    ``kernels/scoring.py::seed_hypotheses`` (three launches on the card, its
+    plain version on the CPU): the fused eval forward where no gradient is
+    asked for (grad mode off, or nothing that enters the stage requires one:
+    the Evaluator, ``register`` and the regime probe run under
+    ``torch.no_grad()``). The kernels carry no gradient, so training
+    (``testing=False``), a forward under autograd and the dense path run the
+    plain code: the JAX model has one path, differentiable everywhere. The
+    hypotheses kernel takes k <= 128 neighbours; on the card the fused eval
+    forward of a model with a larger k raises before the encoder runs."""
+    return fused and testing and not needs_grad
 
 
 class PointDSCOutput(NamedTuple):
@@ -159,27 +182,27 @@ class PointDSC(nn.Module):
     @full_f32_matmul()
     def forward(self, corr_pos, src_keypts, tgt_keypts, mask=None, testing: bool = True,
                 fused: bool = True, skip_M: bool = False) -> PointDSCOutput:
-        """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool. The
-        fused eval path on the card picks at most 8192 seeds (pairs of up to
-        81,929 correspondences at ratio 0.1); a larger pair raises before the
-        encoder runs: pass fused=False."""
+        """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool."""
         train = self.training
         corr_pos = corr_pos.float().contiguous()
         src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
         tgt_keypts = tgt_keypts.detach().float().contiguous()
         bs, num_corr = corr_pos.shape[:2]
-        if fused and corr_pos.device.type == "cuda" and self.num_channels != C_KERNEL:
-            # the attention, encoder-layer and SM-loss kernels are compiled for
-            # one width; the JAX kernels take any (an open item of the port)
+        if fused and corr_pos.device.type == "cuda" and self.num_channels > C_KERNEL:
+            # the kernels are compiled for C = 128 and zero-pad a narrower
+            # model; a wider one's K/V tiles do not fit in shared memory (the
+            # JAX kernels take any width)
             raise ValueError(
-                f"the fused path's attention, encoder-layer and SM-loss kernels take "
-                f"num_channels={C_KERNEL}, this model has num_channels={self.num_channels}: "
-                f"pass fused=False")
+                f"the fused path's kernels take num_channels <= {C_KERNEL}, this model has "
+                f"num_channels={self.num_channels}: pass fused=False")
+        k = min(self.k, num_corr - 1)
+        if fused and testing and corr_pos.device.type == "cuda" and k > HYPOTHESIS_K_MAX:
+            # the hypotheses kernel keeps a seed's neighbours in one block,
+            # a thread a row (the JAX model takes any k)
+            raise ValueError(
+                f"the fused eval forward's hypotheses kernel takes k <= {HYPOTHESIS_K_MAX} "
+                f"neighbours, this model has k={self.k}: pass fused=False")
         num_seeds = max(1, int(num_corr * self.ratio))
-        if fused and testing and corr_pos.device.type == "cuda" and num_seeds > MAX_SELECT:
-            raise ValueError(f"the seed NMS kernel picks at most {MAX_SELECT} seeds, this pair "
-                             f"needs {num_seeds} ({num_corr} x ratio {self.ratio}): "
-                             f"pass fused=False")
         mask_arg = mask
         if mask is None:
             mask = torch.ones((bs, num_corr), dtype=torch.bool, device=corr_pos.device)
@@ -252,7 +275,7 @@ class PointDSC(nn.Module):
 
         # ---- Steps 3-4: NSM per seed -> weighted Procrustes -> best hypothesis
         seed_trans, seed_fitness, final_trans, final_labels = self._seed_transforms(
-            seeds, normed_features, src_keypts, tgt_keypts, mask, fused)
+            seeds, normed_features, src_keypts, tgt_keypts, mask, fused, testing)
 
         if testing:
             # ---- Step 5: post refinement; the labels stay those of the
@@ -263,64 +286,38 @@ class PointDSC(nn.Module):
         return PointDSCOutput(final_trans, final_labels, seed_trans, seed_fitness,
                               confidence, normed_features, seeds, M, self.sigma)
 
-    def _seed_transforms(self, seeds, feats, src_keypts, tgt_keypts, mask, fused):
+    def _seed_transforms(self, seeds, feats, src_keypts, tgt_keypts, mask, fused, testing):
         bs, num_corr, c = feats.shape
         k = min(self.k, num_corr - 1)
         if use_seed_knn_kernel(fused, num_corr, k):
             knn_idx = seed_knn_exact(feats.detach(), seeds, k, mask=mask)  # [B, S, k]
         else:
-            knn_idx = seed_knn_plain(feats.detach(), seeds, k, knn_bias(mask, feats))
-
-        bundle = torch.cat([feats, src_keypts, tgt_keypts, mask.to(feats.dtype)[..., None]],
-                           dim=-1)  # [B, N, C+7]
-        flat = knn_idx.reshape(bs, -1)
-        g = torch.gather(bundle, 1, flat[..., None].expand(-1, -1, c + 7)).reshape(
-            bs, -1, k, c + 7)
-        knn_features = g[..., :c]
-        src_knn = g[..., c:c + 3]
-        tgt_knn = g[..., c + 3:c + 6]
-        knn_mask = g[..., c + 6] > 0.5
-        seed_valid = torch.gather(mask, 1, seeds)
+            knn_idx = seed_knn_sorted(feats.detach(), seeds, k, mask)
 
         sigma = self.sigma
-        feat_M = torch.einsum("bskc,bsjc->bskj", knn_features, knn_features)
-        feat_M = torch.clamp(1.0 - (1.0 - feat_M) / (sigma * sigma), min=0.0)
-
-        def pdist(x):
-            diff = x[..., :, None, :] - x[..., None, :, :]
-            return torch.sqrt(torch.sum(diff * diff, dim=-1))
-
-        spat_diff = pdist(src_knn) - pdist(tgt_knn)
-        spat_M = torch.clamp(1.0 - spat_diff ** 2 / (self.sigma_d ** 2), min=0.0)
-        total_M = feat_M * spat_M
-        total_M = total_M * (1.0 - torch.eye(k, dtype=total_M.dtype, device=total_M.device))
-        pair_mask = knn_mask[..., :, None] & knn_mask[..., None, :]
-        total_M = torch.where(pair_mask, total_M, torch.zeros_like(total_M))
-
-        weights = power_iteration(total_M, self.num_iterations)
-        weights = torch.abs(weights) * knn_mask
-        weights = weights / (torch.sum(weights, dim=-1, keepdim=True) + 1e-6)
-        seed_trans = weighted_procrustes(src_knn, tgt_knn, weights)  # [B, S, 4, 4]
-
-        denom = torch.clamp(torch.sum(mask, dim=-1), min=1)[:, None]
+        needs_grad = torch.is_grad_enabled() and (feats.requires_grad or sigma.requires_grad)
+        if use_hypothesis_kernel(fused, testing, needs_grad):
+            return seed_hypotheses(feats, seeds, knn_idx, src_keypts, tgt_keypts, mask, sigma,
+                                   self.sigma_d, self.inlier_threshold, self.num_iterations)
+        seed_trans = seed_transforms_plain(feats, knn_idx, src_keypts, tgt_keypts, mask, sigma,
+                                           self.sigma_d, self.num_iterations)  # [B, S, 4, 4]
         if fused:
             # hypothesis selection is an argmax: no gradient passes the counts
             counts = seed_inlier_counts(seed_trans.detach().contiguous(), src_keypts,
                                         tgt_keypts, self.inlier_threshold, mask=mask)
-            seed_fitness = counts / denom
-        else:
-            pred = torch.einsum("bsij,bnj->bsni", seed_trans[:, :, :3, :3], src_keypts) \
-                + seed_trans[:, :, None, :3, 3]
-            L2_dis = torch.linalg.norm(pred - tgt_keypts[:, None], dim=-1)  # [B, S, N]
-            inlier = (L2_dis < self.inlier_threshold) & mask[:, None, :]
-            seed_fitness = torch.sum(inlier, dim=-1) / denom
+            return (seed_trans, *select_hypothesis_plain(seed_trans, counts, seeds, src_keypts,
+                                                         tgt_keypts, self.inlier_threshold, mask))
+        denom = torch.clamp(torch.sum(mask, dim=-1), min=1)[:, None]
+        pred = torch.einsum("bsij,bnj->bsni", seed_trans[:, :, :3, :3], src_keypts) \
+            + seed_trans[:, :, None, :3, 3]
+        L2_dis = torch.linalg.norm(pred - tgt_keypts[:, None], dim=-1)  # [B, S, N]
+        inlier = (L2_dis < self.inlier_threshold) & mask[:, None, :]
+        seed_fitness = torch.sum(inlier, dim=-1) / denom
+        seed_valid = torch.gather(mask, 1, seeds)
         seed_fitness = torch.where(seed_valid, seed_fitness, torch.full_like(seed_fitness, -1.0))
         best = torch.argmax(seed_fitness, dim=-1)  # [B]
         final_trans = seed_trans[torch.arange(bs, device=best.device), best]
-        if fused:
-            best_dis = torch.linalg.norm(transform(src_keypts, final_trans) - tgt_keypts, dim=-1)
-        else:
-            best_dis = L2_dis[torch.arange(bs, device=best.device), best]
+        best_dis = L2_dis[torch.arange(bs, device=best.device), best]
         final_labels = ((best_dis < self.inlier_threshold) & mask).float()
         return seed_trans, seed_fitness, final_trans, final_labels
 

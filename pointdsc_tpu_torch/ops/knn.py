@@ -1,5 +1,6 @@
-"""Pairwise distances (PyTorch counterpart of ``pointdsc_tpu/ops/knn.py``).
-The seed-restricted k-NN of the NSM is ``kernels/seed_knn.py``."""
+"""Pairwise distances (PyTorch counterpart of ``pointdsc_tpu/ops/knn.py``)
+and the NSM's seed k-NN outside the JAX model's kernel gate; the kernel's is
+``kernels/seed_knn.py``."""
 
 from __future__ import annotations
 
@@ -33,3 +34,20 @@ def pairwise_dists_exact(x: torch.Tensor) -> torch.Tensor:
     # correctly rounded float32 sqrt
     return torch.sqrt(sq.double()).to(sq.dtype)
 
+
+
+def seed_knn_sorted(features: torch.Tensor, seeds: torch.Tensor, k: int,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """[B, S, k] int64: the JAX model's seed k-NN outside its kernel's gate
+    (``pointdsc_tpu/models/pointdsc.py:341-356``). Distances 2 - 2 f.f of the
+    L2-normalised features [B, N, C] from the seeds [B, S]; the seed's own
+    column and every invalid one (mask [B, N] False) sit at 1e9, one tier, so
+    that where fewer than k valid others exist the seed itself and invalid
+    points fill the list, the lower index first; the k smallest, ties to the
+    lower index."""
+    seed_feats = torch.gather(features, 1, seeds[..., None].expand(-1, -1, features.shape[-1]))
+    dist = 2.0 - 2.0 * torch.einsum("bsc,bnc->bsn", seed_feats, features)
+    cols = torch.arange(features.shape[1], device=features.device)
+    far = (cols[None, None, :] == seeds[..., None]) | ~mask[:, None, :]
+    dist = torch.where(far, torch.full_like(dist, 1e9), dist)
+    return torch.sort(dist, dim=-1, stable=True).indices[..., :k].contiguous()

@@ -31,16 +31,13 @@ def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     )
 
 
-def rotation_from_covariance(H: torch.Tensor, sweeps: int = 10,
-                             method: str = "newton") -> torch.Tensor:
-    """Optimal proper rotation R maximizing tr(R H) (R @ a ~= b). method
-    "newton" solves the characteristic quartic in closed form; "jacobi" runs
-    ``sweeps`` cyclic Jacobi sweeps on the 4x4 and takes its leading
-    eigenvector (gap-independent accuracy)."""
+def horn_matrix(H: torch.Tensor) -> torch.Tensor:
+    """Horn's symmetric 4x4 [..., 4, 4] of H [..., 3, 3]: its leading
+    eigenvector is the quaternion of the rotation maximizing tr(R H)."""
     Sxx, Sxy, Sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     Syx, Syy, Syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     Szx, Szy, Szz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
-    N = torch.stack(
+    return torch.stack(
         [
             torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], dim=-1),
             torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], dim=-1),
@@ -49,6 +46,15 @@ def rotation_from_covariance(H: torch.Tensor, sweeps: int = 10,
         ],
         dim=-2,
     )
+
+
+def rotation_from_covariance(H: torch.Tensor, sweeps: int = 10,
+                             method: str = "newton") -> torch.Tensor:
+    """Optimal proper rotation R maximizing tr(R H) (R @ a ~= b). method
+    "newton" solves the characteristic quartic in closed form; "jacobi" runs
+    ``sweeps`` cyclic Jacobi sweeps on the 4x4 and takes its leading
+    eigenvector (gap-independent accuracy)."""
+    N = horn_matrix(H)
     if method == "newton":
         _, q = dominant_eigvec4x4(N)
     elif method == "jacobi":

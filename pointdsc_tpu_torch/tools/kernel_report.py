@@ -6,7 +6,8 @@ machine with the CUDA toolkit.
 Compiles the two sources of ``kernels/csrc`` that hold the attention loop,
 ``sc_attention`` and ``encoder_layer`` (which also holds the split PointCN +
 QKV kernel), the seed k-NN's ``seed_knn``, the refinement's ``refine``, the
-int8 cache's ``compat_cache`` and the seed NMS's ``nms``, with the build's
+int8 cache's ``compat_cache``, the seed NMS's ``nms`` and the seed stage's
+``scoring`` (which shares ``csrc/horn.cuh`` with ``refine``), with the build's
 flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
 ``cuobjdump --dump-sass``. Prints one JSON object per kernel: registers,
 spill stores and loads (bytes), stack frame, and the count of each ``HMMA``
@@ -39,7 +40,8 @@ from collections import Counter
 
 from pointdsc_tpu_torch.kernels import _build
 
-SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine", "compat_cache", "nms")
+SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine", "compat_cache", "nms",
+           "scoring")
 CACHE_COLUMNS = 16  # entries a thread computes in one pass of the cache kernel's row loop
 FLOOR_SIZES = (5120, 12288)
 

@@ -26,7 +26,10 @@ rounds it ran; the int8 cache build (``build_compat_cache_int8``) and the
 seed NMS (``pick_seeds_nms_prefiltered``: S = N / 10, normal scores, radius
 0.1; the prefilter runs at 12288) on the same pairs at N = 5120 and 12288;
 scoring (``seed_inlier_counts``, S = 512 transforms near the ground truth)
-and the confidence head at N = 5120. ``wrapper_ms``: CUDA events around one
+and the confidence head at N = 5120; the seed stage
+after the seed k-NN (``seed_hypotheses``: ``data.synthetic.seed_stage_inputs``,
+S = N / 10, k = 40, at N = 5120 in a 2 m cube and 12288 in a 100 m one, each
+of its three kernels in ``kernels_ms``). ``wrapper_ms``: CUDA events around one
 wrapper call; ``kernel_ms``: the kernel's own device time per call from
 ``torch.profiler`` (``profile_forward``'s device summary over 20 calls; the
 seed NMS's kernels each in ``kernels_ms``), beside all the call's device
@@ -100,15 +103,17 @@ def _inputs(n, sigma_d, dev):
             katt.pack_geometry(src, tgt, mask))
 
 
-def _device_split(fn, kernel):
+def _device_split(fn, *kernels):
     """Per call of fn: its device operations and device ms, the device ms of
-    the operations whose name holds ``kernel`` (``kernel_ms``), and of each
-    such operation (``kernels_ms``); "not measured" without device activity."""
+    the operations whose name holds one of ``kernels`` (``kernel_ms``), and of
+    each such operation (``kernels_ms``); "not measured" without device
+    activity."""
     prof = _device_profile(fn, forwards=20)
     if prof["device_ms_per_forward"] == "not measured":
         return {"kernel_ms": "not measured", "device_ops": "not measured",
                 "device_ms": "not measured"}
-    mine = {op["name"]: op["ms_per_forward"] for op in prof["top_ops"] if kernel in op["name"]}
+    mine = {op["name"]: op["ms_per_forward"] for op in prof["top_ops"]
+            if any(k in op["name"] for k in kernels)}
     return {"kernel_ms": sum(mine.values()), "kernels_ms": mine,
             "device_ops": prof["device_ops_per_forward"],
             "device_ms": prof["device_ms_per_forward"]}
@@ -147,6 +152,24 @@ def scoring_case(n, dev):
 
     return {"kernel": "seed_inlier_counts", "n": n, "s": 512, "wrapper_ms": _event_ms(call),
             **_device_split(call, "scoring_kernel")}
+
+
+def seed_stage_case(n, dev):
+    from pointdsc_tpu_torch.data.synthetic import seed_stage_inputs
+    from pointdsc_tpu_torch.kernels import seed_knn as kknn
+
+    d = seed_stage_inputs(n, kitti=n > 5120)
+    f, seeds, src, tgt, mask = (torch.as_tensor(d[k]).to(dev)
+                                for k in ("feats", "seeds", "src", "tgt", "mask"))
+    args = (f, seeds, kknn.seed_knn_exact(f, seeds, 40, mask=mask), src, tgt, mask,
+            torch.full((1,), 0.8, device=dev), d["sigma_d"], d["inlier_threshold"], 10)
+
+    def call():
+        return kscore.seed_hypotheses(*args)
+
+    return {"kernel": "seed_hypotheses", "n": n, "s": n // 10, "k": 40,
+            "wrapper_ms": _event_ms(call),
+            **_device_split(call, "hypotheses_kernel", "scoring_kernel", "select_kernel")}
 
 
 def confidence_case(n, dev):
@@ -214,11 +237,11 @@ def main(argv=None) -> int:
         res = {
             "card": card, "n": n,
             "running_max_ms": _event_ms(
-                lambda: katt._launch_sc_attention(qh, kh, vh, cache, kbias)),
+                lambda: katt._launch_sc_attention(qh, kh, vh, cache, kbias, C)),
             "nocache_ms": _event_ms(
-                lambda: katt._launch_sc_attention_nocache(qh, kh, vh, geom, sigma_d)),
+                lambda: katt._launch_sc_attention_nocache(qh, kh, vh, geom, sigma_d, C)),
             "offset_ms": _event_ms(
-                lambda: katt._launch_sc_attention_offset(qh, kh, vh, cache, kbias)),
+                lambda: katt._launch_sc_attention_offset(qh, kh, vh, cache, kbias, C)),
             "offset_kscale_reduction_ms": _event_ms(lambda: katt.offset_kscale(kh)),
             "pcn_qkv_ms": _event_ms(lambda: kenc.pcn_qkv(x, w)),
             "attn_mlp_residual_ms": _event_ms(
@@ -234,6 +257,7 @@ def main(argv=None) -> int:
         cases += [(refine_case, n) for n in (5120, 12288, 20480)]
         cases += [(case, n) for case in (cache_case, nms_case) for n in (5120, 12288)]
         cases += [(scoring_case, 5120), (confidence_case, 5120)]
+        cases += [(seed_stage_case, n) for n in (5120, 12288)]
         for case, n in cases:
             lines.append(json.dumps({"card": card, **case(n, dev)}))
             print(lines[-1], flush=True)

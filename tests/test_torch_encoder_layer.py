@@ -254,7 +254,7 @@ def test_encoder_layer_wrappers_check_arguments():
     with pytest.raises(ValueError):
         t_el._check_kernel_size(500, 128)
     with pytest.raises(ValueError):
-        t_el._check_kernel_size(512, 64)
+        t_el._check_kernel_size(512, 192)  # above the compiled C = 128 (narrower is padded)
 
 
 @pytest.mark.parametrize("masked", [False, True])

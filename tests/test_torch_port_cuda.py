@@ -277,8 +277,9 @@ def test_fused_encoder_layer(dev, n, masked):
 
 
 def test_new_wrappers_refuse(dev):
-    """Wrong dtype, C != 128, an N the encoder-layer kernels do not take, a
-    workspace of the wrong shape."""
+    """Wrong dtype, a width that fits neither the weights nor (above 128)
+    the kernels, an N the encoder-layer kernels do not take, a workspace of
+    the wrong shape."""
     x, cache, kbias, weights = layer_case(512, dev, True)
     with pytest.raises(ValueError):
         kenc.fused_encoder_layer(x.double(), cache, kbias, weights)
@@ -295,9 +296,9 @@ def test_new_wrappers_refuse(dev):
     with pytest.raises(ValueError):
         kenc.attn_mlp_residual(kscale, q, k, v, cache.float(), kbias, h, weights)
     src, tgt, mask, _ = pair(512, dev)
-    q64 = torch.randn((B, 512, 64), device=dev)
+    wide = torch.randn((B, 512, 192), device=dev)  # above the compiled C = 128
     with pytest.raises(ValueError):
-        katt.fused_sc_attention_cached(q64, q64, q64, cache, src, tgt, mask=mask)
+        katt.fused_sc_attention_cached(wide, wide, wide, cache, src, tgt, mask=mask)
     with pytest.raises(ValueError):
         katt.fused_sc_attention_cached(x.half(), x.half(), x.half(), cache, src, tgt, mask=mask)
 
@@ -388,12 +389,14 @@ def test_pick_seeds_nms(dev, n, case):
 
 
 @pytest.mark.parametrize("n,k", [(1000, 1), (1000, 1000), (5120, 512), (12288, 1228),
-                                 (40000, 4000), (20480, 8192)])
+                                 (40000, 4000), (20480, 8192), (12288, 9000), (40000, 20000)])
 def test_nms_select_ties(dev, n, k):
     """The select kernel against top_k_like_jax on keys with many ties
     (values from {-inf, -1, -0.0, +0.0, 0.5, 1}; +0.0 above -0.0, ties to
-    the lower index), also on rows too long to stage (N = 40000) and at the
-    largest k; through a subset, the positions map to its indices."""
+    the lower index), also on rows too long to stage (N = 40000), at the
+    largest k sorted in shared memory (8192) and above it (9000, 20000: the
+    winners sorted in a workspace in device memory); through a subset, the
+    positions map to its indices."""
     from pointdsc_tpu_torch.ops.nms import _total_order_key, top_k_like_jax
 
     rng = np.random.default_rng(k)
@@ -406,6 +409,26 @@ def test_nms_select_ties(dev, n, k):
     subset = subset.to(dev)
     got = knms.nms_select(keys, k, subset=subset)
     assert torch.equal(got, torch.gather(subset.long(), 1, top_k_like_jax(x, k)))
+
+
+def test_pick_seeds_gated_beyond_8192_seeds(dev):
+    """The prefiltered selection with S = 9000 > 8192 (both selects sort in
+    the workspace that ``pick_seeds_gated`` allocates) equals the CPU path
+    exactly, in the branch the data takes, and makes no host sync."""
+    n, s, m = 20480, 9000, 9216
+    src, scores, radius, mask = nms_case(n, "certificate", dev)
+    seeds, pre_ok, cert = knms.pick_seeds_gated(src, scores, radius, s, mask, m)
+    ref, pre_ref, cert_ref = knms.pick_seeds_gated(src.cpu(), scores.cpu(), radius, s,
+                                                   mask.cpu(), m)
+    assert torch.equal(seeds.cpu(), ref)
+    assert torch.equal(pre_ok.cpu(), pre_ref) and torch.equal(cert.cpu(), cert_ref)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        knms.pick_seeds_gated(src, scores, radius, s, mask, m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n,m", [(12288, 5120), (20480, 8192), (40000, 8192)])
@@ -564,13 +587,165 @@ def test_seed_inlier_counts(dev, n):
     trans[:, :, :3, 3] += 0.05 * torch.randn((B, s, 3), generator=gen).to(dev)
     t2 = kscore.thr_sq(0.1)
     counts = kscore.seed_inlier_counts(trans, src, tgt, 0.1, mask=mask)
-    ref = kscore.seed_inlier_counts_plain(kscore.pack_scoring_trans(trans),
-                                          kscore.pack_scoring_points(src, tgt, mask), t2)
+    ref = kscore.seed_inlier_counts_plain(trans, src, tgt, t2, mask)
     pred = torch.einsum("bsij,bnj->bsni", trans[:, :, :3, :3], src) + trans[:, :, None, :3, 3]
     res2 = torch.sum((pred - tgt[:, None]) ** 2, dim=-1)
     near = torch.sum(((res2 - t2).abs() < 1e-5) & mask[:, None, :], dim=-1)
     assert bool(torch.all((counts - ref).abs() <= near))
     assert float(counts.sum()) > 0
+
+
+def hypothesis_case(n, dev, kitti=False):
+    """The seed stage's arguments for B pairs of n points
+    (``data.synthetic.seed_stage_inputs``: half inliers, seeds among the
+    valid inliers, the last 10% of each sample padded; C = 128, k = 40,
+    sigma 0.8), the neighbours from the seed k-NN kernel."""
+    from pointdsc_tpu_torch.data.synthetic import seed_stage_inputs
+
+    d = seed_stage_inputs(n, batch=B, kitti=kitti, pad_fraction=0.1)
+    f, seeds, src, tgt, mask = (torch.as_tensor(d[k]).to(dev)
+                                for k in ("feats", "seeds", "src", "tgt", "mask"))
+    knn = kknn.seed_knn_exact(f, seeds, 40, mask=mask)
+    return (f, seeds, knn, src, tgt, mask, torch.full((1,), 0.8, device=dev), d["sigma_d"],
+            d["inlier_threshold"], 10)
+
+
+@pytest.mark.parametrize("kitti", [False, True])
+@pytest.mark.parametrize("n", [5120, 12288])
+def test_seed_hypotheses(dev, n, kitti):
+    """The seed stage's three kernels against their plain versions: seed_trans
+    atol 1e-4 in the unit cube, 1e-3 at the KITTI scale (translations of
+    tens of metres; sums of another order); the counts equal an [S, N] count
+    of the kernel's own transforms but for points within 1e-5 of tau^2 (FMA
+    rounding); final_trans the plain's where the argmax is the same seed,
+    else a tie of equal fitness moved it; the labels the plain labels of the
+    kernel's own final_trans, but for points within 1e-5 of tau."""
+    args = hypothesis_case(n, dev, kitti)
+    feats, seeds, knn, src, tgt, mask, sigma, sigma_d, thr, iters = args
+    kernels.reset_launches()
+    seed_trans, fitness, final_trans, labels = kscore.seed_hypotheses(*args)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["seed_hypotheses"], counts["seed_inlier_counts"],
+            counts["select_hypothesis"]) == (1, 1, 1)
+    ref = kscore.seed_hypotheses_plain(*args)
+    torch.testing.assert_close(seed_trans, ref[0], atol=1e-3 if kitti else 1e-4, rtol=0)
+    t2 = kscore.thr_sq(thr)
+    own = kscore.seed_inlier_counts_plain(seed_trans, src, tgt, t2, mask)
+    pred = torch.einsum("bsij,bnj->bsni", seed_trans[:, :, :3, :3], src) \
+        + seed_trans[:, :, None, :3, 3]
+    res2 = torch.sum((pred - tgt[:, None]) ** 2, dim=-1)
+    near = torch.sum(((res2 - t2).abs() < 1e-5 * max(1.0, t2)) & mask[:, None, :], dim=-1)
+    denom = mask.sum(-1, keepdim=True).float()
+    assert bool(torch.all((fitness * denom - own).abs() <= near + 1e-2))
+    assert float(fitness.max()) > 0.1
+    best, best_ref = torch.argmax(fitness, -1), torch.argmax(ref[1], -1)
+    for b in range(B):
+        if int(best[b]) == int(best_ref[b]):
+            torch.testing.assert_close(final_trans[b], ref[2][b], atol=1e-3 if kitti else 1e-4,
+                                       rtol=0)
+        else:
+            assert float(fitness[b, best[b]]) == float(fitness[b, best_ref[b]])
+        assert torch.equal(final_trans[b], seed_trans[b, best[b]])
+    dist = torch.linalg.norm(src @ final_trans[:, :3, :3].transpose(1, 2)
+                             + final_trans[:, None, :3, 3] - tgt, dim=-1)
+    labels_own = ((dist < thr) & mask).float()
+    off = (labels != labels_own) & ((dist - thr).abs() >= 1e-5 * max(1.0, thr))
+    assert not bool(off.any())
+
+
+def test_seed_hypotheses_make_no_host_sync(dev):
+    """Three device operations, and no host sync, for the whole seed stage
+    after the seed k-NN."""
+    args = hypothesis_case(5120, dev)
+    kscore.seed_hypotheses(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kscore.seed_hypotheses(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert device_operations(lambda: kscore.seed_hypotheses(*args)) == 3
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_seed_hypotheses_any_k(dev, k):
+    """k from 1 to the kernel's 128 (a thread a neighbour; 134 KB of shared
+    memory at k = C = 128), at batch 2, against the plain version."""
+    feats, seeds, _, src, tgt, mask, sigma, sigma_d, thr, iters = hypothesis_case(2048, dev)
+    knn = kknn.seed_knn_exact(feats, seeds, k, mask=mask)
+    args = (feats, seeds, knn, src, tgt, mask, sigma, sigma_d, thr, iters)
+    out = kscore.seed_hypotheses(*args)
+    ref = kscore.seed_hypotheses_plain(*args)
+    if k >= 3:  # fewer than three points fit no rotation: both take Horn's degenerate branch
+        torch.testing.assert_close(out[0], ref[0], atol=1e-4, rtol=0)
+    assert bool(torch.isfinite(out[0]).all())
+
+
+@pytest.mark.parametrize("snapshot,n", [("Synthetic", 5120), ("SyntheticKITTI", 12288)])
+def test_seed_hypotheses_on_real_seeds_against_f64(dev, snapshot, n):
+    """The seed transforms of a real fused forward (the trained snapshot at
+    batch 2 on pairs of its scale: sample 0 with its last 5% masked, sample
+    1 with only its first 36 points valid, so that the NMS seeds hold
+    outliers and masked points with fewer than k = 40 valid neighbours), made
+    by the hypotheses kernel inside the forward, against the f64 plain
+    version on the forward's own features, seeds and neighbours: every
+    seed's rotation and translation within its tolerance from
+    ``seed_trans_reference`` (atol 1e-4 scaled by its Horn conditioning);
+    the fitness the [S, N] count of the forward's own transforms but for
+    points within 1e-5 of tau^2, and -1 for a masked seed."""
+    path = os.path.join(os.path.dirname(SNAP), f"PointDSC_{snapshot}_release")
+    model = load_pretrained(path, device=dev)
+    data = dict(scene_scale=50.0, noise=0.05) if snapshot == "SyntheticKITTI" else {}
+    ds = SyntheticPairDataset(num_pairs=2, num_corr=n, inlier_ratio=0.2, seed=5,
+                              inlier_threshold=model.inlier_threshold, **data)
+    cp, src, tgt, labels = (torch.stack([torch.as_tensor(ds[i][k]) for i in range(2)]).to(dev)
+                            for k in ("corr_pos", "src_keypts", "tgt_keypts", "gt_labels"))
+    mask = torch.ones((2, n), dtype=torch.bool, device=dev)
+    mask[0, n - n // 20:] = False
+    mask[1, 36:] = False
+    with torch.no_grad():
+        kernels.reset_launches()
+        out = model(cp, src, tgt, mask=mask, fused=True)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["seed_hypotheses"] == 1
+        feats, seeds = out.normed_features, out.seeds
+        knn = kknn.seed_knn_exact(feats, seeds, model.k, mask=mask)
+        ref, tol_rot, tol_trans = kscore.seed_trans_reference(
+            feats, knn, src, tgt, mask, model.sigma, model.sigma_d, model.num_iterations)
+    seed_valid = torch.gather(mask, 1, seeds)
+    valid_nb = torch.gather(mask[:, None, :].expand(-1, seeds.shape[1], -1), 2, knn).sum(-1)
+    assert (~torch.gather(labels.bool(), 1, seeds)).sum() > 50 and (~seed_valid).any()
+    assert int(valid_nb.min()) < model.k
+    err = (out.seed_trans.double() - ref).abs()
+    assert bool(torch.all(err[..., :3, :3].amax((-1, -2)) <= tol_rot))
+    assert bool(torch.all(err[..., :3, 3].amax(-1) <= tol_trans))
+    st, t2 = out.seed_trans, kscore.thr_sq(model.inlier_threshold)
+    pred = torch.einsum("bsij,bnj->bsni", st[:, :, :3, :3], src) + st[:, :, None, :3, 3]
+    res2 = torch.sum((pred - tgt[:, None]) ** 2, dim=-1)
+    own = torch.sum((res2 < t2) & mask[:, None, :], dim=-1)
+    near = torch.sum(((res2 - t2).abs() < 1e-5 * max(1.0, t2)) & mask[:, None, :], dim=-1)
+    denom = mask.sum(-1, keepdim=True).float()
+    fit = out.seed_fitness
+    assert bool(torch.all(torch.where(seed_valid, (fit * denom - own).abs() <= near + 1e-2,
+                                      fit == -1.0)))
+
+
+def test_fused_eval_forward_refuses_k_above_128(dev):
+    """The hypotheses kernel takes at most 128 neighbours: a fused eval
+    forward with k = 129 raises a ValueError naming the limit before any
+    kernel runs (``fused=False`` takes any k)."""
+    model = PointDSC(num_layers=1, k=129, device=dev, generator=torch.Generator().manual_seed(0))
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=1024, seed=4)[0]
+    args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
+    with torch.no_grad():
+        kernels.reset_launches()
+        with pytest.raises(ValueError, match="k <= 128"):
+            model(*args, fused=True)
+        assert not any(kernels.launch_counts().values())
+        out = model(*args, fused=False)
+    assert bool(torch.isfinite(out.final_trans).all())
 
 
 def refine_case(n, dev, far=False, seed=0):
@@ -663,6 +838,10 @@ def test_wrappers_launch_and_check(dev):
     seeds = torch.arange(51, device=dev).expand(B, 51).contiguous()
     kknn.seed_knn_exact(torch.nn.functional.normalize(q, dim=-1), seeds, 8, mask=mask)
     kscore.seed_inlier_counts(gt[:, None].contiguous(), src, tgt, 0.1, mask=mask)
+    f = torch.nn.functional.normalize(q, dim=-1)
+    kknn_idx = kknn.seed_knn_plain(f, seeds, 8, kknn.knn_bias(mask, f))
+    kscore.seed_hypotheses(f, seeds, kknn_idx, src, tgt, mask, torch.ones(1, device=dev), 0.1,
+                           0.1, 10)
     kref.fused_post_refinement(gt, src, tgt, mask, 0.1, 20)
     katt.fused_sc_attention(q, q, q, src, tgt, 0.1, mask=mask)
     geom = katt.pack_geometry(src, tgt, mask)
@@ -679,15 +858,16 @@ def test_wrappers_launch_and_check(dev):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts.pop("compat_cache_int8") == 2  # this test's and layer_case's
+    assert counts.pop("seed_inlier_counts") == 2  # its own and seed_hypotheses'
     assert counts == {name: 1 for name in counts}
-    q64 = torch.randn((B, 512, 64), device=dev)
+    wide = torch.randn((B, 512, 192), device=dev)  # above the compiled C = 128
     with pytest.raises(ValueError):
-        katt.fused_sc_attention_cached(q64, q64, q64, cache, src, tgt, mask=mask,
+        katt.fused_sc_attention_cached(wide, wide, wide, cache, src, tgt, mask=mask,
                                        offset_softmax=False)
     with pytest.raises(ValueError):
-        katt.sc_attention_trainable(q64, q64, q64, geom, 0.1)
+        katt.sc_attention_trainable(wide, wide, wide, geom, 0.1)
     with pytest.raises(ValueError):
-        ksm.sm_loss_sums(q64, strips, scalars)
+        ksm.sm_loss_sums(wide, strips, scalars)
     with pytest.raises(ValueError):
         katt.sc_attention_forward(q.double(), q.double(), q.double(), geom.double(), 0.1)
 
@@ -726,33 +906,59 @@ def test_fused_forward_under_the_seed_knn_gate(dev):
     assert float((out.final_labels == ref.final_labels).float().mean()) > 0.99
 
 
-def test_fused_forward_refuses_other_widths(dev):
-    """C = 32 fused on the card: the named ValueError before any kernel runs;
-    the dense path of the same model runs."""
-    model = PointDSC(num_layers=2, num_channels=32, k=16, device=dev,
-                     generator=torch.Generator().manual_seed(0))
-    ex = SyntheticPairDataset(num_pairs=1, num_corr=512, seed=4)[0]
+@pytest.mark.parametrize("offset_softmax", [True, False])
+def test_fused_forward_at_c32_matches_dense(dev, offset_softmax):
+    """A two-layer C = 32, k = 16 model (random weights of seed 0, as
+    tests/test_fused_model.py) at N = 4096 fused on the card: the kernels
+    take the width zero-padded to 128 (the whole-layer kernels by default,
+    the running-max attention with ``offset_softmax=False``, the seed k-NN
+    and the seed stage), and the result matches the dense path at atol 1e-3
+    with labels > 0.99."""
+    model = PointDSC(num_layers=2, num_channels=32, k=16, offset_softmax=offset_softmax,
+                     device=dev, generator=torch.Generator().manual_seed(0))
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=4096, seed=4)[0]
     args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
-    kernels.reset_launches()
-    with torch.no_grad(), pytest.raises(ValueError, match="num_channels=128.*fused=False"):
-        model(*args, fused=True)
-    assert not any(kernels.launch_counts().values())
     with torch.no_grad():
-        out = model(*args, fused=False)
-    assert bool(torch.isfinite(out.final_trans).all())
+        kernels.reset_launches()
+        out = model(*args, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref = model(*args, fused=False)
+    attention = "fused_encoder_layer" if offset_softmax else "sc_attention_cached"
+    assert counts[attention] == 2 and counts["confidence_head"] == 0
+    assert counts["seed_knn_exact"] == 1 and counts["seed_hypotheses"] == 1
+    torch.testing.assert_close(out.final_trans, ref.final_trans, atol=1e-3, rtol=0)
+    assert float((out.final_labels == ref.final_labels).float().mean()) > 0.99
 
 
-def test_fused_forward_refuses_too_many_seeds(dev):
-    """More seeds than the select kernel sorts (8192) fused on the card: the
-    named ValueError before any kernel runs."""
-    model = PointDSC(num_layers=2, ratio=1.0, device=dev,
+def test_fused_forward_beyond_8192_seeds(dev):
+    """Ratio 1.0 at N = 8256: 8256 seeds, more than the select sorts in
+    shared memory. The fused forward's seeds equal the same selection on the
+    CPU (the plain flags and a stable sort) exactly, and the dense NMS's
+    (exact distances) on the same confidences but where a pair sits at the
+    radius within a rounding; final_trans matches the dense path at atol
+    1e-3. The running-max configuration, exact for any weights."""
+    from pointdsc_tpu_torch.ops.knn import pairwise_dists_exact
+    from pointdsc_tpu_torch.ops.nms import pick_seeds_nms
+
+    n = 8256
+    model = PointDSC(num_layers=2, ratio=1.0, offset_softmax=False, device=dev,
                      generator=torch.Generator().manual_seed(0))
-    n = knms.MAX_SELECT + 1
-    args = [torch.zeros((1, n, d), device=dev) for d in (6, 3, 3)]
-    kernels.reset_launches()
-    with torch.no_grad(), pytest.raises(ValueError, match="at most 8192 seeds.*fused=False"):
-        model(*args, fused=True)
-    assert not any(kernels.launch_counts().values())
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, seed=4)[0]
+    args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
+    with torch.no_grad():
+        kernels.reset_launches()
+        out = model(*args, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref = model(*args, fused=False)
+    assert out.seeds.shape == (1, n) and counts["nms_select"] == 1
+    plain = knms.pick_seeds_nms_prefiltered(args[1].cpu(), out.confidence.cpu(),
+                                            model.nms_radius, n)
+    assert torch.equal(out.seeds.cpu(), plain)
+    dense = pick_seeds_nms(pairwise_dists_exact(args[1]), out.confidence, model.nms_radius, n)
+    assert float((dense == out.seeds).float().mean()) > 0.99
+    torch.testing.assert_close(out.final_trans, ref.final_trans, atol=1e-3, rtol=0)
 
 
 # ------------------------------------------------------------ training kernels

@@ -377,7 +377,14 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     t_sm.sm_loss_grads(q, strips, scalars)
     t_nn.nearest_neighbors(st[0], tt[0])
     t_sym.build_compat_cache_int8_sym(st, tt, 0.1)
-    assert len(kernels.WRAPPERS) == 21
+    m = torch.ones(1, 256, dtype=torch.bool)
+    seeds = torch.arange(8)[None]
+    f = torch.nn.functional.normalize(q, dim=-1)
+    t_score.seed_hypotheses(f, seeds, t_knn.seed_knn_exact(f, seeds, 4), st, tt, m,
+                            torch.ones(1), 0.1, 0.1, 10)
+    t_score.select_hypothesis(torch.eye(4).expand(1, 8, 4, 4).contiguous(), torch.ones(1, 8),
+                              seeds, st, tt, 0.1, m)
+    assert len(kernels.WRAPPERS) == 23
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 
 
