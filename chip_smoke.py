@@ -47,11 +47,15 @@ Phases, in order (any failure raises and the exit code is not 0):
  10. one pair through a copy whose key projections are scaled by 100: the
      guard must switch it to the running-max kernel;
  11. time the default forward at both sizes as in 7;
- 11b. the limits the card used to have: a two-layer C = 32, k = 16 model
-     fused at N = 4096 (the kernels on the width zero-padded to 128), and a
-     two-layer model at ratio 1.0 on N = 8256 (8256 seeds, above the 8192
-     the select sorts in shared memory), each against its dense path, the
-     seeds of the second equal to the same selection on the CPU.
+ 11b. the limits the card used to have: two-layer models fused at C = 32,
+     k = 16, N = 4096 (the kernels on the width zero-padded to 128); at
+     ratio 1.0 on N = 8256 (8256 seeds, above the 8192 the select sorts in
+     shared memory; its seeds equal to the same selection on the CPU); at
+     C = 256 (two chunks of 128 channels; the split pair of layer kernels)
+     at N = 4096 and 12288, and in the running max at 4096; at k = 160 (the
+     hypotheses kernel's threads own several neighbour rows) at N = 4096 and
+     5120; each against its dense path and timed; then one fused train step
+     at C = 256, depth 2, against the dense step.
  11c. the seed stage on the seeds of a real forward: each snapshot fused at
      batch 2 (sample 1 with only 36 valid points, so that the NMS seeds hold
      outliers and masked points with fewer than k valid neighbours), every
@@ -163,8 +167,10 @@ OPS_PER_NN_PAIR = 9  # 3-dot (5), norm sum (1), 2x and subtract (2), compare (1)
 OPS_PER_NN_POINT = 5  # |p|^2 of each query and base point, in the packing
 OPS_PER_REFINE_MEAN_POINT = 7  # masked sums of 6 coordinates and the count
 N_LARGE = 20480  # the Redwood scale: the split kernel is also timed there
-# phase 11b: a C = 32 model's pair, and a pair whose every point is a seed
+# phase 11b: a C = 32 model's pair, a pair whose every point is a seed, and
+# the width and neighbour count above the kernels' 128 (at C32_N)
 C32_N, ALL_SEEDS_N = 4096, 8256
+WIDE_C, WIDE_K = 256, 160
 
 # the reference training shape and the KITTI regime of tools/train_synthetic.py
 TRAIN_BS, TRAIN_NODE, TRAIN_N = 16, 1000, 1024
@@ -525,13 +531,14 @@ def check_kernels(torch, dev) -> list[dict]:
     """Phase 3: every kernel's public wrapper against its plain version, on
     the card, on the same inputs.
 
-    ``library_ms`` is null for all eleven: no single PyTorch call computes any
-    of them (the attentions' compat factor multiplies the logits, which
-    ``scaled_dot_product_attention``'s additive mask cannot express, and the
-    encoder-layer kernels hold such an attention; PointCN + QKV is two
-    products with a ReLU, a rounding and a norm, whose two products stand
-    beside it as ``addmm_products_ms``; the confidence head is three layers;
-    the k-NN a product and a selection; the refinement a loop).
+    No single PyTorch call computes any of them (the attentions' compat
+    factor multiplies the logits, which ``scaled_dot_product_attention``'s
+    additive mask cannot express, and the encoder-layer kernels hold such an
+    attention; PointCN + QKV is two products with a ReLU, a rounding and a
+    norm, whose two products stand beside it as ``addmm_products_ms``; the
+    k-NN a product and a selection; the refinement a loop), so ``library_ms``
+    is null but for the confidence head, whose three ``F.linear`` calls and
+    two ReLUs it times as the function in parts (``library_calls``).
 
     ``bound_ms`` takes every operation at the peak of its operands' type.
     Four kernels hold the two N^2 C attention products on bf16 operands with
@@ -701,16 +708,35 @@ def check_kernels(torch, dev) -> list[dict]:
     del lay, xk, wk, ck, kbk, ref, ref2, out, h, qb, kb_, vb, ks
     torch.cuda.empty_cache()
 
-    # -- confidence head. Tolerance atol = rtol = 1e-5: f32 dot products of
-    # 128 and 32 terms summed in another order than cuBLAS's.
+    # -- confidence head, on the weights packed once as the model packs them.
+    # Tolerance atol = rtol = 1e-5: f32 dot products of 128 and 32 terms
+    # summed in another order than cuBLAS's. ``library_ms`` is the plain
+    # version's three F.linear calls with their two ReLUs: the function in
+    # five PyTorch calls, not one (``library_calls``). Also timed at
+    # N = 12288 and 20480 (``sizes``), each with its bound.
     head = x["head"]
-    logits = kconf.confidence_head(q, *head)
+    packed = kconf.pack_head_weights(*head)
+    logits = kconf.confidence_head(q, packed)
     ref = kconf.confidence_head_plain(q, *head)
     err = float((logits - ref).abs().max())
     check(torch.allclose(logits, ref, atol=1e-5, rtol=1e-5), f"confidence head max err {err}")
+
+    def conf_bound(n):
+        return bound_ms(n * C * 4 + packed.numel() * 4 + n * 4, n * OPS_PER_CONF_ROW)[0]
+
+    sizes = {}
+    for n_c in (N_KITTI, N_LARGE):
+        x_c = torch.randn((1, n_c, C), generator=torch.Generator().manual_seed(n_c)).to(dev)
+        got, want = kconf.confidence_head(x_c, packed), kconf.confidence_head_plain(x_c, *head)
+        e_c = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=1e-5, rtol=1e-5), f"confidence head at {n_c}: {e_c}")
+        sizes[str(n_c)] = dict(ms=time_ms(lambda: kconf.confidence_head(x_c, packed)),
+                               bound_ms=conf_bound(n_c), max_abs_err=e_c)
     row("confidence_head", "conf_mlp.cu", "conf_mlp.py:43", err,
-        lambda: kconf.confidence_head(q, *head), lambda: kconf.confidence_head_plain(q, *head),
-        N * C * 4 + sum(t.numel() for t in head) * 4 + N * 4, N * OPS_PER_CONF_ROW)
+        lambda: kconf.confidence_head(q, packed), lambda: kconf.confidence_head_plain(q, *head),
+        N * C * 4 + packed.numel() * 4 + N * 4, N * OPS_PER_CONF_ROW, sizes=sizes,
+        library_calls="3 x F.linear + 2 x relu (the plain version; no one call)")
+    rows[-1]["library_ms"] = time_ms(lambda: kconf.confidence_head_plain(q, *head))
 
     # -- NMS flags and seed keys, equal to the plain version's bit for bit:
     # both round each product and sum of d2 and of the squared norms on its
@@ -1098,24 +1124,48 @@ def default_configuration(torch, pt, kernels, dev) -> dict:
 
 
 def lifted_limits(torch, pt, kernels, dev) -> None:
-    """Phase 11b: a width and a seed count the card used to refuse, each
-    model (random weights of seed 0, two layers) fused with the counts set
-    to 0 just before and read just after, and held against its dense path
-    (final_trans atol 1e-3, labels > 0.99): C = 32, k = 16 at N = 4096 in the
-    default configuration (the whole-layer kernels, the seed k-NN and the
-    seed stage on the width zero-padded to 128; the confidence head stays
-    plain below C = 128, as in JAX); ratio 1.0 at N = 8256 in the running
-    max (8256 seeds sorted in the select's workspace), whose seeds equal the
-    same selection on the CPU exactly."""
+    """Phase 11b: widths, seed counts and neighbour counts the card used to
+    refuse, each model (random weights of seed 0, two layers) fused with the
+    counts set to 0 just before and read just after, and held against its
+    dense path (final_trans atol 1e-3, labels > 0.99): C = 32, k = 16 at
+    N = 4096 in the default configuration (the whole-layer kernels, the seed
+    k-NN and the seed stage on the width zero-padded to 128; the confidence
+    head stays plain below C = 128, as in JAX); ratio 1.0 at N = 8256 in the
+    running max (8256 seeds sorted in the select's workspace), whose seeds
+    equal the same selection on the CPU exactly; C = 256 at N = 4096 in the
+    default configuration (the split pair of layer kernels, two chunks of 128
+    channels) and in the running max; C = 128 with k = 160 at N = 4096 (the
+    hypotheses kernel with several neighbour rows a thread; the seed k-NN
+    plain above k = 128, JAX's gate); and, for their times, C = 256 at
+    N = 12288 and k = 160 at N = 5120 (each forward timed, median of 5 after
+    one warm-up). Then one fused train step at C = 256,
+    depth 2, against the dense step (the tolerance of phase 14), its
+    training kernels' counts set to 0 before and read after."""
     from pointdsc_tpu_torch.data import SyntheticPairDataset
     from pointdsc_tpu_torch.kernels import nms as knms
 
+    wide_default = {"pcn_qkv": 2, "attn_mlp_residual": 2, "fused_encoder_layer": 0,
+                    "seed_knn_exact": 1, "seed_hypotheses": 1, "confidence_head": 0}
     cases = ((f"C=32 N={C32_N}", dict(num_layers=2, num_channels=32, k=16), C32_N,
               {"fused_encoder_layer": 2, "seed_knn_exact": 1, "seed_hypotheses": 1,
                "confidence_head": 0}),
              (f"S=N={ALL_SEEDS_N}", dict(num_layers=2, ratio=1.0, offset_softmax=False),
               ALL_SEEDS_N, {"sc_attention_cached": 2, "nms_select": 1, "seed_knn_exact": 1,
-                            "seed_hypotheses": 1}))
+                            "seed_hypotheses": 1}),
+             (f"C={WIDE_C} N={C32_N}", dict(num_layers=2, num_channels=WIDE_C), C32_N,
+              wide_default),
+             (f"C={WIDE_C} N={C32_N} running max",
+              dict(num_layers=2, num_channels=WIDE_C, offset_softmax=False), C32_N,
+              {"sc_attention_cached": 2, "seed_knn_exact": 1, "seed_hypotheses": 1,
+               "confidence_head": 0}),
+             (f"k={WIDE_K} N={C32_N}", dict(num_layers=2, k=WIDE_K), C32_N,
+              {"fused_encoder_layer": 2, "seed_knn_exact": 0, "seed_hypotheses": 1,
+               "confidence_head": 1}),
+             (f"C={WIDE_C} N={N_KITTI}", dict(num_layers=2, num_channels=WIDE_C), N_KITTI,
+              wide_default),
+             (f"k={WIDE_K} N={N}", dict(num_layers=2, k=WIDE_K), N,
+              {"fused_encoder_layer": 2, "seed_knn_exact": 0, "seed_hypotheses": 1,
+               "confidence_head": 1}))
     for tag, kw, n, want in cases:
         model = pt.PointDSC(device=DEVICE, generator=torch.Generator().manual_seed(0), **kw)
         p = SyntheticPairDataset(num_pairs=1, num_corr=n, seed=4)[0]
@@ -1129,8 +1179,10 @@ def lifted_limits(torch, pt, kernels, dev) -> None:
         dense = model(cp, src, tgt, fused=False)
         terr = float((out.final_trans - dense.final_trans).abs().max())
         agree = float((out.final_labels == dense.final_labels).float().mean())
+        fwd_ms = time_ms(lambda: model(cp, src, tgt, fused=True), reps=5, warmup=1)
         print(json.dumps({"phase": "lifted_limits", "case": tag, "seeds": out.seeds.shape[1],
                           "trans_err_vs_dense": terr, "label_agreement": agree,
+                          "fused_forward_ms": fwd_ms, "card": card_line(),
                           "launches": {k: v for k, v in counts.items() if v}}), flush=True)
         for name, count in want.items():
             check(counts[name] == count, f"{tag}: {name} launched {counts[name]} times")
@@ -1140,6 +1192,26 @@ def lifted_limits(torch, pt, kernels, dev) -> None:
                                                     model.nms_radius, n)
             check(out.seeds.shape == (1, n) and torch.equal(out.seeds.cpu(), plain),
                   f"{tag}: the seeds differ from the CPU's selection")
+
+    # a fused train step at C = 256 against the dense step
+    with torch.enable_grad():
+        batch = train_batch(TRAIN_BS, TRAIN_NODE)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        fused_step = train_step_grads(torch, pt, batch, True, 2, num_channels=WIDE_C)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        dense_step = train_step_grads(torch, pt, batch, False, 2, num_channels=WIDE_C)
+    loss_rel, worst, worst_name = compare_steps(fused_step, dense_step)
+    print(json.dumps({"phase": "lifted_limits", "case": f"train step C={WIDE_C}, 2 layers",
+                      "loss_rel": loss_rel, "grad_rel": worst, "grad_worst": worst_name,
+                      "launches": {k: v for k, v in counts.items() if v}}), flush=True)
+    for name in TRAIN_KERNELS:
+        check(counts[name] > 0, f"train step C={WIDE_C}: {name} launched no time")
+    check(fused_step[0]["grad_finite"] == 1.0 and dense_step[0]["grad_finite"] == 1.0,
+          f"train step C={WIDE_C}: a gradient is not finite")
+    check(loss_rel <= 1e-4, f"train step C={WIDE_C}: loss terms differ by {loss_rel:.3e}")
+    check(worst <= 2e-3, f"train step C={WIDE_C}: gradient of {worst_name} differs by {worst:.3e}")
 
 
 def real_seeds(torch, pt, kernels, dev) -> None:
@@ -1431,6 +1503,49 @@ def no_cache_forward(torch, pt, kernels, dev) -> int:
     return counts["fused_sc_attention"]
 
 
+def make_trainer(torch, pt, fused, dataset="3DMatch", model=None, **over):
+    """A Trainer on DEVICE with the config's defaults and ``over``, and its
+    initial state (seed 0)."""
+    from pointdsc_tpu_torch.train.config import default_config
+    from pointdsc_tpu_torch.train.trainer import Trainer
+
+    cfg = default_config(dataset)
+    cfg.fused_attention = cfg.fused_sm_loss = fused
+    cfg.tboard_dir, cfg.verbose = "", False
+    for key, value in over.items():
+        setattr(cfg, key, value)
+    trainer = Trainer(cfg, model=model, device=DEVICE)
+    return trainer, trainer.init_state(steps_per_epoch=TRAIN_STEPS_PER_EPOCH, seed=0)
+
+
+def train_step_grads(torch, pt, batch, fused, layers, eps=0.0, **over):
+    """One train step on ``batch`` (its corr_pos scaled by 1 + eps): the
+    metrics and every parameter's gradient. At 12 layers the model is the
+    Synthetic snapshot, else random weights of seed 0."""
+    model = None if layers != 12 else pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    trainer, state = make_trainer(torch, pt, fused, model=model, num_layers=layers, **over)
+    dev_batch = trainer.to_device(batch)
+    dev_batch["corr_pos"] = dev_batch["corr_pos"] * (1.0 + eps)
+    state, metrics = trainer.train_step(state, dev_batch, 1)
+    return ({k: float(v) for k, v in metrics.items()},
+            {name: p.grad.clone() for name, p in state.model.named_parameters()})
+
+
+def compare_steps(a, b):
+    """Largest loss-term and gradient differences of two steps, relative:
+    each parameter's gradient difference over its largest entry + 1e-2 of
+    the largest entry of all."""
+    (ma, ga), (mb, gb) = a, b
+    scale = 1e-2 * max(float(g.abs().max()) for g in gb.values())
+    worst, worst_name = 0.0, ""
+    for name, g in gb.items():
+        rel = float((ga[name] - g).abs().max()) / (float(g.abs().max()) + scale)
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = max(abs(ma[k] - mb[k]) / abs(mb[k]) for k in ("class_loss", "sm_loss"))
+    return loss_rel, worst, worst_name
+
+
 def training(torch, pt, kernels, dev) -> dict:
     """Phases 14 to 18. Returns the launches of the five training kernels
     over the Trainer's run of phase 15."""
@@ -1438,17 +1553,9 @@ def training(torch, pt, kernels, dev) -> dict:
     import time
 
     from pointdsc_tpu_torch.data import Loader, SyntheticPairDataset
-    from pointdsc_tpu_torch.train.config import default_config
-    from pointdsc_tpu_torch.train.trainer import Trainer
 
     def make(fused, dataset="3DMatch", model=None, **over):
-        cfg = default_config(dataset)
-        cfg.fused_attention = cfg.fused_sm_loss = fused
-        cfg.tboard_dir, cfg.verbose = "", False
-        for key, value in over.items():
-            setattr(cfg, key, value)
-        trainer = Trainer(cfg, model=model, device=DEVICE)
-        return trainer, trainer.init_state(steps_per_epoch=TRAIN_STEPS_PER_EPOCH, seed=0)
+        return make_trainer(torch, pt, fused, dataset, model, **over)
 
     def peak_gib():
         return torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1471,25 +1578,9 @@ def training(torch, pt, kernels, dev) -> dict:
     batch = train_batch(TRAIN_BS, TRAIN_NODE)
 
     def one_step(fused, layers, eps=0.0):
-        model = None if layers != 12 else pt.load_pretrained(SNAPSHOT, device=DEVICE)
-        trainer, state = make(fused, model=model, num_layers=layers)
-        dev_batch = trainer.to_device(batch)
-        dev_batch["corr_pos"] = dev_batch["corr_pos"] * (1.0 + eps)
-        state, metrics = trainer.train_step(state, dev_batch, 1)
-        return ({k: float(v) for k, v in metrics.items()},
-                {name: p.grad.clone() for name, p in state.model.named_parameters()})
+        return train_step_grads(torch, pt, batch, fused, layers, eps)
 
-    def compare(a, b):
-        """Largest loss-term and gradient differences of two steps, relative."""
-        (ma, ga), (mb, gb) = a, b
-        scale = 1e-2 * max(float(g.abs().max()) for g in gb.values())
-        worst, worst_name = 0.0, ""
-        for name, g in gb.items():
-            rel = float((ga[name] - g).abs().max()) / (float(g.abs().max()) + scale)
-            if rel > worst:
-                worst, worst_name = rel, name
-        loss_rel = max(abs(ma[k] - mb[k]) / abs(mb[k]) for k in ("class_loss", "sm_loss"))
-        return loss_rel, worst, worst_name
+    compare = compare_steps
 
     for layers in (2, 12):
         fused_step, dense_step = one_step(True, layers), one_step(False, layers)

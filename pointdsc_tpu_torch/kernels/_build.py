@@ -38,23 +38,23 @@ NVCC_FLAGS = (*COMPILE_FLAGS, "-shared", "-Xcompiler", "-fPIC")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "compat_cache": {"compat_cache_int8": [P, P, P, I, I, F, P]},
-    "sc_attention": {"sc_attention_cached": [P, P, P, P, P, P, I, I, F, P],
-                     "sc_attention_cached_offset": [P, P, P, P, P, P, P, I, I, F, P],
-                     "sc_attention_nocache": [P] * 5 + [I, I, F, F, P]},
-    "sc_attention_train": {"sc_attention_train_fwd": [P] * 6 + [I, I, F, F, P],
-                           "sc_attention_train_bwd_dq": [P] * 8 + [I, I, F, F, P],
-                           "sc_attention_train_bwd_dkv": [P] * 9 + [I, I, F, F, P]},
-    "sm_loss": {"sm_loss_fwd": [P] * 4 + [I, I, P],
-                "sm_loss_bwd": [P] * 5 + [I, I, P]},
+    "sc_attention": {"sc_attention_cached": [P] * 6 + [I, I, I, F, P],
+                     "sc_attention_cached_offset": [P] * 7 + [I, I, I, F, P],
+                     "sc_attention_nocache": [P] * 5 + [I, I, I, F, F, P]},
+    "sc_attention_train": {"sc_attention_train_fwd": [P] * 6 + [I, I, I, F, F, P],
+                           "sc_attention_train_bwd_dq": [P] * 8 + [I, I, I, F, F, P],
+                           "sc_attention_train_bwd_dkv": [P] * 9 + [I, I, I, F, F, P]},
+    "sm_loss": {"sm_loss_fwd": [P] * 4 + [I, I, I, P],
+                "sm_loss_bwd": [P] * 5 + [I, I, I, P]},
     "encoder_layer": {"fused_encoder_layer": [P] * 19 + [I, I, F, F, P],
-                      "pcn_qkv": [P] * 10 + [I, I, F, P],
-                      "attn_mlp_residual": [P] * 14 + [I, I, F, P]},
-    "conf_mlp": {"confidence_head": [P, P, P, P, P, P, P, P, I, P]},
+                      "pcn_qkv": [P] * 10 + [I, I, I, F, P],
+                      "attn_mlp_residual": [P] * 15 + [I, I, I, I, F, P]},
+    "conf_mlp": {"confidence_head": [P, P, P, I, P]},
     "nms": {"nms_local_max": [P] * 5 + [I, I, I, I, F, P, P, P, P],
             "nms_select": [P, P, P, I, P, P, P, P, I, I, I, P],
             "nms_top_m": [P] * 5 + [I, I, I, I, P]},
-    "seed_knn": {"seed_knn_exact": [P, P, P, P, P, I, I, I, I, P]},
-    "scoring": {"seed_hypotheses": [P] * 7 + [I] * 6 + [F, P],
+    "seed_knn": {"seed_knn_exact": [P] * 5 + [I] * 5 + [P]},
+    "scoring": {"seed_hypotheses": [P] * 9 + [I] * 6 + [F, P],
                 "seed_inlier_counts": [P] * 5 + [I, I, I, F, P],
                 "select_hypothesis": [P] * 9 + [I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},

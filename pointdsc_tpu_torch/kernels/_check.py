@@ -43,25 +43,33 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-# The channel width the attention, encoder-layer, SM-loss and seed k-NN
-# kernels are compiled for. A narrower input is zero-padded to it on the card
-# and the result sliced back: a zero channel adds exact zeros to every dot
-# product, norm and product, relu(0) = 0, and the padded gradient channels
-# are zeros that are sliced off. Above it the K/V tiles of the attention
-# loop do not fit in shared memory.
+# The channel chunk of the attention, encoder-layer, SM-loss and seed k-NN
+# kernels. A model's width is zero-padded to the next multiple of it on the
+# card (``padded_width``) and the result sliced back: a zero channel adds
+# exact zeros to every dot product, norm and product, relu(0) = 0, and the
+# padded gradient channels are zeros that are sliced off. The kernels are
+# compiled for one chunk and walk the chunks of a wider model in turn.
 C_KERNEL = 128
 
 
+def padded_width(c: int) -> int:
+    """The kernels' width for a C-wide model: C rounded up to a multiple of
+    ``C_KERNEL``."""
+    return C_KERNEL * max(1, -(-c // C_KERNEL))
+
+
 def check_width(c: int, what: str) -> None:
-    """Raise ValueError for a channel width the kernels cannot take."""
-    if not 1 <= c <= C_KERNEL:
-        raise ValueError(f"{what} take C <= {C_KERNEL} (zero-padded to {C_KERNEL}), got C={c}")
+    """Raise ValueError for a channel width the kernels cannot take (none
+    below 1)."""
+    if c < 1:
+        raise ValueError(f"{what} take C >= 1, got C={c}")
 
 
-def pad_channels(t: torch.Tensor, width: int = C_KERNEL) -> torch.Tensor:
-    """t [..., C] zero-padded to [..., width], contiguous (t itself when C is
-    already ``width``)."""
+def pad_channels(t: torch.Tensor, width: int | None = None) -> torch.Tensor:
+    """t [..., C] zero-padded to [..., width] (``padded_width(C)`` when None),
+    contiguous (t itself when C is already ``width``)."""
     c = t.shape[-1]
+    width = padded_width(c) if width is None else width
     if c == width:
         return t
     return torch.nn.functional.pad(t, (0, width - c))

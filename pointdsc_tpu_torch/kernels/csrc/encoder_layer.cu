@@ -488,6 +488,198 @@ __global__ void __launch_bounds__(THREADS, 2) attn_mlp_kernel(LayerArgs a) {
   attn_mlp_tile(a, blockIdx.y, blockIdx.x * BQ, smem);
 }
 
+// ---------------------------------------------------------------- above C = 128
+//
+// A wider model runs as the split pair at every N, on the same wrappers: its
+// channels zero-padded to ld = 128 m (the message MLP's C/2 to ldh, a
+// multiple of 64; q, k and v each within their own third of Wqkv), so that
+// the padded channels stay exact zeros. The one-launch kernel keeps a C x C
+// weight matrix in shared memory (64 KB at 128) and does not run there.
+//
+// Both kernels own 32 rows a block (256 threads) and compute their Dense
+// products with wide_dense: 32 x 64 output tiles, each thread 4 rows x 2
+// columns in registers, the A rows and the weights streamed through shared
+// memory in 64-deep k-slabs, so no tile grows with C. The weights are re-read
+// from L2 by every block; these kernels are for widths no shipped model has,
+// and are simple rather than fast.
+//   pcn_qkv_wide_kernel: h = relu(x W1 + b1) to device memory, then q, k, v
+//     = h W + b from it (the block reads back its own rows after a barrier),
+//     bf16; the key norms summed over the chunks, one atomicMax a block.
+//   attn_mlp_wide_kernel: m passes of the wide attention loop, one per
+//     output chunk (offset_attention.cuh), the normalised rows into a
+//     workspace [B, N, ld + 2 ldh] f32, then the three Dense of the message
+//     MLP through the same workspace and the residual.
+
+constexpr int WK = 64;        // k rows of a slab
+constexpr int WN = 64;        // output columns of a tile
+constexpr int WAP = WK + 1;   // row of the A slab
+
+// acc[r][j] = sum_k A[row][k] W[k][col0 + cx + 32 j] for row = 4 ry + r, over
+// k < kdim (a multiple of WK); A [rows, kdim] with row stride lda in device
+// memory (rows >= nrows read as 0), W [kdim, ldw]. Starts with a barrier, so
+// rows the block wrote before the call are read back.
+__device__ __forceinline__ void wide_dense(const float* A, int lda, int nrows, const float* W,
+                                           int ldw, int kdim, int col0, float* As, float* Ws,
+                                           float (&acc)[4][2]) {
+  const int tid = threadIdx.x, ry = tid >> 5, cx = tid & 31;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int k0 = 0; k0 < kdim; k0 += WK) {
+    __syncthreads();  // the previous slab's readers are done
+    for (int i = tid; i < BQ * WK / 4; i += THREADS) {
+      const int r = i / (WK / 4), c4 = (i % (WK / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nrows) x = oa::load4(A + static_cast<size_t>(r) * lda + k0 + c4);
+      oa::store_padded(As + r * WAP, c4, x);
+    }
+    for (int i = tid; i < WK * WN / 4; i += THREADS) {
+      const int r = i / (WN / 4), c4 = (i % (WN / 4)) * 4;
+      *reinterpret_cast<float4*>(Ws + r * WN + c4) =
+          oa::load4(W + static_cast<size_t>(k0 + r) * ldw + col0 + c4);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < WK; ++kk) {
+      const float w0 = Ws[kk * WN + cx], w1 = Ws[kk * WN + cx + 32];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = As[(4 * ry + r) * WAP + kk];
+        acc[r][0] = fmaf(a, w0, acc[r][0]);
+        acc[r][1] = fmaf(a, w1, acc[r][1]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) pcn_qkv_wide_kernel(LayerArgs a, int ld) {
+  __shared__ __align__(16) float As[BQ * WAP];
+  __shared__ __align__(16) float Ws[WK * WN];
+  __shared__ float wmax[THREADS / 32];
+  const int tid = threadIdx.x, ry = tid >> 5, cx = tid & 31;
+  const int b = blockIdx.y, r0 = blockIdx.x * BQ;
+  const int rows = min(BQ, a.n - r0);
+  const size_t at0 = (static_cast<size_t>(b) * a.n + r0) * ld;
+  float acc[4][2];
+
+  float* h = a.h + at0;
+  for (int col0 = 0; col0 < ld; col0 += WN) {
+    wide_dense(a.x + at0, ld, rows, a.w1, ld, ld, col0, As, Ws, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = 4 * ry + r, col = col0 + cx + 32 * j;
+        if (row < rows)
+          h[static_cast<size_t>(row) * ld + col] = fmaxf(acc[r][j] + a.b1[col], 0.f);
+      }
+  }
+
+  float ksq[4] = {0.f, 0.f, 0.f, 0.f};  // a row's squared key norm, over the tiles
+  for (int part = 0; part < 3; ++part) {
+    __nv_bfloat16* out = (part == 0 ? a.q : (part == 1 ? a.k : a.v)) + at0;
+    for (int col0 = 0; col0 < ld; col0 += WN) {
+      wide_dense(h, ld, rows, a.wqkv + part * ld, 3 * ld, ld, col0, As, Ws, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 4 * ry + r;
+        float sq = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = col0 + cx + 32 * j;
+          const __nv_bfloat16 val = __float2bfloat16_rn(acc[r][j] + a.bqkv[part * ld + col]);
+          if (row < rows) out[static_cast<size_t>(row) * ld + col] = val;
+          const float vf = __bfloat162float(val);
+          sq = fmaf(vf, vf, sq);
+        }
+        if (part == 1) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+          ksq[r] += sq;
+        }
+      }
+    }
+  }
+  float kmax_sq = 0.f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (4 * ry + r < rows) kmax_sq = fmaxf(kmax_sq, ksq[r]);
+  if (cx == 0) wmax[ry] = kmax_sq;
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < THREADS / 32; ++w) kmax_sq = fmaxf(kmax_sq, wmax[w]);
+    atomicMax(reinterpret_cast<unsigned int*>(a.kscale + b),
+              __float_as_uint(sqrtf(kmax_sq) * a.inv_sqrt_c));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+attn_mlp_wide_kernel(LayerArgs a, int ld, int ldh, float* ws) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, ry = tid >> 5, cx = tid & 31;
+  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int rows = min(BQ, a.n - q0);
+  const size_t base = static_cast<size_t>(b) * a.n;
+  const int wsr = ld + 2 * ldh;  // a workspace row: o, then the MLP's two intermediates
+  float* o = ws + (base + q0) * wsr;
+  float* m0 = o + ld;
+  float* m1 = m0 + ldh;
+  const float kscale = __ldcg(a.kscale + b);
+
+  for (int oc = 0; oc < ld / C; ++oc) {
+    float acc[4][4];
+    oa::attention_rows<false, oa::kCacheInt8, true>(
+        a.q + base * ld, a.k + base * ld, a.v + base * ld, a.compat + base * a.n,
+        a.kbias ? a.kbias + base : nullptr, kscale, a.n, q0, a.qk_scale, smem, acc, nullptr,
+        0.f, ld, oc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * ry + r;
+      const float l = smem[oa::OFF_L + row] + 1e-30f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (row < rows) o[static_cast<size_t>(row) * wsr + C * oc + cx + 32 * j] = acc[r][j] / l;
+    }
+  }
+
+  float* As = smem + oa::OFF_V;
+  float* Ws = As + BQ * WAP;
+  float acc[4][2];
+  for (int col0 = 0; col0 < ldh; col0 += WN) {
+    wide_dense(o, wsr, rows, a.wm0, ldh, ld, col0, As, Ws, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = 4 * ry + r, col = col0 + cx + 32 * j;
+        if (row < rows)
+          m0[static_cast<size_t>(row) * wsr + col] = fmaxf(acc[r][j] + a.bm0[col], 0.f);
+      }
+  }
+  for (int col0 = 0; col0 < ldh; col0 += WN) {
+    wide_dense(m0, wsr, rows, a.wm1, ldh, ldh, col0, As, Ws, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = 4 * ry + r, col = col0 + cx + 32 * j;
+        if (row < rows)
+          m1[static_cast<size_t>(row) * wsr + col] = fmaxf(acc[r][j] + a.bm1[col], 0.f);
+      }
+  }
+  for (int col0 = 0; col0 < ld; col0 += WN) {
+    wide_dense(m1, wsr, rows, a.wm2, ld, ldh, col0, As, Ws, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = 4 * ry + r, col = col0 + cx + 32 * j;
+        if (row >= rows) continue;
+        const size_t at = (base + q0 + row) * ld + col;
+        a.out[at] = a.h[at] + (acc[r][j] + a.bm2[col]);
+      }
+  }
+}
+
 template <typename K>
 cudaError_t opt_in_smem(K kernel) {
   // per call: the attribute belongs to the current device
@@ -538,9 +730,10 @@ extern "C" int fused_encoder_layer(const void* x, const void* compat, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// ld: the row width of x, h, q, k, v (128, or a wider model's 128 m)
 extern "C" int pcn_qkv(const void* x, const void* w1, const void* b1, const void* wqkv,
                        const void* bqkv, void* h, void* q, void* k, void* v, void* kscale,
-                       int batch, int n, float inv_sqrt_c, void* stream) {
+                       int batch, int n, int ld, float inv_sqrt_c, void* stream) {
   LayerArgs a{};
   a.x = static_cast<const float*>(x);
   a.w1 = static_cast<const float*>(w1);
@@ -556,6 +749,13 @@ extern "C" int pcn_qkv(const void* x, const void* w1, const void* b1, const void
   a.n = n;
   a.inv_sqrt_c = inv_sqrt_c;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ld != C) {
+    if (ld % C) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaMemsetAsync(kscale, 0, sizeof(float) * batch, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pcn_qkv_wide_kernel<<<dim3((n + BQ - 1) / BQ, batch), THREADS, 0, s>>>(a, ld);
+    return static_cast<int>(cudaGetLastError());
+  }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -574,11 +774,15 @@ extern "C" int pcn_qkv(const void* x, const void* w1, const void* b1, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// ld: the row width of q, k, v, h and out; ldh the message MLP's inner width
+// (C = 128: ld 128, ldh 64, ws unused; wider: ld = 128 m, ldh a multiple of
+// 64, ws [B, N, ld + 2 ldh] f32)
 extern "C" int attn_mlp_residual(const void* kscale, const void* q, const void* k, const void* v,
                                  const void* compat, const void* kbias, const void* h,
                                  const void* wm0, const void* bm0, const void* wm1,
                                  const void* bm1, const void* wm2, const void* bm2, void* out,
-                                 int batch, int n, float qk_scale, void* stream) {
+                                 void* ws, int batch, int n, int ld, int ldh, float qk_scale,
+                                 void* stream) {
   LayerArgs a{};
   // the kernel only reads these five; the struct is shared with the one-launch form
   a.kscale = const_cast<float*>(static_cast<const float*>(kscale));
@@ -598,9 +802,19 @@ extern "C" int attn_mlp_residual(const void* kscale, const void* q, const void* 
   a.batch = batch;
   a.n = n;
   a.qk_scale = qk_scale;
+  const dim3 grid((n + BQ - 1) / BQ, batch);
+  if (ld != C) {
+    if (ld % C || ldh < WN || ldh % WN || ws == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = opt_in_smem(attn_mlp_wide_kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_mlp_wide_kernel<<<grid, THREADS, oa::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+        a, ld, ldh, static_cast<float*>(ws));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (ldh != CH) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = opt_in_smem(attn_mlp_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BQ - 1) / BQ, batch);
   attn_mlp_kernel<<<grid, THREADS, oa::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -84,6 +84,18 @@
 //   two blocks per SM (99 KB of shared memory each, __launch_bounds__(256, 2):
 //   at most 128 registers a thread); a larger block is later work.
 //
+// Wider models (kWide): q, k and v are [n, ld] with ld = 128 m, the
+// model's channels zero-padded to m chunks of 128 (zero channels add exact
+// zeros). A call computes output chunk oc: every key tile's logits are
+// summed over the m chunks of Q and K, staged into the same Q and K tiles
+// one chunk at a time, and P V reads V's chunk oc. The caller makes m calls,
+// one per output chunk; each sees the same logits (the chunks summed in one
+// order), offsets, running maxima and l, so the chunks of a row are those of
+// one softmax. That is m^2 Q K^T products a tile where one width pass has
+// one: the cost of widths no shipped model has. The wide form stages its
+// tiles straight from device memory (no register prefetch), and the offset
+// form takes ||q_i|| over all ld channels from device memory.
+//
 // The callers' layout is kept: after the last tile the accumulators go
 // through the (then unused) Q region as a 32 x CP f32 tile into acc[4][4],
 // and the shared-memory arena (OFF_*, SMEM_FLOATS) is the one the callers'
@@ -205,12 +217,14 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t 
 // channel (tid & 31) + 32 * j, and smem[OFF_L + row] the row's sum of p; the
 // block is synchronised, so the caller may reuse the V, K, Q, P and compat
 // regions.
-template <bool kRunningMax = false, CompatSource kSrc = kCacheInt8>
+// kWide: q, k, v are [n, ld] (ld a multiple of C) and acc holds output chunk
+// oc, channels C oc + (tid & 31) + 32 j (see the notes above).
+template <bool kRunningMax = false, CompatSource kSrc = kCacheInt8, bool kWide = false>
 __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const int8_t* compat, const float* bias,
                                float kscale, int n, int q0, float qk_scale, float* smem,
                                float (&acc)[4][4], const float* geom = nullptr,
-                               float sig2 = 0.f) {
+                               float sig2 = 0.f, int ld = C, int oc = 0) {
   static_assert(kRunningMax || kSrc == kCacheInt8, "the offset form reads the int8 cache");
   __nv_bfloat16* Vb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
   __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
@@ -234,12 +248,29 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const int r0 = 16 * mi + g;
   const bool has_bias = bias != nullptr;
 
+  // rows [row0, row0 + rows) of chunk ch of a [n, ld] array into a bf16 tile (wide form)
+  auto stage_chunk = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int rows,
+                         int ch) {
+    for (int i = tid; i < rows * C / 8; i += THREADS) {
+      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < n)
+        x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * ld + C * ch +
+                                            c8);
+      *reinterpret_cast<uint4*>(dst + r * RB + c8) = x;
+    }
+  };
+  const int chunks = kWide ? ld / C : 1;
+
   __syncthreads();  // whoever used the shared memory before is done
-  for (int i = tid; i < BQ * C / 8; i += THREADS) {
-    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < n) x = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * C + c8);
-    *reinterpret_cast<uint4*>(Qb + r * RB + c8) = x;
+  if constexpr (!kWide) {
+    for (int i = tid; i < BQ * C / 8; i += THREADS) {
+      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < n)
+        x = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * C + c8);
+      *reinterpret_cast<uint4*>(Qb + r * RB + c8) = x;
+    }
   }
   if constexpr (kSrc == kGeometry) {
     for (int i = tid; i < GEOM_ROWS * BQ; i += THREADS) {
@@ -255,10 +286,18 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
     for (int r = 0; r < 4; ++r) {
       const int row = 4 * warp + r;
       float sq = 0.f;
+      if constexpr (kWide) {
+        if (q0 + row < n)
+          for (int j = 0; j < ld / 32; ++j) {
+            const float x = __bfloat162float(q[static_cast<size_t>(q0 + row) * ld + lane + 32 * j]);
+            sq = fmaf(x, x, sq);
+          }
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = __bfloat162float(Qb[row * RB + lane + 32 * j]);
-        sq = fmaf(x, x, sq);
+        for (int j = 0; j < 4; ++j) {
+          const float x = __bfloat162float(Qb[row * RB + lane + 32 * j]);
+          sq = fmaf(x, x, sq);
+        }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
@@ -308,6 +347,17 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
     }
     bias_reg = (has_bias && tid < BK && k0 + tid < n) ? bias[k0 + tid] : 0.f;
   };
+  // the wide form's compat bytes of a tile (it stages the rest directly)
+  auto fetch_compat = [&](int k0) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1), col = 16 * nj + 8 * t + 2 * tq + (e & 1);
+        creg[t][e] = (q0 + row < n && k0 + col < n)
+                         ? compat[static_cast<size_t>(q0 + row) * n + k0 + col] : int8_t(0);
+      }
+  };
 
   // ldmatrix addresses of this lane at k-step 0 (bytes in the shared window)
   const uint32_t q_addr = smem_addr(Qb + (16 * mi + (lane & 15)) * RB + 8 * (lane >> 4));
@@ -325,20 +375,36 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   float l_row[2] = {0.f, 0.f};
   float m_row[2] = {NEG, NEG};  // the running max of rows r0, r0 + 8
 
-  fetch(0);
+  if constexpr (!kWide) fetch(0);
   for (int k0 = 0; k0 < n; k0 += BK) {
     __syncthreads();  // the previous tile's P V is done; offs_s is visible
+    if constexpr (kWide) {
+      // chunk 0 of Q and K, V's chunk oc, the bias and the key strip, direct
+      stage_chunk(Qb, q, q0, BQ, 0);
+      stage_chunk(Kb, k, k0, BK, 0);
+      stage_chunk(Vb, v, k0, BK, oc);
+      if (tid < BK) bias_s[tid] = (has_bias && k0 + tid < n) ? bias[k0 + tid] : 0.f;
+      if constexpr (kSrc == kGeometry) {
+        for (int i = tid; i < GEOM_ROWS * BK; i += THREADS) {
+          const int r = i / BK, c = i % BK;
+          gk_s[i] = (k0 + c < n) ? geom[static_cast<size_t>(r) * n + k0 + c] : 0.f;
+        }
+      } else {
+        fetch_compat(k0);
+      }
+    } else {
 #pragma unroll
-    for (int it = 0; it < KV_ITERS; ++it) {
-      const int i = tid + it * THREADS;
-      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-      *reinterpret_cast<uint4*>(Kb + r * RB + c8) = kreg[it];
-      *reinterpret_cast<uint4*>(Vb + r * RB + c8) = vreg[it];
-    }
-    if (tid < BK) bias_s[tid] = bias_reg;
-    if constexpr (kSrc == kGeometry) {
+      for (int it = 0; it < KV_ITERS; ++it) {
+        const int i = tid + it * THREADS;
+        const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+        *reinterpret_cast<uint4*>(Kb + r * RB + c8) = kreg[it];
+        *reinterpret_cast<uint4*>(Vb + r * RB + c8) = vreg[it];
+      }
+      if (tid < BK) bias_s[tid] = bias_reg;
+      if constexpr (kSrc == kGeometry) {
 #pragma unroll
-      for (int it = 0; it < G_ITERS; ++it) gk_s[tid + it * THREADS] = greg[it];
+        for (int it = 0; it < G_ITERS; ++it) gk_s[tid + it * THREADS] = greg[it];
+      }
     }
     __syncthreads();
 
@@ -362,13 +428,23 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      if constexpr (kWide) {
+        if (ch > 0) {  // the next chunk of Q and K, once every warp is done with this one
+          __syncthreads();
+          stage_chunk(Qb, q, q0, BQ, ch);
+          stage_chunk(Kb, k, k0, BK, ch);
+          __syncthreads();
+        }
+      }
 #pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk) {
-      uint32_t a[4], b[4];
-      ldmatrix_x4(a, q_addr + kk * 32);
-      ldmatrix_x4(b, k_addr + kk * 32);
-      mma_bf16(s[0], a, b[0], b[1]);
-      mma_bf16(s[1], a, b[2], b[3]);
+      for (int kk = 0; kk < C / 16; ++kk) {
+        uint32_t a[4], b[4];
+        ldmatrix_x4(a, q_addr + kk * 32);
+        ldmatrix_x4(b, k_addr + kk * 32);
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+      }
     }
 
     // ---- weights, on the fragments: s[t][e] is row r0 + 8 (e >> 1), column
@@ -455,7 +531,9 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
             __floats2bfloat162_rn(p[2], p[3]);
       }
     }
-    if (k0 + BK < n) fetch(k0 + BK);  // in flight during P V
+    if constexpr (!kWide) {
+      if (k0 + BK < n) fetch(k0 + BK);  // in flight during P V
+    }
     __syncthreads();
 
     // ---- acc += P V on this warp's 16 rows x 32 channels

@@ -12,9 +12,11 @@
 //   out = softmax_j(compat_ij / 127 * q_i.k_j / sqrt(C) + bias_j) v_j
 //
 // q, k, v [B, N, 128] bf16, compat [B, N, N] int8, bias [B, N] (0 valid,
-// -1e9 padded), out [B, N, 128] f32. The 1/sqrt(C)/127 decode is folded into
-// one qk scale; m starts at -1e9, p is rounded to bf16 before p v (l is
-// summed from the f32 p) and the result is acc / (l + 1e-30), as on the TPU,
+// -1e9 padded), out [B, N, 128] f32 (a wider model: [B, N, 128 m], run by
+// the wide kernel just below, at the cost of m^2 Q K^T passes). The
+// 1/sqrt(C)/127 decode is folded into one qk scale; m starts at -1e9, p is
+// rounded to bf16 before p v (l is summed from the f32 p) and the result is
+// acc / (l + 1e-30), as on the TPU,
 // where the JAX wrapper rounds q, k, v to bf16 (sc_attention.py:631) and the
 // kernel rounds p to its v's type (:460).
 //
@@ -35,6 +37,64 @@
 #include "offset_attention.cuh"
 
 namespace {
+
+// Every form above C = 128: q, k, v [B, N, ld] bf16, ld = 128 m (a wider
+// model zero-padded to m chunks), out [B, N, ld] f32. A block owns 32 query
+// rows and makes m passes of the wide loop (offset_attention.cuh), one per
+// output chunk. bias is the key bias row (kCacheInt8) or unused (kGeometry:
+// row 8 of the strip); kscale is read by the offset form only.
+template <bool kRunningMax, oa::CompatSource kSrc>
+__global__ void __launch_bounds__(oa::THREADS, 2)
+sc_attention_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int8_t* __restrict__ compat, const float* __restrict__ bias,
+                         const float* __restrict__ kscale, const float* __restrict__ geom,
+                         float* __restrict__ out, int n, int ld, float sig2, float qk_scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * oa::BQ;
+  const size_t base = static_cast<size_t>(b) * n;
+  const float* g = kSrc == oa::kGeometry ? geom + base * 16 : nullptr;
+  const float* brow = kSrc == oa::kGeometry ? g + 8 * static_cast<size_t>(n) : bias + base;
+  const float ks = kRunningMax ? 0.f : kscale[b];
+  const int ry = threadIdx.x >> 5, cx = threadIdx.x & 31;
+  for (int oc = 0; oc < ld / oa::C; ++oc) {
+    float acc[4][4];
+    oa::attention_rows<kRunningMax, kSrc, true>(
+        q + base * ld, k + base * ld, v + base * ld,
+        kSrc == oa::kGeometry ? nullptr : compat + base * n, brow, ks, n, q0, qk_scale, smem,
+        acc, g, sig2, ld, oc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * ry + r;
+      if (q0 + row >= n) continue;
+      const float l = smem[oa::OFF_L + row] + 1e-30f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[(base + q0 + row) * ld + oa::C * oc + cx + 32 * j] = acc[r][j] / l;
+    }
+  }
+}
+
+template <bool kRunningMax, oa::CompatSource kSrc>
+int launch_wide(const void* q, const void* k, const void* v, const void* compat,
+                const void* bias, const void* kscale, const void* geom, void* out, int batch,
+                int n, int ld, float sig2, float qk_scale, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(sc_attention_wide_kernel<kRunningMax, kSrc>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(oa::SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ld < oa::C || ld % oa::C) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + oa::BQ - 1) / oa::BQ, batch);
+  sc_attention_wide_kernel<kRunningMax, kSrc>
+      <<<grid, oa::THREADS, oa::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(compat),
+          static_cast<const float*>(bias), static_cast<const float*>(kscale),
+          static_cast<const float*>(geom), static_cast<float*>(out), n, ld, sig2, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 __global__ void __launch_bounds__(oa::THREADS, 2)
 sc_attention_cached_kernel(const __nv_bfloat16* __restrict__ q,
@@ -62,9 +122,13 @@ sc_attention_cached_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
+// ld: the row width of q, k, v and out (128, or a wider model's 128 m)
 extern "C" int sc_attention_cached(const void* q, const void* k, const void* v,
                                    const void* compat, const void* bias, void* out, int batch,
-                                   int n, float qk_scale, void* stream) {
+                                   int n, int ld, float qk_scale, void* stream) {
+  if (ld != oa::C)
+    return launch_wide<true, oa::kCacheInt8>(q, k, v, compat, bias, nullptr, nullptr, out, batch,
+                                             n, ld, 0.f, qk_scale, stream);
   // per call: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
       sc_attention_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -130,7 +194,10 @@ sc_attention_offset_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int sc_attention_cached_offset(const void* q, const void* k, const void* v,
                                           const void* compat, const void* bias,
                                           const void* kscale, void* out, int batch, int n,
-                                          float qk_scale, void* stream) {
+                                          int ld, float qk_scale, void* stream) {
+  if (ld != oa::C)
+    return launch_wide<false, oa::kCacheInt8>(q, k, v, compat, bias, kscale, nullptr, out, batch,
+                                              n, ld, 0.f, qk_scale, stream);
   const cudaError_t err = cudaFuncSetAttribute(
       sc_attention_offset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(oa::SMEM_BYTES));
@@ -202,8 +269,11 @@ sc_attention_nocache_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 extern "C" int sc_attention_nocache(const void* q, const void* k, const void* v,
-                                    const void* geom, void* out, int batch, int n, float sig2,
-                                    float qk_scale, void* stream) {
+                                    const void* geom, void* out, int batch, int n, int ld,
+                                    float sig2, float qk_scale, void* stream) {
+  if (ld != oa::C)
+    return launch_wide<true, oa::kGeometry>(q, k, v, nullptr, nullptr, nullptr, geom, out, batch,
+                                            n, ld, sig2, qk_scale, stream);
   const cudaError_t err = cudaFuncSetAttribute(
       sc_attention_nocache_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(oa::SMEM_BYTES));

@@ -43,6 +43,15 @@
 // mirrored, and every power step is k dot products of k terms and one block
 // reduction; the gram is one f32 dot product a thread an entry from
 // 16-byte shared loads, not register-tiled: making it fast is later work.
+//
+// Any k and C: thread t owns neighbour rows t, t + 128, ... (their power-step
+// products, their terms of the moments). The per-row arrays (points, valid
+// flags, indices, v and the power step's new v) and, while they fit the
+// 200 KB the block opts into, the features (k x (C + 4) floats) and M
+// (k x (k + 1)) share the dynamic arena. Past that M, then also the features,
+// live in a workspace in device memory that the wrapper allocates, a slice a
+// seed (M first leaves at about k = 180 with C = 128). The template arguments
+// say which is where, so the shipped k = 40 keeps both in shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,10 +61,10 @@
 
 namespace {
 
-constexpr int HYP_THREADS = 128;  // one block a seed, a thread a neighbour row
+constexpr int HYP_THREADS = 128;  // one block a seed; thread t owns rows t + 128 i
 constexpr int HYP_WARPS = HYP_THREADS / 32;
-constexpr int KMAX = HYP_THREADS;  // the largest k
-constexpr int MAX_HYP_SMEM = 200 * 1024;  // features and M: 134 KB at k = C = 128
+constexpr int MAX_HYP_SMEM = 200 * 1024;  // the dynamic arena's opt-in
+constexpr int ROW_FLOATS = 10;  // per neighbour row: 6 coordinates, valid, index, v, new v
 constexpr int THREADS = 256;
 constexpr int SEL_THREADS = 1024;
 
@@ -87,21 +96,31 @@ __device__ __forceinline__ float dist(const float* a, const float* b) {
   return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
 }
 
+// floats of the arena before the features: the per-row arrays, 16-byte aligned
+__host__ __device__ inline int row_arrays(int k) { return (ROW_FLOATS * k + 3) & ~3; }
+
+// kFGlobal / kMGlobal: the features / M in the workspace slices ws_f
+// [B, S, k, fs] / ws_m [B, S, k, k + 1] instead of the arena
+template <bool kFGlobal, bool kMGlobal>
 __global__ void __launch_bounds__(HYP_THREADS)
 hypotheses_kernel(const float* __restrict__ feats, const int64_t* __restrict__ knn,
                   const float* __restrict__ src, const float* __restrict__ tgt,
                   const uint8_t* __restrict__ mask, const float* __restrict__ sigma,
                   float inv_sigma_d2, int n, int c, int s, int k, int iters,
-                  float* __restrict__ trans) {
+                  float* __restrict__ trans, float* __restrict__ ws_f,
+                  float* __restrict__ ws_m) {
   extern __shared__ float4 dyn4[];
-  float* F = reinterpret_cast<float*>(dyn4);  // [k][fs] features, zero-padded rows
-  const int c4 = (c + 3) & ~3, fs = c4 + 4;   // 16-byte rows, staggered banks
-  float* M = F + k * fs;                      // [k][k + 1]
+  float* P = reinterpret_cast<float*>(dyn4);  // [k][6] src xyz, tgt xyz
+  float* valid = P + 6 * k;
+  int* idx = reinterpret_cast<int*>(valid + k);
+  float* v = reinterpret_cast<float*>(idx + k);
+  float* v_new = v + k;
+  const int c4 = (c + 3) & ~3, fs = c4 + 4;  // 16-byte rows, staggered banks
   const int ms = k + 1;
-  __shared__ float P[KMAX][6];  // src xyz, tgt xyz
-  __shared__ float valid[KMAX];
-  __shared__ int idx[KMAX];
-  __shared__ float v[KMAX];
+  const size_t slot = static_cast<size_t>(blockIdx.y) * s + blockIdx.x;
+  float* arena = P + row_arrays(k);
+  float* F = kFGlobal ? ws_f + slot * k * fs : arena;  // [k][fs] features, zero-padded rows
+  float* M = kMGlobal ? ws_m + slot * k * ms : arena + (kFGlobal ? 0 : k * fs);  // [k][k + 1]
   __shared__ float red[HYP_WARPS][16];
   __shared__ float Bs[16], adj[16];
   const int seed = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
@@ -114,8 +133,8 @@ hypotheses_kernel(const float* __restrict__ feats, const int64_t* __restrict__ k
     idx[i] = p;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      P[i][d] = src[3 * o + d];
-      P[i][3 + d] = tgt[3 * o + d];
+      P[6 * i + d] = src[3 * o + d];
+      P[6 * i + 3 + d] = tgt[3 * o + d];
     }
     valid[i] = (mask == nullptr || mask[o] != 0) ? 1.0f : 0.0f;
   }
@@ -144,43 +163,59 @@ hypotheses_kernel(const float* __restrict__ feats, const int64_t* __restrict__ k
       dot += a.w * bq.w;
     }
     const float feat = fmaxf(1.0f - (1.0f - dot) / sig2, 0.0f);
-    const float dd = dist(P[i], P[j]) - dist(P[i] + 3, P[j] + 3);
+    const float dd = dist(P + 6 * i, P + 6 * j) - dist(P + 6 * i + 3, P + 6 * j + 3);
     const float spat = fmaxf(1.0f - (dd * dd) * inv_sigma_d2, 0.0f);
     const float m = (i == j || valid[i] == 0.0f || valid[j] == 0.0f) ? 0.0f : feat * spat;
     M[i * ms + j] = m;
     M[j * ms + i] = m;
   }
-  if (tid < k) v[tid] = 1.0f;
+  for (int i = tid; i < k; i += HYP_THREADS) v[i] = 1.0f;
   __syncthreads();
 
-  // power iteration: thread i owns row i
-  const int row = tid;
+  // power iteration: thread t owns rows t + 128 i
   for (int it = 0; it < iters; ++it) {
-    float w = 0.0f;
-    if (row < k)
+    float sq[1] = {0.0f};
+    for (int row = tid; row < k; row += HYP_THREADS) {
+      float w = 0.0f;
       for (int j = 0; j < k; ++j) w += M[row * ms + j] * v[j];
-    float sq[1] = {w * w};
+      v_new[row] = w;
+      sq[0] += w * w;
+    }
     block_sums(sq, red);  // every thread has read v
-    if (row < k) v[row] = w / (sqrtf(sq[0] + 1e-30f) + 1e-6f);
+    for (int row = tid; row < k; row += HYP_THREADS)
+      v[row] = v_new[row] / (sqrtf(sq[0] + 1e-30f) + 1e-6f);
     __syncthreads();
   }
 
   // NSM weights, then the weighted Procrustes on the centred neighbours
-  float wi = row < k ? fabsf(v[row]) * valid[row] : 0.0f;
-  float tot[1] = {wi};
+  float tot[1] = {0.0f};
+  for (int row = tid; row < k; row += HYP_THREADS) tot[0] += fabsf(v[row]) * valid[row];
   block_sums(tot, red);
-  wi = wi / (tot[0] + 1e-6f);
-  const float* p = P[row < k ? row : 0];
-  float m7[7] = {wi, wi * p[0], wi * p[1], wi * p[2], wi * p[3], wi * p[4], wi * p[5]};
+  auto weight = [&](int row) { return fabsf(v[row]) * valid[row] / (tot[0] + 1e-6f); };
+  float m7[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int row = tid; row < k; row += HYP_THREADS) {
+    const float wi = weight(row);
+    const float* p = P + 6 * row;
+    m7[0] += wi;
+#pragma unroll
+    for (int d = 0; d < 6; ++d) m7[1 + d] += wi * p[d];
+  }
   block_sums(m7, red);
   const float wsum = m7[0] + 1e-6f;
-  float cs[3], ct[3], h[9];
+  float cs[3], ct[3];
   for (int d = 0; d < 3; ++d) {
     cs[d] = m7[1 + d] / wsum;
     ct[d] = m7[4 + d] / wsum;
   }
-  for (int r = 0; r < 3; ++r)
-    for (int q = 0; q < 3; ++q) h[3 * r + q] = (p[r] - cs[r]) * wi * (p[3 + q] - ct[q]);
+  float h[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int row = tid; row < k; row += HYP_THREADS) {
+    const float wi = weight(row);
+    const float* p = P + 6 * row;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) h[3 * r + q] += (p[r] - cs[r]) * wi * (p[3 + q] - ct[q]);
+  }
   block_sums(h, red);
   if (warp == 0) {
     const float H[3][3] = {{h[0], h[1], h[2]}, {h[3], h[4], h[5]}, {h[6], h[7], h[8]}};
@@ -306,35 +341,58 @@ select_kernel(const float* __restrict__ trans, const float* __restrict__ counts,
   }
 }
 
-// the dynamic shared memory launch 1 may use, raised once per device
+// the dynamic shared memory launch 1 may use, raised once per device and form
+template <bool kFGlobal, bool kMGlobal>
 bool raise_smem_limit() {
   static bool raised[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
   if (raised[dev]) return true;
-  if (cudaFuncSetAttribute(hypotheses_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(hypotheses_kernel<kFGlobal, kMGlobal>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            MAX_HYP_SMEM) != cudaSuccess)
     return false;
   raised[dev] = true;
   return true;
 }
 
+template <bool kFGlobal, bool kMGlobal>
+int launch_hypotheses(const void* feats, const void* knn, const void* src, const void* tgt,
+                      const void* mask, const void* sigma, void* trans, void* ws_f, void* ws_m,
+                      int batch, int n, int c, int s, int k, int iters, float inv_sigma_d2,
+                      size_t bytes, void* stream) {
+  if (!raise_smem_limit<kFGlobal, kMGlobal>()) return static_cast<int>(cudaGetLastError());
+  hypotheses_kernel<kFGlobal, kMGlobal>
+      <<<dim3(s, batch), HYP_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(feats), static_cast<const int64_t*>(knn),
+          static_cast<const float*>(src), static_cast<const float*>(tgt),
+          static_cast<const uint8_t*>(mask), static_cast<const float*>(sigma), inv_sigma_d2, n,
+          c, s, k, iters, static_cast<float*>(trans), static_cast<float*>(ws_f),
+          static_cast<float*>(ws_m));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// ws_f [B, S, k, fs] (fs = C rounded up to 4, plus 4) and ws_m [B, S, k, k + 1]
+// f32: the workspaces of the features and of M, or nullptr for the arena;
+// the arena (the per-row arrays and what is not in a workspace) must fit
+// MAX_HYP_SMEM (the wrapper's choice: kernels/scoring.py::hypotheses_layout).
 extern "C" int seed_hypotheses(const void* feats, const void* knn, const void* src,
                                const void* tgt, const void* mask, const void* sigma,
-                               void* trans, int batch, int n, int c, int s, int k, int iters,
-                               float inv_sigma_d2, void* stream) {
-  const size_t bytes = (static_cast<size_t>(k) * (((c + 3) & ~3) + 4) + k * (k + 1)) * 4;
-  if (k < 1 || k > KMAX || c < 1 || bytes > MAX_HYP_SMEM)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!raise_smem_limit()) return static_cast<int>(cudaGetLastError());
-  hypotheses_kernel<<<dim3(s, batch), HYP_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(feats), static_cast<const int64_t*>(knn),
-      static_cast<const float*>(src), static_cast<const float*>(tgt),
-      static_cast<const uint8_t*>(mask), static_cast<const float*>(sigma), inv_sigma_d2, n, c, s,
-      k, iters, static_cast<float*>(trans));
-  return static_cast<int>(cudaGetLastError());
+                               void* trans, void* ws_f, void* ws_m, int batch, int n, int c,
+                               int s, int k, int iters, float inv_sigma_d2, void* stream) {
+  const bool f_global = ws_f != nullptr, m_global = ws_m != nullptr;
+  const size_t fs = ((c + 3) & ~3) + 4;
+  const size_t bytes = (row_arrays(k) + (f_global ? 0 : k * fs) +
+                        (m_global ? 0 : static_cast<size_t>(k) * (k + 1))) * 4;
+  if (k < 1 || c < 1 || bytes > MAX_HYP_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = f_global ? (m_global ? launch_hypotheses<true, true>
+                                           : launch_hypotheses<true, false>)
+                               : (m_global ? launch_hypotheses<false, true>
+                                           : launch_hypotheses<false, false>);
+  return launch(feats, knn, src, tgt, mask, sigma, trans, ws_f, ws_m, batch, n, c, s, k, iters,
+                inv_sigma_d2, bytes, stream);
 }
 
 extern "C" int seed_inlier_counts(const void* trans, const void* src, const void* tgt,

@@ -11,7 +11,7 @@
 //   invalid j -> -1e30, j == seed_s -> -3e38
 //   idx[s, :] = the k largest sim[s, :], descending, ties to the lower index
 //
-// features [B, N, 128] f32, seeds [B, S] int32, bias [B, N] f32 (0 valid,
+// features [B, N, c] f32 (c = 128, or a wider model's 128 m), seeds [B, S] int32, bias [B, N] f32 (0 valid,
 // -1e30 invalid), idx [B, S, k] int64; scratch [B, S, NP] f32, NP = N rounded
 // up to 64, allocated by the wrapper.
 //
@@ -27,7 +27,8 @@
 //    candidates as two float4), and each of its 256 threads keeps 4 x 4
 //    sums. The masked and self tiers are applied in the epilogue and the
 //    tile is written to the scratch (10 MB at N = 5120, which the 50 MB L2
-//    holds; 60 MB at 12288). f32 x f32 with f32 sums, as JAX's product
+//    holds; 60 MB at 12288). The width is a template argument: 128 for the
+//    shipped models, else 0, a runtime count of 32-channel steps. f32 x f32 with f32 sums, as JAX's product
 //    (seed_knn.py:59-62): bf16 or TF32 operands would move neighbour sets
 //    beyond the near-tie rule. A tail seed tile is masked, not repeated.
 // 2. Selection (seed_select_kernel): one block per seed row. The row is
@@ -55,7 +56,7 @@
 
 namespace {
 
-constexpr int C = 128;  // a narrower model is zero-padded to it by the wrapper
+constexpr int C = 128;  // a model is zero-padded to a multiple of it by the wrapper
 constexpr int KMAX = 128;
 constexpr float MASKED = -1e30f;
 constexpr float SELF = -3e38f;
@@ -70,15 +71,19 @@ constexpr int TP = TS + 4;        // row of a k-major tile (floats, 16-byte alig
 constexpr int LOAD_ITERS = TS * TC / 4 / SIM_THREADS;
 static_assert(TS == TN, "one load slot layout serves both tiles");
 
+// kC: the feature width (C), or 0 for a width c read at run time
+template <int kC>
 __global__ void __launch_bounds__(SIM_THREADS)
 seed_sim_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
-                const float* __restrict__ bias, float* __restrict__ sim, int n, int s, int np) {
+                const float* __restrict__ bias, float* __restrict__ sim, int n, int s, int np,
+                int c) {
+  const int cw = kC ? kC : c;
   __shared__ __align__(16) float As[TC][TP];  // seed channels, k-major
   __shared__ __align__(16) float Bs[TC][TP];  // candidate channels, k-major
   const int b = blockIdx.z;
   const int s0 = blockIdx.y * TS, j0 = blockIdx.x * TN;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* f = feats + static_cast<size_t>(b) * n * C;
+  const float* f = feats + static_cast<size_t>(b) * n * cw;
   const int* sd = seeds + static_cast<size_t>(b) * s;
 
   // load slots: row i / 8 of the tile, channels 4 (i % 8) + [0, 4) of a step
@@ -87,8 +92,8 @@ seed_sim_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
 #pragma unroll
   for (int it = 0; it < LOAD_ITERS; ++it) {
     const int r = (tid + it * SIM_THREADS) >> 3;
-    a_row[it] = s0 + r < s ? f + static_cast<size_t>(sd[s0 + r]) * C : nullptr;
-    b_row[it] = j0 + r < n ? f + static_cast<size_t>(j0 + r) * C : nullptr;
+    a_row[it] = s0 + r < s ? f + static_cast<size_t>(sd[s0 + r]) * cw : nullptr;
+    b_row[it] = j0 + r < n ? f + static_cast<size_t>(j0 + r) * cw : nullptr;
   }
   const int c4 = (tid & 7) * 4;
   float4 areg[LOAD_ITERS], breg[LOAD_ITERS];
@@ -108,7 +113,7 @@ seed_sim_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
   fetch(0);
-  for (int c0 = 0; c0 < C; c0 += TC) {
+  for (int c0 = 0; c0 < cw; c0 += TC) {
     __syncthreads();  // the previous step's readers are done
 #pragma unroll
     for (int it = 0; it < LOAD_ITERS; ++it) {
@@ -123,7 +128,7 @@ seed_sim_kernel(const float* __restrict__ feats, const int* __restrict__ seeds,
       Bs[c4 + 3][r] = breg[it].w;
     }
     __syncthreads();
-    if (c0 + TC < C) fetch(c0 + TC);  // in flight during this step's sums
+    if (c0 + TC < cw) fetch(c0 + TC);  // in flight during this step's sums
 #pragma unroll 8
     for (int kk = 0; kk < TC; ++kk) {
       const float4 a = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
@@ -267,16 +272,19 @@ seed_select_kernel(const float* __restrict__ sim, int64_t* __restrict__ idx_out,
 
 }  // namespace
 
+// c: the feature width, a multiple of 128
 extern "C" int seed_knn_exact(const void* feats, const void* seeds, const void* bias,
-                              void* idx, void* scratch, int batch, int n, int s, int k,
+                              void* idx, void* scratch, int batch, int n, int s, int k, int c,
                               void* stream) {
-  if (k < 1 || k > KMAX || k >= n) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > KMAX || k >= n || c < C || c % C)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int np = (n + TN - 1) / TN * TN;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 sim_grid(np / TN, (s + TS - 1) / TS, batch);
-  seed_sim_kernel<<<sim_grid, SIM_THREADS, 0, st>>>(
+  const auto sim_kernel = c == C ? seed_sim_kernel<C> : seed_sim_kernel<0>;
+  sim_kernel<<<sim_grid, SIM_THREADS, 0, st>>>(
       static_cast<const float*>(feats), static_cast<const int*>(seeds),
-      static_cast<const float*>(bias), static_cast<float*>(scratch), n, s, np);
+      static_cast<const float*>(bias), static_cast<float*>(scratch), n, s, np, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t keys_bytes = n <= MAX_STAGED ? static_cast<size_t>(n) * sizeof(uint32_t) : 0;

@@ -27,6 +27,12 @@
 //
 // Bound on the H100: f32 operands, so the CUDA cores' 67 TFLOP/s: 2 N^2 C
 // operations per sample forward, 4 N^2 C backward, against one [N, C] stream.
+//
+// Above C = 128 (kWide): F is [B, N, ld], the model's channels zero-padded to
+// ld = 128 m. The tile products S sum over the m chunks, staged one at a time
+// into the same 128-wide tiles; the backward makes one pass per 128-wide
+// chunk of dF, recomputing S (in one chunk order, so every pass sees the same
+// S and g) and adding dsigma in its first pass only.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,12 +48,14 @@ constexpr int PP = TS + 1;
 constexpr int SROWS = 2;  // strip rows the kernels read
 constexpr int SSTRIDE = 8;
 
+// rows [r0, r0 + TS), channels [col0, col0 + C) of a [n, ld] array, zeros past n
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                                          int n) {
+                                          int n, int ld = C, int col0 = 0) {
   for (int i = threadIdx.x; i < TS * C / 4; i += THREADS) {
     const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + r) * C + c4);
+    if (r0 + r < n)
+      x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + r) * ld + col0 + c4);
     dst[r * CP + c4 + 0] = x.x;
     dst[r * CP + c4 + 1] = x.y;
     dst[r * CP + c4 + 2] = x.z;
@@ -64,13 +72,17 @@ __device__ __forceinline__ void load_strip(float* dst, const float* __restrict__
   }
 }
 
-// S for the thread's 4 x 4 entries: rows 4 ty + r, columns tx + 16 j
+// S for the thread's 4 x 4 entries: rows 4 ty + r, columns tx + 16 j (kAdd:
+// added to s, the sum over a further chunk of channels)
+template <bool kAdd = false>
 __device__ __forceinline__ void tile_products(const float* Fi, const float* Fj, int ty, int tx,
                                               float s[4][4]) {
+  if constexpr (!kAdd) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+  }
 #pragma unroll 4
   for (int c = 0; c < C; ++c) {
     float a[4], b[4];
@@ -107,9 +119,29 @@ constexpr int OFF_GG = OFF_RED + WARPS;  // backward only
 constexpr size_t FWD_SMEM_BYTES = OFF_GG * sizeof(float);
 constexpr size_t BWD_SMEM_BYTES = (OFF_GG + TS * PP) * sizeof(float);
 
+// S over the m = ld / C chunks of rows [i0, i0 + TS) and [j0, j0 + TS) (wide
+// form): the chunks staged into Fi and Fj in turn; starts with a barrier
+__device__ __forceinline__ void wide_products(const float* __restrict__ f, int i0, int j0, int n,
+                                              int ld, float* Fi, float* Fj, int ty, int tx,
+                                              float s[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+  for (int ch = 0; ch < ld / C; ++ch) {
+    __syncthreads();  // the previous chunk's readers are done
+    load_rows(Fi, f, i0, n, ld, C * ch);
+    load_rows(Fj, f, j0, n, ld, C * ch);
+    __syncthreads();
+    tile_products<true>(Fi, Fj, ty, tx, s);
+  }
+}
+
+template <bool kWide>
 __global__ void __launch_bounds__(THREADS)
 sm_loss_fwd_kernel(const float* __restrict__ f, const float* __restrict__ strips,
-                   const float* __restrict__ scalars, float* __restrict__ partial, int n) {
+                   const float* __restrict__ scalars, float* __restrict__ partial, int n,
+                   int ld) {
   extern __shared__ __align__(16) float smem[];
   float* Fi = smem + OFF_FI;
   float* Fj = smem + OFF_FJ;
@@ -119,20 +151,25 @@ sm_loss_fwd_kernel(const float* __restrict__ f, const float* __restrict__ strips
 
   const int b = blockIdx.z;
   const int i0 = blockIdx.y * TS, j0 = blockIdx.x * TS;
-  f += static_cast<size_t>(b) * n * C;
+  f += static_cast<size_t>(b) * n * (kWide ? ld : C);
   strips += static_cast<size_t>(b) * SSTRIDE * n;
   const float sigma = scalars[b * 4];
   const float sig2 = sigma * sigma;
 
-  load_rows(Fi, f, i0, n);
-  load_rows(Fj, f, j0, n);
+  if constexpr (!kWide) {
+    load_rows(Fi, f, i0, n);
+    load_rows(Fj, f, j0, n);
+  }
   load_strip(Li, strips, i0, n);
   load_strip(Lj, strips, j0, n);
   __syncthreads();
 
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float s[4][4];
-  tile_products(Fi, Fj, ty, tx, s);
+  if constexpr (kWide)
+    wide_products(f, i0, j0, n, ld, Fi, Fj, ty, tx, s);
+  else
+    tile_products(Fi, Fj, ty, tx, s);
 
   float sum_p = 0.f, sum_n = 0.f;
 #pragma unroll
@@ -159,10 +196,11 @@ sm_loss_fwd_kernel(const float* __restrict__ f, const float* __restrict__ strips
   }
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(THREADS)
 sm_loss_bwd_kernel(const float* __restrict__ f, const float* __restrict__ strips,
                    const float* __restrict__ scalars, float* __restrict__ df,
-                   float* __restrict__ dsigma_partial, int n) {
+                   float* __restrict__ dsigma_partial, int n, int ld) {
   extern __shared__ __align__(16) float smem[];
   float* Fi = smem + OFF_FI;
   float* Fj = smem + OFF_FJ;
@@ -173,13 +211,15 @@ sm_loss_bwd_kernel(const float* __restrict__ f, const float* __restrict__ strips
 
   const int b = blockIdx.y;
   const int i0 = blockIdx.x * TS;
-  f += static_cast<size_t>(b) * n * C;
-  df += static_cast<size_t>(b) * n * C;
+  const int w = kWide ? ld : C;  // row width
+  const int chunks = kWide ? ld / C : 1;
+  f += static_cast<size_t>(b) * n * w;
+  df += static_cast<size_t>(b) * n * w;
   strips += static_cast<size_t>(b) * SSTRIDE * n;
   const float sigma = scalars[b * 4], wp = scalars[b * 4 + 1], wn = scalars[b * 4 + 2];
   const float sig2 = sigma * sigma;
 
-  load_rows(Fi, f, i0, n);
+  if constexpr (!kWide) load_rows(Fi, f, i0, n);
   load_strip(Li, strips, i0, n);
 
   // phase-1 layout: 16 row quads x 16 column lanes (columns tx + 16 j)
@@ -187,97 +227,127 @@ sm_loss_bwd_kernel(const float* __restrict__ f, const float* __restrict__ strips
   // phase-2 layout: 8 row octets x 32 column lanes (columns cx + 32 j)
   const int ry = threadIdx.x >> 5, cx = threadIdx.x & 31;
 
-  float acc[8][4];
+  for (int oc = 0; oc < chunks; ++oc) {
+    float acc[8][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-  float dsig = 0.f;
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+    float dsig = 0.f;
 
-  for (int j0 = 0; j0 < n; j0 += TS) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(Fj, f, j0, n);
-    load_strip(Lj, strips, j0, n);
-    __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += TS) {
+      __syncthreads();  // the previous tile's readers are done
+      if constexpr (!kWide) load_rows(Fj, f, j0, n);
+      load_strip(Lj, strips, j0, n);
+      __syncthreads();
 
-    float s[4][4];
-    tile_products(Fi, Fj, ty, tx, s);
+      float s[4][4];
+      if constexpr (kWide)
+        wide_products(f, i0, j0, n, ld, Fi, Fj, ty, tx, s);
+      else
+        tile_products(Fi, Fj, ty, tx, s);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 4 * ty + r;
+      for (int r = 0; r < 4; ++r) {
+        const int row = 4 * ty + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float offdiag = (i0 + row != j0 + col) ? 1.f : 0.f;
-        const float u = 1.0f - (1.0f - s[r][j]) / sig2;
-        const float m = fminf(fmaxf(u, 0.f), 1.f) * offdiag;
-        const float pm = Li[TS + row] * Lj[TS + col];
-        const float gtm = Li[row] * Lj[col] * offdiag;
-        const float g = wp * 2.0f * (m - 1.0f) * gtm + wn * 2.0f * m * (pm - gtm);
-        const float gate = (u > 0.f && u < 1.f) ? offdiag * pm : 0.f;
-        const float gg = g * gate;
-        GG[row * PP + col] = gg;
-        dsig += gg * 2.0f * (1.0f - s[r][j]);
+        for (int j = 0; j < 4; ++j) {
+          const int col = tx + 16 * j;
+          const float offdiag = (i0 + row != j0 + col) ? 1.f : 0.f;
+          const float u = 1.0f - (1.0f - s[r][j]) / sig2;
+          const float m = fminf(fmaxf(u, 0.f), 1.f) * offdiag;
+          const float pm = Li[TS + row] * Lj[TS + col];
+          const float gtm = Li[row] * Lj[col] * offdiag;
+          const float g = wp * 2.0f * (m - 1.0f) * gtm + wn * 2.0f * m * (pm - gtm);
+          const float gate = (u > 0.f && u < 1.f) ? offdiag * pm : 0.f;
+          const float gg = g * gate;
+          GG[row * PP + col] = gg;
+          dsig += gg * 2.0f * (1.0f - s[r][j]);
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
+      if constexpr (kWide) {
+        if (oc != chunks - 1) {  // the tile's chunk of dF (the products left the last one)
+          load_rows(Fj, f, j0, n, ld, C * oc);
+          __syncthreads();
+        }
+      }
 
 #pragma unroll 4
-    for (int kk = 0; kk < TS; ++kk) {
-      float fv[4];
+      for (int kk = 0; kk < TS; ++kk) {
+        float fv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) fv[j] = Fj[kk * CP + cx + 32 * j];
+        for (int j = 0; j < 4; ++j) fv[j] = Fj[kk * CP + cx + 32 * j];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float gg = GG[(8 * ry + r) * PP + kk];
+        for (int r = 0; r < 8; ++r) {
+          const float gg = GG[(8 * ry + r) * PP + kk];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(gg, fv[j], acc[r][j]);
+          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(gg, fv[j], acc[r][j]);
+        }
       }
     }
-  }
 
-  const float coef = 2.0f / sig2;
+    const float coef = 2.0f / sig2;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = 8 * ry + r;
-    if (i0 + row >= n) continue;
+    for (int r = 0; r < 8; ++r) {
+      const int row = 8 * ry + r;
+      if (i0 + row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      df[static_cast<size_t>(i0 + row) * C + cx + 32 * j] = coef * acc[r][j];
-  }
-  const float total = block_sum(dsig, red);
-  if (threadIdx.x == 0)
-    dsigma_partial[static_cast<size_t>(b) * gridDim.x + blockIdx.x] = total / (sig2 * sigma);
+      for (int j = 0; j < 4; ++j)
+        df[static_cast<size_t>(i0 + row) * w + C * oc + cx + 32 * j] = coef * acc[r][j];
+    }
+    if (oc == 0) {  // every pass sums the same dsigma
+      const float total = block_sum(dsig, red);
+      if (threadIdx.x == 0)
+        dsigma_partial[static_cast<size_t>(b) * gridDim.x + blockIdx.x] = total / (sig2 * sigma);
+    }
+  }  // output chunks
 }
 
-}  // namespace
-
-// partial: [batch, tiles, tiles, 2] with tiles = ceil(n / 64)
-extern "C" int sm_loss_fwd(const void* f, const void* strips, const void* scalars, void* partial,
-                           int batch, int n, void* stream) {
+template <bool kWide>
+int launch_fwd(const void* f, const void* strips, const void* scalars, void* partial, int batch,
+               int n, int ld, void* stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      sm_loss_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sm_loss_fwd_kernel<kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(FWD_SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n + TS - 1) / TS;
   const dim3 grid(tiles, tiles, batch);
-  sm_loss_fwd_kernel<<<grid, THREADS, FWD_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  sm_loss_fwd_kernel<kWide><<<grid, THREADS, FWD_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(f), static_cast<const float*>(strips),
-      static_cast<const float*>(scalars), static_cast<float*>(partial), n);
+      static_cast<const float*>(scalars), static_cast<float*>(partial), n, ld);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kWide>
+int launch_bwd(const void* f, const void* strips, const void* scalars, void* df,
+               void* dsigma_partial, int batch, int n, int ld, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sm_loss_bwd_kernel<kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(BWD_SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + TS - 1) / TS, batch);
+  sm_loss_bwd_kernel<kWide><<<grid, THREADS, BWD_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(strips),
+      static_cast<const float*>(scalars), static_cast<float*>(df),
+      static_cast<float*>(dsigma_partial), n, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ld: the row width of f and df (128, or a wider model's 128 m)
+// partial: [batch, tiles, tiles, 2] with tiles = ceil(n / 64)
+extern "C" int sm_loss_fwd(const void* f, const void* strips, const void* scalars, void* partial,
+                           int batch, int n, int ld, void* stream) {
+  if (ld < C || ld % C) return static_cast<int>(cudaErrorInvalidValue);
+  return ld == C ? launch_fwd<false>(f, strips, scalars, partial, batch, n, ld, stream)
+                 : launch_fwd<true>(f, strips, scalars, partial, batch, n, ld, stream);
 }
 
 // dsigma_partial: [batch, tiles]
 extern "C" int sm_loss_bwd(const void* f, const void* strips, const void* scalars, void* df,
-                           void* dsigma_partial, int batch, int n, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      sm_loss_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(BWD_SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + TS - 1) / TS, batch);
-  sm_loss_bwd_kernel<<<grid, THREADS, BWD_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(f), static_cast<const float*>(strips),
-      static_cast<const float*>(scalars), static_cast<float*>(df),
-      static_cast<float*>(dsigma_partial), n);
-  return static_cast<int>(cudaGetLastError());
+                           void* dsigma_partial, int batch, int n, int ld, void* stream) {
+  if (ld < C || ld % C) return static_cast<int>(cudaErrorInvalidValue);
+  return ld == C ? launch_bwd<false>(f, strips, scalars, df, dsigma_partial, batch, n, ld, stream)
+                 : launch_bwd<true>(f, strips, scalars, df, dsigma_partial, batch, n, ld, stream);
 }

@@ -12,11 +12,13 @@ into the Dense before them:
     out = h + (relu(relu(o Wm0 + bm0) Wm1 + bm1) Wm2 + bm2)  f32
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel or raises. The kernels are compiled for C = 128: a
-narrower layer is zero-padded to it (``pad_layer_weights``; the message MLP's
-C/2 to 64) and sliced back, with the 1/sqrt(C) constants of the layer's own
-width. Those that hold the attention also take N a multiple of 64 (every
-bucket of data/pipeline.py is one). The plain versions take any C and N.
+it launches its kernel or raises. The kernels work in chunks of 128 channels:
+a layer is zero-padded to the next multiple of 128 (``pad_layer_weights``; the
+message MLP's C/2 to a multiple of 64) and sliced back, with the 1/sqrt(C)
+constants of the layer's own width. Above C = 128 a layer runs as the pair at
+every N: the one-launch kernel keeps a C x C weight matrix in shared memory.
+Those that hold the attention also take N a multiple of 64 (every bucket of
+data/pipeline.py is one). The plain versions take any C and N.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from pointdsc_tpu_torch.kernels._check import (
     expect_aligned,
     on_cuda,
     pad_channels,
+    padded_width,
     unpad_channels,
 )
 from pointdsc_tpu_torch.kernels.sc_attention import (
@@ -46,6 +49,13 @@ from pointdsc_tpu_torch.kernels.sc_attention import (
 # up to about this size (N C 10 bytes = 7.9 MB at 6144).
 MAX_FUSED_LAYER_N = 6144
 N_MULTIPLE = 64
+MLP_MULTIPLE = 64  # the message MLP's inner width on the card is a multiple of it
+
+
+def mlp_width(c: int) -> int:
+    """The message MLP's inner width C/2 of a C-wide layer, padded as the
+    kernels take it: 64 up to C = 128, else a multiple of 64."""
+    return MLP_MULTIPLE * max(1, -(-(c // 2) // MLP_MULTIPLE))
 
 
 def fold_bn(weight, bias, scale, bn_bias, mean, var, eps: float = 1e-5):
@@ -137,25 +147,26 @@ def fused_layer_plain(x, compat, kbias, weights, c=None):
 
 def pad_layer_weights(weights, c):
     """``fold_layer``'s ten arrays of a C-wide layer zero-padded to the
-    kernels' C = 128 (the message MLP's C/2 to 64; q, k and v each padded in
-    their own third of wqkv), so that the padded channels of h, q, k, v, the
-    message and the output stay exact zeros. The weights themselves at
-    C = 128."""
+    kernels' width, ``padded_width(c)`` (the message MLP's C/2 to
+    ``mlp_width(c)``; q, k and v each padded in their own third of wqkv), so
+    that the padded channels of h, q, k, v, the message and the output stay
+    exact zeros. The weights themselves at C = 128."""
     if c == C_KERNEL:
         return weights
     w1, b1, wqkv, bqkv, wm0, bm0, wm1, bm1, wm2, bm2 = weights
-    full, half = C_KERNEL, C_KERNEL // 2
+    full, half = padded_width(c), mlp_width(c)
 
     def pad2(w, rows, cols):
         return torch.nn.functional.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0]))
 
-    def thirds(t):  # [..., 3c] -> [..., 3 * 128]
-        return torch.cat([pad_channels(t[..., i * c:(i + 1) * c]) for i in range(3)], dim=-1)
+    def thirds(t):  # [..., 3c] -> [..., 3 * full]
+        return torch.cat([pad_channels(t[..., i * c:(i + 1) * c], full) for i in range(3)],
+                         dim=-1)
 
-    return (pad2(w1, full, full), pad_channels(b1), pad2(thirds(wqkv), full, 3 * full),
+    return (pad2(w1, full, full), pad_channels(b1, full), pad2(thirds(wqkv), full, 3 * full),
             thirds(bqkv), pad2(wm0, full, half), pad_channels(bm0, half),
             pad2(wm1, half, half), pad_channels(bm1, half), pad2(wm2, half, full),
-            pad_channels(bm2))
+            pad_channels(bm2, full))
 
 
 # ---------------------------------------------------------------- wrappers
@@ -219,11 +230,16 @@ def fused_encoder_layer(x, compat, kbias, weights, workspace=None):
     ``workspace`` from ``new_workspace`` at C = 128 (allocated here if None).
     Returns [B, N, C] f32. The kernel needs a cooperative launch (a
     grid-wide barrier between its two phases) and raises if the card
-    refuses it."""
+    refuses it. It takes C <= 128 (zero-padded to 128): it keeps a C x C
+    weight matrix in shared memory, so ``fused_layer`` runs a wider layer as
+    the pair."""
     b, n, c = _check_layer_inputs(x, compat, kbias, weights)
     if not on_cuda(x):
         return fused_layer_plain(x, compat, kbias, weights)
     _check_kernel_size(n, c)
+    if padded_width(c) != C_KERNEL:
+        raise ValueError(f"the one-launch layer kernel holds one {C_KERNEL}-channel chunk, got "
+                         f"C={c}: fused_layer runs a wider layer as the pair")
     x, weights = pad_channels(x), pad_layer_weights(weights, c)
     h, q, k, v, kscale = _take_workspace(workspace, b, n, C_KERNEL, x.device)
     out = torch.empty_like(x)
@@ -242,8 +258,9 @@ fused_encoder_layer.launches = 0
 def pcn_qkv(x, weights, workspace=None):
     """PointCN + QKV in one launch: (h f32, q, k, v bf16, kscale [B] f32),
     written into ``workspace`` (from ``new_workspace``, at the layer's width
-    on the CPU and at C = 128 on the card) when one is given, or into new
-    tensors. Any N. Below C = 128 the card returns new unpadded tensors."""
+    on the CPU and at ``padded_width(C)`` on the card) when one is given, or
+    into new tensors. Any N. Where C is not a multiple of 128 the card
+    returns new unpadded tensors."""
     expect(x, "x", dtype=torch.float32, ndim=3)
     b, n, c = x.shape
     _check_weights(weights, c, x.device)
@@ -257,12 +274,13 @@ def pcn_qkv(x, weights, workspace=None):
     _check_kernel_size(n, c, any_n=True)
     x, weights = pad_channels(x), pad_layer_weights(weights, c)
     expect_aligned({"x": x, **{f"weights[{i}]": w for i, w in enumerate(weights[:4])}})
-    h, q, k, v, kscale = _take_workspace(workspace, b, n, C_KERNEL, x.device)
+    w = x.shape[-1]
+    h, q, k, v, kscale = _take_workspace(workspace, b, n, w, x.device)
     pcn_qkv.launches += 1
     _build.launch("encoder_layer", "pcn_qkv", x.device,
-                  x.data_ptr(), *(w.data_ptr() for w in weights[:4]),
+                  x.data_ptr(), *(t.data_ptr() for t in weights[:4]),
                   h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), kscale.data_ptr(),
-                  b, n, inv_sqrt_c(c))
+                  b, n, w, inv_sqrt_c(c))
     return (*(unpad_channels(t, c) for t in (h, q, k, v)), kscale)
 
 
@@ -271,7 +289,9 @@ pcn_qkv.launches = 0
 
 def attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights):
     """Offset attention + message MLP + residual in one launch, on the
-    outputs of ``pcn_qkv``. Returns [B, N, C] f32."""
+    outputs of ``pcn_qkv``. Returns [B, N, C] f32. Above C = 128 the kernel
+    makes one attention pass per 128-wide output chunk and runs the message
+    MLP through a workspace [B, N, W + 2 ``mlp_width``] f32 allocated here."""
     expect(h, "h", dtype=torch.float32, ndim=3)
     b, n, c = h.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -287,12 +307,16 @@ def attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights):
     q, k, v, h = (pad_channels(t) for t in (q, k, v, h))
     weights = pad_layer_weights(weights, c)
     expect_aligned({"q": q, "k": k, "v": v})
+    w, half = h.shape[-1], weights[5].shape[0]
     out = torch.empty_like(h)
+    ws = None if w == C_KERNEL else torch.empty((b, n, w + 2 * half), dtype=torch.float32,
+                                                device=h.device)
     attn_mlp_residual.launches += 1
     _build.launch("encoder_layer", "attn_mlp_residual", h.device,
                   kscale.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   compat.data_ptr(), _ptr(kbias), h.data_ptr(),
-                  *(w.data_ptr() for w in weights[4:]), out.data_ptr(), b, n, qk_scale(c))
+                  *(t.data_ptr() for t in weights[4:]), out.data_ptr(), _ptr(ws), b, n, w, half,
+                  qk_scale(c))
     return unpad_channels(out, c)
 
 
@@ -300,8 +324,9 @@ attn_mlp_residual.launches = 0
 
 
 def fused_layer(x, compat, kbias, weights, workspace=None):
-    """The JAX dispatch: one launch up to ``MAX_FUSED_LAYER_N``, the pair above."""
-    if x.shape[1] <= MAX_FUSED_LAYER_N:
+    """The JAX dispatch: one launch up to ``MAX_FUSED_LAYER_N``, the pair
+    above it, and the pair at every N for a layer wider than 128 channels."""
+    if x.shape[1] <= MAX_FUSED_LAYER_N and padded_width(x.shape[-1]) == C_KERNEL:
         return fused_encoder_layer(x, compat, kbias, weights, workspace)
     h, q, k, v, kscale = pcn_qkv(x, weights, workspace)
     return attn_mlp_residual(kscale, q, k, v, compat, kbias, h, weights)
@@ -312,8 +337,8 @@ def make_fused_layer_fn(compat_cache, mask=None, fold_cache: dict | None = None)
     fn(x, pcn_params, nl_params) -> x over the shared [B, N, N] int8 cache.
     With ``mask=None`` no key bias is read (all keys valid). ``fold_cache``:
     see ``folded_weights``; without it the BatchNorms are folded per call. On
-    the card the layers share one workspace (h, q, k, v, kscale at C = 128),
-    allocated at the first layer."""
+    the card the layers share one workspace (h, q, k, v, kscale at
+    ``padded_width(C)``), allocated at the first layer."""
     b, n = compat_cache.shape[:2]
     kbias = None if mask is None else key_bias(mask, b, n, compat_cache.device)
     workspace = []
@@ -322,7 +347,7 @@ def make_fused_layer_fn(compat_cache, mask=None, fold_cache: dict | None = None)
         weights = folded_weights(pcn_params, nl_params, fold_cache)
         x = x.float().contiguous()
         if not workspace and on_cuda(x):
-            workspace.extend(new_workspace(b, n, C_KERNEL, x.device))
+            workspace.extend(new_workspace(b, n, padded_width(x.shape[-1]), x.device))
         return fused_layer(x, compat_cache, kbias, weights, workspace or None)
 
     return layer_fn

@@ -21,7 +21,6 @@ import torch
 
 from pointdsc_tpu_torch.kernels import _build
 from pointdsc_tpu_torch.kernels._check import (
-    C_KERNEL,
     check_width,
     expect,
     expect_aligned,
@@ -138,12 +137,13 @@ def sc_attention_cached_plain(q, k, v, compat, key_bias, c=None):
 
 
 def _launch_sc_attention(q, k, v, compat, key_bias, c):
-    """q, k, v bf16 [B, N, 128], contiguous; c the model's width."""
+    """q, k, v bf16 [B, N, W] (W = ``padded_width(c)``), contiguous; c the
+    model's width."""
     b, n, w = q.shape
     out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
     _build.launch("sc_attention", "sc_attention_cached", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
-                  key_bias.data_ptr(), out.data_ptr(), b, n, qk_scale(c))
+                  key_bias.data_ptr(), out.data_ptr(), b, n, w, qk_scale(c))
     return out
 
 
@@ -187,13 +187,14 @@ def sc_attention_cached_offset_plain(q, k, v, compat, key_bias, c=None):
 
 
 def _launch_sc_attention_offset(q, k, v, compat, key_bias, c):
-    """q, k, v bf16 [B, N, 128], contiguous; c the model's width."""
+    """q, k, v bf16 [B, N, W] (W = ``padded_width(c)``), contiguous; c the
+    model's width."""
     b, n, w = q.shape
     out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
     kscale = offset_kscale(k, c)  # alive until the launch is enqueued
     _build.launch("sc_attention", "sc_attention_cached_offset", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
-                  key_bias.data_ptr(), kscale.data_ptr(), out.data_ptr(), b, n, qk_scale(c))
+                  key_bias.data_ptr(), kscale.data_ptr(), out.data_ptr(), b, n, w, qk_scale(c))
     return out
 
 
@@ -209,7 +210,7 @@ def _expect_qkv(q, k, v) -> None:
 def _kernel_operands(q, k, v):
     """q, k, v as the bf16 attention kernels take them on the card: rounded
     to bf16 as the JAX wrappers round them off the CPU (``use_bf16=True``),
-    C <= 128 zero-padded to 128, 16-byte aligned."""
+    zero-padded to a multiple of 128 channels, 16-byte aligned."""
     check_width(q.shape[-1], "the attention kernels")
     q, k, v = (pad_channels(t.bfloat16()) for t in (q, k, v))
     expect_aligned({"q": q, "k": k, "v": v})
@@ -227,8 +228,9 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     take bf16 and round p to bf16 before p v, as the TPU kernels round it to
     their v's type: on a CUDA tensor f32 inputs are rounded to bf16, as the
     JAX wrapper rounds them off the CPU (``use_bf16=True``; on the CPU they
-    stay f32, there as here). The kernels take C <= 128 (zero-padded to
-    128) and any N."""
+    stay f32, there as here). The kernels take any C (zero-padded to a
+    multiple of 128; above 128 one pass per 128-wide output chunk) and any
+    N."""
     _expect_qkv(q, k, v)
     b, n, c = q.shape
     expect(compat, "compat", dtype=torch.int8, shape=(b, n, n), device=q.device)
@@ -357,17 +359,18 @@ def _check_qkv_geom(q, k, v, geom):
 def sc_attention_forward(q, k, v, geom, sigma_d):
     """Forward of the trainable attention: q, k, v [B, N, C] f32, geom
     [B, 16, N] (``pack_geometry``) -> (out [B, N, C], lse [B, N]). On the
-    card C <= 128, zero-padded to 128."""
+    card any C, zero-padded to a multiple of 128."""
     if not _check_qkv_geom(q, k, v, geom):
         return sc_attention_forward_plain(q, k, v, geom, sigma_d)
     b, n, c = q.shape
     q, k, v = (pad_channels(t) for t in (q, k, v))
-    out = torch.empty((b, n, C_KERNEL), dtype=torch.float32, device=q.device)
+    w = q.shape[-1]
+    out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     sc_attention_forward.launches += 1
     _build.launch("sc_attention_train", "sc_attention_train_fwd", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
-                  lse.data_ptr(), b, n, sigma_d_sq(sigma_d), inv_sqrt_c(c))
+                  lse.data_ptr(), b, n, w, sigma_d_sq(sigma_d), inv_sqrt_c(c))
     return unpad_channels(out, c), lse
 
 
@@ -389,8 +392,8 @@ def sc_attention_backward_dq(q, k, v, geom, lse, dvec, d_out, sigma_d):
     sc_attention_backward_dq.launches += 1
     _build.launch("sc_attention_train", "sc_attention_train_bwd_dq", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), geom.data_ptr(),
-                  lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, n, sigma_d_sq(sigma_d),
-                  inv_sqrt_c(c))
+                  lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, n, q.shape[-1],
+                  sigma_d_sq(sigma_d), inv_sqrt_c(c))
     return unpad_channels(dq, c)
 
 
@@ -405,7 +408,7 @@ def sc_attention_backward_dkv(q, k, v, geom, lse, dvec, d_out, sigma_d):
     _build.launch("sc_attention_train", "sc_attention_train_bwd_dkv", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), geom.data_ptr(),
                   lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
-                  sigma_d_sq(sigma_d), inv_sqrt_c(c))
+                  q.shape[-1], sigma_d_sq(sigma_d), inv_sqrt_c(c))
     return unpad_channels(dk, c), unpad_channels(dv, c)
 
 
@@ -442,13 +445,13 @@ def sc_attention_trainable(q, k, v, geom, sigma_d: float):
 
 
 def _launch_sc_attention_nocache(q, k, v, geom, sigma_d, c):
-    """q, k, v bf16 [B, N, 128], contiguous; geom [B, 16, N] f32; c the
-    model's width."""
+    """q, k, v bf16 [B, N, W] (W = ``padded_width(c)``), contiguous; geom
+    [B, 16, N] f32; c the model's width."""
     b, n, w = q.shape
     out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
     _build.launch("sc_attention", "sc_attention_nocache", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), geom.data_ptr(), out.data_ptr(),
-                  b, n, sigma_d_sq(sigma_d), inv_sqrt_c(c))
+                  b, n, w, sigma_d_sq(sigma_d), inv_sqrt_c(c))
     return out
 
 
@@ -460,8 +463,8 @@ def fused_sc_attention(q, k, v, src, tgt, sigma_d: float, mask=None):
     kernel of the cached attention runs with its geometry compat source,
     rounding p to bf16 before p v as the TPU kernel rounds it to its v's
     type; on the CPU they keep their type, as in JAX's interpret mode (f32:
-    the trainable forward's out). The kernel takes C <= 128 (zero-padded to
-    128) and any N."""
+    the trainable forward's out). The kernel takes any C (zero-padded to a
+    multiple of 128) and any N."""
     q, k, v = (t.contiguous() for t in (q, k, v))
     _expect_qkv(q, k, v)
     expect(src, "src", shape=(*q.shape[:2], 3), device=q.device)

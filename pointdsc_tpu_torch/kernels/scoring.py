@@ -22,7 +22,8 @@ from pointdsc_tpu_torch.ops.eig import power_iteration
 from pointdsc_tpu_torch.ops.procrustes import horn_matrix, weighted_procrustes
 from pointdsc_tpu_torch.ops.se3 import transform
 
-K_MAX = 128  # the hypotheses kernel's largest neighbour count (a thread a row)
+MAX_HYP_SMEM = 200 * 1024  # the hypotheses kernel's shared-memory arena, bytes (csrc/scoring.cu)
+ROW_FLOATS = 10  # its per-neighbour arrays: points, valid flag, index, v and the new v
 
 
 def thr_sq(thr: float) -> float:
@@ -162,15 +163,40 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def hypotheses_layout(k: int, c: int) -> tuple[bool, bool]:
+    """Where the hypotheses kernel keeps a seed's neighbour features (k x fs
+    floats, fs = C rounded up to 4, plus 4) and M (k x (k + 1)): (features in
+    a workspace, M in a workspace). Both stay in the shared-memory arena
+    while they fit it beside the per-row arrays; past that M leaves first
+    (about k = 180 at C = 128), then also the features."""
+    fs = ((c + 3) & ~3) + 4
+    rows = (ROW_FLOATS * k + 3) & ~3
+    f, m, limit = k * fs, k * (k + 1), MAX_HYP_SMEM // 4
+    if rows + f + m <= limit:
+        return False, False
+    if rows + f <= limit:
+        return False, True
+    if rows + m <= limit:
+        return True, False
+    return True, True
+
+
 def _launch_hypotheses(feats, knn_idx, src, tgt, mask, sigma, sigma_d, num_iterations):
-    """Launch 1, the hypotheses [B, S, 4, 4] f32 (rows of [R | t])."""
+    """Launch 1, the hypotheses [B, S, 4, 4] f32 (rows of [R | t]), with the
+    workspaces ``hypotheses_layout`` asks for."""
     b, n, c = feats.shape
     s, k = knn_idx.shape[1:]
-    trans = torch.empty((b, s, 4, 4), dtype=torch.float32, device=feats.device)
+    dev = feats.device
+    trans = torch.empty((b, s, 4, 4), dtype=torch.float32, device=dev)
+    f_ws, m_ws = hypotheses_layout(k, c)
+    ws_f = torch.empty((b, s, k, ((c + 3) & ~3) + 4), dtype=torch.float32, device=dev) \
+        if f_ws else None
+    ws_m = torch.empty((b, s, k, k + 1), dtype=torch.float32, device=dev) if m_ws else None
     inv_sd2 = float(np.float32(1.0) / np.float32(sigma_d ** 2))
-    _build.launch("scoring", "seed_hypotheses", feats.device, feats.data_ptr(),
+    _build.launch("scoring", "seed_hypotheses", dev, feats.data_ptr(),
                   knn_idx.data_ptr(), src.data_ptr(), tgt.data_ptr(), _ptr(mask),
-                  sigma.data_ptr(), trans.data_ptr(), b, n, c, s, k, num_iterations, inv_sd2)
+                  sigma.data_ptr(), trans.data_ptr(), _ptr(ws_f), _ptr(ws_m), b, n, c, s, k,
+                  num_iterations, inv_sd2)
     return trans
 
 
@@ -237,7 +263,7 @@ def seed_hypotheses(feats, seeds, knn_idx, src, tgt, mask, sigma, sigma_d, inlie
     bool and sigma (the model's one-element parameter, read on the device).
 
     On the card three launches and no host read: the hypotheses kernel
-    (counted here; k <= 128), then ``seed_inlier_counts`` and
+    (counted here; any k and C), then ``seed_inlier_counts`` and
     ``select_hypothesis``, which count their own. Nothing here carries a
     gradient on the card: the model calls it only when none is asked for.
     On the CPU, ``seed_hypotheses_plain``."""
@@ -256,8 +282,8 @@ def seed_hypotheses(feats, seeds, knn_idx, src, tgt, mask, sigma, sigma_d, inlie
         return seed_hypotheses_plain(feats, seeds, knn_idx, src, tgt, mask, sigma, sigma_d,
                                      inlier_threshold, num_iterations)
     check_width(c, "the hypotheses kernel")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"the hypotheses kernel takes 1 <= k <= {K_MAX}, got k={k}")
+    if k < 1:
+        raise ValueError(f"the hypotheses kernel takes k >= 1, got k={k}")
     seed_hypotheses.launches += 1
     seed_trans = _launch_hypotheses(feats, knn_idx, src, tgt, mask, sigma, sigma_d,
                                     num_iterations)

@@ -7,8 +7,9 @@ invalid point, in descending order with ties to the lower index. On the
 card the kernel is two launches behind one entry: the [S, N] similarities
 into a scratch the wrapper allocates ([B, S, N rounded up to 64] f32: 10 MB
 at N = 5120, 60 MB at 12288, 168 MB at 20480 with S = 2048), then an exact
-radix select per seed row. The kernel is compiled for C = 128: narrower
-features are zero-padded to it (the same inner products). On a CPU tensor
+radix select per seed row. The features are zero-padded to a multiple of
+128 channels (the same inner products); the product walks them 32 at a
+time. On a CPU tensor
 the wrapper runs its plain version; on a CUDA tensor it launches the kernel
 or raises.
 """
@@ -44,14 +45,14 @@ def seed_knn_plain(features, seeds, k, bias):
 
 
 def _launch_knn(features, seeds32, k, bias):
-    b, n, _ = features.shape
+    b, n, c = features.shape
     s = seeds32.shape[1]
     idx = torch.empty((b, s, k), dtype=torch.int64, device=features.device)
     scratch = torch.empty((b, s, -(-n // TILE_N) * TILE_N), dtype=torch.float32,
                           device=features.device)
     _build.launch("seed_knn", "seed_knn_exact", features.device, features.data_ptr(),
                   seeds32.data_ptr(), bias.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
-                  b, n, s, k)
+                  b, n, s, k, c)
     return idx
 
 

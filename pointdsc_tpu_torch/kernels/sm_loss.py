@@ -11,8 +11,9 @@ is a drop-in for ``feature_similarity`` -> ``spectral_matching_loss``,
 differentiable in (normed_features, sigma).
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel or raises. The kernels take C <= 128 (F zero-padded
-to 128, dF sliced back) and any N.
+it launches its kernel or raises. The kernels take any C (F zero-padded to a
+multiple of 128, dF sliced back; above 128 the tile products sum over the
+128-wide chunks) and any N.
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ def sm_loss_sums(f, strips, scalars):
     partial = torch.empty((b, tiles * tiles, 2), dtype=torch.float32, device=f.device)
     sm_loss_sums.launches += 1
     _build.launch("sm_loss", "sm_loss_fwd", f.device, f.data_ptr(), strips.data_ptr(),
-                  scalars.data_ptr(), partial.data_ptr(), b, n)
+                  scalars.data_ptr(), partial.data_ptr(), b, n, f.shape[-1])
     sums = torch.sum(partial, dim=1)
     return sums[:, 0], sums[:, 1]
 
@@ -137,7 +138,7 @@ def sm_loss_grads(f, strips, scalars):
     partial = torch.empty((b, tiles), dtype=torch.float32, device=f.device)
     sm_loss_grads.launches += 1
     _build.launch("sm_loss", "sm_loss_bwd", f.device, f.data_ptr(), strips.data_ptr(),
-                  scalars.data_ptr(), df.data_ptr(), partial.data_ptr(), b, n)
+                  scalars.data_ptr(), df.data_ptr(), partial.data_ptr(), b, n, f.shape[-1])
     return unpad_channels(df, c), torch.sum(partial, dim=1)
 
 

@@ -17,10 +17,10 @@ Two paths give the same result within the JAX suite's fused-vs-dense bound:
   a CPU input); the confidence head and the seed k-NN only inside the JAX
   model's gates (``use_confidence_kernel``, ``use_seed_knn_kernel``), plain
   math outside them; the seed hypotheses only where no gradient is asked for
-  (``use_hypothesis_kernel``). The kernels are compiled for C = 128 and
-  zero-pad a narrower model to it; on the card a fused forward of a wider
-  one, and a fused eval forward with more than 128 seed neighbours (k),
-  raise before any kernel runs. The encoder takes one of three
+  (``use_hypothesis_kernel``). The kernels work in chunks of 128 channels
+  and zero-pad a model to the next multiple of 128, so every C runs fused on
+  the card, and so does every k (the hypotheses kernel gives a thread
+  several neighbour rows). The encoder takes one of three
   forms, chosen by the constructor's flags as in JAX
   (``pointdsc_tpu/models/pointdsc.py:126-180``):
 
@@ -57,12 +57,15 @@ import torch
 import torch.nn as nn
 
 from pointdsc_tpu_torch._device import full_f32_matmul, resolve_device
-from pointdsc_tpu_torch.kernels.conf_mlp import confidence_head, confidence_head_plain
+from pointdsc_tpu_torch.kernels.conf_mlp import (
+    confidence_head,
+    confidence_head_plain,
+    packed_head_weights,
+)
 from pointdsc_tpu_torch.kernels.encoder_layer import make_fused_layer_fn
 from pointdsc_tpu_torch.kernels.nms import pick_seeds_nms_prefiltered
 from pointdsc_tpu_torch.kernels.refine import fused_post_refinement
 from pointdsc_tpu_torch.kernels.sc_attention import (
-    C_KERNEL,
     build_compat_cache_int8,
     fused_sc_attention,
     fused_sc_attention_cached,
@@ -70,7 +73,6 @@ from pointdsc_tpu_torch.kernels.sc_attention import (
     sc_attention_trainable,
 )
 from pointdsc_tpu_torch.kernels.scoring import (
-    K_MAX as HYPOTHESIS_K_MAX,
     seed_hypotheses,
     seed_inlier_counts,
     seed_transforms_plain,
@@ -110,8 +112,7 @@ def use_hypothesis_kernel(fused: bool, testing: bool, needs_grad: bool) -> bool:
     ``torch.no_grad()``). The kernels carry no gradient, so training
     (``testing=False``), a forward under autograd and the dense path run the
     plain code: the JAX model has one path, differentiable everywhere. The
-    hypotheses kernel takes k <= 128 neighbours; on the card the fused eval
-    forward of a model with a larger k raises before the encoder runs."""
+    hypotheses kernel takes any k."""
     return fused and testing and not needs_grad
 
 
@@ -156,9 +157,11 @@ class PointDSC(nn.Module):
         self.half_precision = half_precision
         self.remat = remat  # checkpoint each encoder layer (training memory)
         self.fused_cache_compat = fused_cache_compat
-        # folded BatchNorms of the whole-layer kernels, reused across forwards
-        # (kernels/encoder_layer.py::folded_weights says what invalidates it)
+        # folded BatchNorms of the whole-layer kernels and the confidence head's
+        # packed weights, reused across forwards (kernels/encoder_layer.py::
+        # folded_weights says what invalidates them)
         self._fold_cache: dict = {}
+        self._head_cache: dict = {}
         self.sigma = nn.Parameter(torch.ones(1))
         self.encoder = NonLocalNet(in_dim, num_layers, num_channels)
         self.classification_0 = nn.Linear(num_channels, 32)
@@ -188,20 +191,6 @@ class PointDSC(nn.Module):
         src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
         tgt_keypts = tgt_keypts.detach().float().contiguous()
         bs, num_corr = corr_pos.shape[:2]
-        if fused and corr_pos.device.type == "cuda" and self.num_channels > C_KERNEL:
-            # the kernels are compiled for C = 128 and zero-pad a narrower
-            # model; a wider one's K/V tiles do not fit in shared memory (the
-            # JAX kernels take any width)
-            raise ValueError(
-                f"the fused path's kernels take num_channels <= {C_KERNEL}, this model has "
-                f"num_channels={self.num_channels}: pass fused=False")
-        k = min(self.k, num_corr - 1)
-        if fused and testing and corr_pos.device.type == "cuda" and k > HYPOTHESIS_K_MAX:
-            # the hypotheses kernel keeps a seed's neighbours in one block,
-            # a thread a row (the JAX model takes any k)
-            raise ValueError(
-                f"the fused eval forward's hypotheses kernel takes k <= {HYPOTHESIS_K_MAX} "
-                f"neighbours, this model has k={self.k}: pass fused=False")
         num_seeds = max(1, int(num_corr * self.ratio))
         mask_arg = mask
         if mask is None:
@@ -261,7 +250,8 @@ class PointDSC(nn.Module):
         head = [t for layer in (self.classification_0, self.classification_1,
                                 self.classification_2) for t in (layer.weight, layer.bias)]
         if use_confidence_kernel(fused, testing, self.num_channels):
-            confidence = confidence_head(corr_features, *head)
+            confidence = confidence_head(corr_features,
+                                         packed_head_weights(head, self._head_cache))
         else:
             confidence = confidence_head_plain(corr_features, *head)
 

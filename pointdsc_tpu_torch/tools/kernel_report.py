@@ -2,12 +2,15 @@
 machine with the CUDA toolkit.
 
     python -m pointdsc_tpu_torch.tools.kernel_report [--csrc DIR] [--out FILE]
+        [--compare PARENT.jsonl]
 
 Compiles the two sources of ``kernels/csrc`` that hold the attention loop,
 ``sc_attention`` and ``encoder_layer`` (which also holds the split PointCN +
 QKV kernel), the seed k-NN's ``seed_knn``, the refinement's ``refine``, the
-int8 cache's ``compat_cache``, the seed NMS's ``nms`` and the seed stage's
-``scoring`` (which shares ``csrc/horn.cuh`` with ``refine``), with the build's
+int8 cache's ``compat_cache``, the seed NMS's ``nms``, the seed stage's
+``scoring`` (which shares ``csrc/horn.cuh`` with ``refine``), the training
+kernels' ``sc_attention_train`` and ``sm_loss`` and the confidence head's
+``conf_mlp``, with the build's
 flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
 ``cuobjdump --dump-sass``. Prints one JSON object per kernel: registers,
 spill stores and loads (bytes), stack frame, and the count of each ``HMMA``
@@ -17,7 +20,10 @@ many of them lie on a rare path, and a SHA-256 of its SASS instructions
 (addresses and encodings left out), so that two trees' kernels can be shown
 to compile to the same code.
 ``--csrc`` compiles the sources of another directory (another tree's
-``kernels/csrc``). The cubins go to the git-ignored build directory.
+``kernels/csrc``). ``--compare`` reads another tree's report (its
+``--out``) and prints, for each of its kernels, whether a kernel of the same
+name here (template arguments and parameters aside) has the same SASS, the
+two digests side by side. The cubins go to the git-ignored build directory.
 
 With a card, one more object: the int8 cache kernel's issue floor. Its row
 loop (the 128-bit store instantiation's) computes 16 entries a thread; its
@@ -41,7 +47,7 @@ from collections import Counter
 from pointdsc_tpu_torch.kernels import _build
 
 SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine", "compat_cache", "nms",
-           "scoring")
+           "scoring", "sc_attention_train", "sm_loss", "conf_mlp")
 CACHE_COLUMNS = 16  # entries a thread computes in one pass of the cache kernel's row loop
 FLOOR_SIZES = (5120, 12288)
 
@@ -217,10 +223,36 @@ def cache_issue_floor(rows: list[dict]) -> dict | None:
                                for n in FLOOR_SIZES}}
 
 
+def base_name(kernel: str) -> str:
+    """A demangled kernel's name without its namespace, template arguments
+    and parameters."""
+    for anonymous in ("(anonymous namespace)::", "<unnamed>::"):
+        kernel = kernel.replace(anonymous, "")
+    m = re.match(r"\s*(?:void\s+)?(?:[\w:]*::)?(\w+)", kernel)
+    return m.group(1) if m else kernel
+
+
+def compare(parent: list[dict], rows: list[dict]) -> list[dict]:
+    """For each kernel of ``parent``: its digest, the digests of this tree's
+    kernels of the same name, and whether one of them is its own."""
+    out = []
+    for p in parent:
+        if "sass_sha256" not in p:
+            continue
+        name = base_name(p["kernel"])
+        here = [r["sass_sha256"] for r in rows
+                if "sass_sha256" in r and base_name(r["kernel"]) == name]
+        out.append({"compare": name, "source": p["source"], "parent_kernel": p["kernel"],
+                    "parent_sha256": p["sass_sha256"], "this_sha256": here,
+                    "same_sass": p["sass_sha256"] in here})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", default=_build.CSRC)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--compare", default=None)
     args = ap.parse_args(argv)
     lines, rows = [], []
     for name in SOURCES:
@@ -234,6 +266,12 @@ def main(argv=None) -> int:
     if floor is not None:
         lines.append(json.dumps(floor))
         print(lines[-1], flush=True)
+    if args.compare:
+        with open(args.compare) as f:
+            parent = [json.loads(line) for line in f if line.strip()]
+        for line in compare(parent, rows):
+            lines.append(json.dumps(line))
+            print(lines[-1], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -2,7 +2,7 @@
 kernel, of the post-refinement, of the int8 cache build, of the seed NMS,
 of the scoring kernel and of the confidence head, on a CUDA card.
 
-    python -m pointdsc_tpu_torch.tools.time_attention [--out FILE]
+    python -m pointdsc_tpu_torch.tools.time_attention [--cases NAME,...] [--out FILE]
 
 At N = 5120 and N = 12288 (C = 128, one pair, the last 5% of points padded):
 CUDA events around each kernel that holds the two N^2 C attention products
@@ -26,7 +26,7 @@ rounds it ran; the int8 cache build (``build_compat_cache_int8``) and the
 seed NMS (``pick_seeds_nms_prefiltered``: S = N / 10, normal scores, radius
 0.1; the prefilter runs at 12288) on the same pairs at N = 5120 and 12288;
 scoring (``seed_inlier_counts``, S = 512 transforms near the ground truth)
-and the confidence head at N = 5120; the seed stage
+at N = 5120 and the confidence head at N = 5120, 12288 and 20480; the seed stage
 after the seed k-NN (``seed_hypotheses``: ``data.synthetic.seed_stage_inputs``,
 S = N / 10, k = 40, at N = 5120 in a 2 m cube and 12288 in a 100 m one, each
 of its three kernels in ``kernels_ms``). ``wrapper_ms``: CUDA events around one
@@ -178,8 +178,12 @@ def confidence_case(n, dev):
     head = [(torch.randn(shape, generator=gen) * 0.2).to(dev)
             for shape in ((32, C), (32,), (32, 32), (32,), (1, 32), (1,))]
 
+    # a tree from before the packed head takes the six tensors
+    pack = getattr(kconf, "pack_head_weights", None)
+    args = (x, pack(*head)) if pack else (x, *head)
+
     def call():
-        return kconf.confidence_head(x, *head)
+        return kconf.confidence_head(*args)
 
     return {"kernel": "confidence_head", "n": n, "wrapper_ms": _event_ms(call),
             **_device_split(call, "conf_mlp_kernel")}
@@ -221,6 +225,8 @@ def refine_case(n, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--cases", default=None,
+                    help="only these wrapper cases (e.g. confidence,seed_stage), no loops")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_attention: needs a CUDA card")
@@ -229,7 +235,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     lines = []
-    for name, sigma_d in (("synthetic", 0.1), ("kitti", 1.2)):
+    only = None if args.cases is None else {f"{c}_case" for c in args.cases.split(",")}
+    for name, sigma_d in (() if only else (("synthetic", 0.1), ("kitti", 1.2))):
         n = SNAPSHOTS[name][1]
         x, w, (q, k, v), cache, kbias, geom = _inputs(n, sigma_d, dev)
         qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -256,9 +263,12 @@ def main(argv=None) -> int:
         cases = [(pcn_qkv_case, n) for n in (12288, 20480)]
         cases += [(refine_case, n) for n in (5120, 12288, 20480)]
         cases += [(case, n) for case in (cache_case, nms_case) for n in (5120, 12288)]
-        cases += [(scoring_case, 5120), (confidence_case, 5120)]
+        cases += [(scoring_case, 5120)]
+        cases += [(confidence_case, n) for n in (5120, 12288, 20480)]
         cases += [(seed_stage_case, n) for n in (5120, 12288)]
         for case, n in cases:
+            if only and case.__name__ not in only:
+                continue
             lines.append(json.dumps({"card": card, **case(n, dev)}))
             print(lines[-1], flush=True)
     if args.out:

@@ -253,8 +253,11 @@ def test_encoder_layer_wrappers_check_arguments():
         t_el.attn_mlp_residual(kscale, q.float(), k, v, cache, None, h, weights)
     with pytest.raises(ValueError):
         t_el._check_kernel_size(500, 128)
-    with pytest.raises(ValueError):
-        t_el._check_kernel_size(512, 192)  # above the compiled C = 128 (narrower is padded)
+    t_el._check_kernel_size(512, 192)  # any width: padded to 256 channels, the MLP's 96 to 128
+    wide = tuple(torch.zeros(tuple(d * 12 for d in s)) for s in shapes)  # C = 192
+    assert [tuple(w.shape) for w in t_el.pad_layer_weights(wide, 192)] == [
+        (256, 256), (256,), (256, 768), (768,), (256, 128), (128,), (128, 128), (128,),
+        (128, 256), (256,)]
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -23,6 +23,7 @@ import pointdsc_tpu.models.pointdsc as j_model
 from pointdsc_tpu.kernels import sc_attention as j_att
 from pointdsc_tpu_torch.data import SyntheticPairDataset
 from pointdsc_tpu_torch.kernels import sc_attention as t_att
+from pointdsc_tpu_torch.kernels._check import C_KERNEL
 from pointdsc_tpu_torch.models import pointdsc as t_model
 
 # (C, N, k) on both sides of each gate: the width, the size and the list length
@@ -63,7 +64,7 @@ def test_gate_predicates_match_jax(c, n, k):
 def test_forward_calls_kernels_where_the_gates_say(c, n, k, monkeypatch):
     """A one-layer model's fused eval forward on the CPU calls the two kernel
     wrappers exactly where the predicates say (k clamped to N - 1 first), and
-    the C != 128 model runs on the CPU: only the card refuses it."""
+    the C != 128 model runs fused (the card takes any width too)."""
     calls = {"conf": 0, "knn": 0}
 
     def spy(name, fn):
@@ -126,7 +127,7 @@ def test_cached_kernels_take_jax_s_operands(on_card, offset_softmax, dtype, monk
     for fn in (t_att.fused_sc_attention_cached, t_att.sc_attention_cached_offset):
         monkeypatch.setattr(fn, "launches", 0)
     n = 16
-    q = torch.ones((1, n, t_att.C_KERNEL), dtype=dtype)
+    q = torch.ones((1, n, C_KERNEL), dtype=dtype)
     pts = torch.zeros((1, n, 3))
     compat = torch.zeros((1, n, n), dtype=torch.int8)
     t_att.fused_sc_attention_cached(q, q.clone(), q.clone(), compat, pts, pts,
@@ -169,7 +170,7 @@ def test_no_cache_kernel_takes_jax_s_operands(on_card, dtype, monkeypatch):
     monkeypatch.setattr(t_att, "on_cuda", lambda t: on_card)
     monkeypatch.setattr(t_att.fused_sc_attention, "launches", 0)
     n = 16
-    q = torch.ones((1, n, t_att.C_KERNEL), dtype=dtype)
+    q = torch.ones((1, n, C_KERNEL), dtype=dtype)
     pts = torch.zeros((1, n, 3))
     t_att.fused_sc_attention(q, q.clone(), q.clone(), pts, pts, 0.1)
     cast = eval(NOCACHE_CAST.group(1), {}, {"use_bf16": True,  # noqa: S307

@@ -76,3 +76,27 @@ def test_sass_loops():
     assert kernel_report.sass_loops(sass) == {
         "_Z1av": [{"instructions": 9, "rare": 3}, {"instructions": 7, "rare": 3}],
         "_Z1bv": []}
+
+
+def test_compare_matches_kernels_across_template_arguments():
+    """A parent's kernel is matched to this tree's kernels of the same name,
+    whatever their template arguments and parameters; the SASS is the same
+    where one of their digests is its own."""
+    assert kernel_report.base_name(
+        "void (anonymous namespace)::hypotheses_kernel<(bool)0, (bool)1>(const float *)") \
+        == "hypotheses_kernel"
+    assert kernel_report.base_name("oa::f<1>(int)") == "f"
+    assert kernel_report.base_name("void <unnamed>::g<(int)0>(const float *)") == "g"
+    parent = [{"source": "a.cu", "kernel": "(anonymous namespace)::k(float *)",
+               "sass_sha256": "x"},
+              {"source": "a.cu", "kernel": "void (anonymous namespace)::t<false>(int)",
+               "sass_sha256": "y"},
+              {"source": "a.cu", "kernel": "issue floor"}]
+    rows = [{"kernel": "void (anonymous namespace)::t<false, false>(int, int)",
+             "sass_sha256": "y"},
+            {"kernel": "void (anonymous namespace)::t<false, true>(int, int)",
+             "sass_sha256": "z"},
+            {"kernel": "(anonymous namespace)::k(float *, int)", "sass_sha256": "w"}]
+    got = {r["compare"]: (r["same_sass"], r["this_sha256"])
+           for r in kernel_report.compare(parent, rows)}
+    assert got == {"k": (False, ["w"]), "t": (True, ["y", "z"])}

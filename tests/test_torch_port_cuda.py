@@ -15,6 +15,7 @@ import torch
 
 from pointdsc_tpu_torch import PointDSC, kernels, load_pretrained
 from pointdsc_tpu_torch.data import SyntheticPairDataset
+from pointdsc_tpu_torch.kernels import _check as kchk
 from pointdsc_tpu_torch.kernels import conf_mlp as kconf
 from pointdsc_tpu_torch.kernels import encoder_layer as kenc
 from pointdsc_tpu_torch.kernels import nms as knms
@@ -150,11 +151,10 @@ def test_sc_attention_offset(dev, n, half):
     assert torch.equal(out2, out)
 
 
-def layer_weights(gen, dev):
-    """Folded weights of one layer at C = 128 from ``gen``. The q and k
+def layer_weights(gen, dev, c=128):
+    """Folded weights of one C-wide layer from ``gen``. The q and k
     projections are scaled so that the logits have a standard deviation of
     ~3 (a sharp softmax, offsets near 40 nats: in regime)."""
-    c = 128
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -172,23 +172,23 @@ def layer_weights(gen, dev):
     return kenc.fold_layer(pcn, nl)
 
 
-def layer_case(n, dev, masked, seed=3):
-    """x, cache, kbias and folded weights of one layer at C = 128, B = 2."""
+def layer_case(n, dev, masked, seed=3, c=128):
+    """x, cache, kbias and folded weights of one C-wide layer, B = 2."""
     src, tgt, mask, _ = pair(n, dev)
     gen = torch.Generator().manual_seed(seed)
-    weights = layer_weights(gen, dev)
-    x = (torch.randn((B, n, 128), generator=gen)).to(dev)
+    weights = layer_weights(gen, dev, c)
+    x = (torch.randn((B, n, c), generator=gen)).to(dev)
     cache = katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
     kbias = katt.key_bias(mask, B, n, dev) if masked else None
     return x, cache, kbias, weights
 
 
-def pcn_case(n, dev, seed=3):
-    """x [B, n, 128] and folded weights; the second sample's last 10% of rows
+def pcn_case(n, dev, seed=3, c=128):
+    """x [B, n, C] and folded weights; the second sample's last 10% of rows
     are padding (zeros, as the model's padded correspondences give)."""
     gen = torch.Generator().manual_seed(seed)
-    weights = layer_weights(gen, dev)
-    x = torch.randn((B, n, 128), generator=gen)
+    weights = layer_weights(gen, dev, c)
+    x = torch.randn((B, n, c), generator=gen)
     x[1, n - n // 10:] = 0.0
     return x.to(dev), weights
 
@@ -277,9 +277,9 @@ def test_fused_encoder_layer(dev, n, masked):
 
 
 def test_new_wrappers_refuse(dev):
-    """Wrong dtype, a width that fits neither the weights nor (above 128)
-    the kernels, an N the encoder-layer kernels do not take, a workspace of
-    the wrong shape."""
+    """Wrong dtype, a width that fits neither the weights nor the input, an
+    N the encoder-layer kernels do not take, a workspace of the wrong shape.
+    A width above 128 is not refused: it runs, held to the plain version."""
     x, cache, kbias, weights = layer_case(512, dev, True)
     with pytest.raises(ValueError):
         kenc.fused_encoder_layer(x.double(), cache, kbias, weights)
@@ -296,11 +296,19 @@ def test_new_wrappers_refuse(dev):
     with pytest.raises(ValueError):
         kenc.attn_mlp_residual(kscale, q, k, v, cache.float(), kbias, h, weights)
     src, tgt, mask, _ = pair(512, dev)
-    wide = torch.randn((B, 512, 192), device=dev)  # above the compiled C = 128
-    with pytest.raises(ValueError):
-        katt.fused_sc_attention_cached(wide, wide, wide, cache, src, tgt, mask=mask)
+    wide = torch.randn((B, 512, 192), generator=torch.Generator().manual_seed(2)).to(dev)
+    out = katt.fused_sc_attention_cached(wide, wide, wide, cache, src, tgt, mask=mask)
+    wh = wide.bfloat16()
+    kb = katt.key_bias(mask, B, 512, dev)
+    ref = katt.sc_attention_cached_offset_plain(wh, wh, wh, cache, kb)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
     with pytest.raises(ValueError):
         katt.fused_sc_attention_cached(x.half(), x.half(), x.half(), cache, src, tgt, mask=mask)
+
+
+def head_weights(gen, dev):
+    return [torch.randn(shape, generator=gen).to(dev) * 0.2
+            for shape in ((32, 128), (32,), (32, 32), (32,), (1, 32), (1,))]
 
 
 @pytest.mark.parametrize("n", [1000, 2048])
@@ -309,10 +317,39 @@ def test_confidence_head(dev, n):
     another order than cuBLAS's."""
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((B, n, 128), generator=gen).to(dev)
-    w = [torch.randn(shape, generator=gen).to(dev) * 0.2
-         for shape in ((32, 128), (32,), (32, 32), (32,), (1, 32), (1,))]
-    torch.testing.assert_close(kconf.confidence_head(x, *w), kconf.confidence_head_plain(x, *w),
-                               atol=1e-5, rtol=1e-5)
+    w = head_weights(gen, dev)
+    torch.testing.assert_close(kconf.confidence_head(x, kconf.pack_head_weights(*w)),
+                               kconf.confidence_head_plain(x, *w), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 31, 5120, 12288, 20480])
+def test_confidence_head_rows(dev, m):
+    """One row, a ragged tile, and the main path's sizes (20480: more tiles
+    than one wave of blocks, so that blocks walk several tiles through both
+    feature buffers), atol 1e-5; a second call on the same packed weights
+    gives the same logits bit for bit."""
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn((1, m, 128), generator=gen).to(dev)
+    w = head_weights(gen, dev)
+    packed = kconf.pack_head_weights(*w)
+    out = kconf.confidence_head(x, packed)
+    assert out.shape == (1, m)
+    torch.testing.assert_close(out, kconf.confidence_head_plain(x, *w), atol=1e-5, rtol=0)
+    assert torch.equal(kconf.confidence_head(x, packed), out)
+
+
+def test_packed_head_weights_follow_the_model(dev):
+    """The model's packed head is reused while its weights stay, and packed
+    anew after an in-place change (an optimizer step's kind)."""
+    model = PointDSC(num_layers=1, device=dev, generator=torch.Generator().manual_seed(0))
+    head = [t for layer in (model.classification_0, model.classification_1,
+                            model.classification_2) for t in (layer.weight, layer.bias)]
+    first = kconf.packed_head_weights(head, model._head_cache)
+    assert kconf.packed_head_weights(head, model._head_cache) is first
+    with torch.no_grad():
+        model.classification_2.bias.add_(1.0)
+    second = kconf.packed_head_weights(head, model._head_cache)
+    assert second is not first and float(second[-4] - first[-4]) == 1.0  # b2
 
 
 @pytest.mark.parametrize("n", [1000, 2048])
@@ -733,19 +770,22 @@ def test_seed_hypotheses_on_real_seeds_against_f64(dev, snapshot, n):
 
 
 def test_fused_eval_forward_refuses_k_above_128(dev):
-    """The hypotheses kernel takes at most 128 neighbours: a fused eval
-    forward with k = 129 raises a ValueError naming the limit before any
-    kernel runs (``fused=False`` takes any k)."""
+    """A fused eval forward with k = 129 (more neighbours than the hypotheses
+    kernel's 128 threads) runs, the hypotheses kernel giving a thread two
+    rows, and matches the dense path: final_trans atol 1e-3, labels > 0.99
+    (the seed k-NN is plain above k = 128, JAX's gate)."""
     model = PointDSC(num_layers=1, k=129, device=dev, generator=torch.Generator().manual_seed(0))
     ex = SyntheticPairDataset(num_pairs=1, num_corr=1024, seed=4)[0]
     args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
     with torch.no_grad():
         kernels.reset_launches()
-        with pytest.raises(ValueError, match="k <= 128"):
-            model(*args, fused=True)
-        assert not any(kernels.launch_counts().values())
-        out = model(*args, fused=False)
-    assert bool(torch.isfinite(out.final_trans).all())
+        out = model(*args, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref = model(*args, fused=False)
+    assert counts["seed_hypotheses"] == 1 and counts["seed_knn_exact"] == 0
+    torch.testing.assert_close(out.final_trans, ref.final_trans, atol=1e-3, rtol=0)
+    assert float((out.final_labels == ref.final_labels).float().mean()) > 0.99
 
 
 def refine_case(n, dev, far=False, seed=0):
@@ -831,7 +871,7 @@ def test_wrappers_launch_and_check(dev):
     kenc.attn_mlp_residual(kscale, qb, kb, vb, cache, kbias, h, weights)
     w = [torch.zeros(shape, device=dev) for shape in ((32, 128), (32,), (32, 32), (32,),
                                                        (1, 32), (1,))]
-    kconf.confidence_head(q, *w)
+    kconf.confidence_head(q, kconf.pack_head_weights(*w))
     keys = knms.nms_local_max(src, q[..., 0].contiguous(), 0.1, mask=mask, keys=True)
     knms.nms_select(keys, 51)
     knms.nms_top_m(q[..., 0].contiguous(), mask, 256, 51)
@@ -860,14 +900,21 @@ def test_wrappers_launch_and_check(dev):
     assert counts.pop("compat_cache_int8") == 2  # this test's and layer_case's
     assert counts.pop("seed_inlier_counts") == 2  # its own and seed_hypotheses'
     assert counts == {name: 1 for name in counts}
-    wide = torch.randn((B, 512, 192), device=dev)  # above the compiled C = 128
-    with pytest.raises(ValueError):
+    # a width above 128 runs (two chunks of 128), held to the plain versions
+    wide = torch.randn((B, 512, 192), generator=torch.Generator().manual_seed(2)).to(dev)
+    wh = wide.bfloat16()
+    torch.testing.assert_close(
         katt.fused_sc_attention_cached(wide, wide, wide, cache, src, tgt, mask=mask,
-                                       offset_softmax=False)
-    with pytest.raises(ValueError):
-        katt.sc_attention_trainable(wide, wide, wide, geom, 0.1)
-    with pytest.raises(ValueError):
-        ksm.sm_loss_sums(wide, strips, scalars)
+                                       offset_softmax=False),
+        katt.sc_attention_cached_plain(wh, wh, wh, cache, geom[:, 8].contiguous()),
+        atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(katt.sc_attention_trainable(wide, wide, wide, geom, 0.1),
+                               katt.sc_attention_forward_plain(wide, wide, wide, geom, 0.1)[0],
+                               atol=1e-4, rtol=1e-4)
+    fw = torch.nn.functional.normalize(wide, dim=-1)
+    for a, b in zip(ksm.sm_loss_sums(fw, strips, scalars),
+                    ksm.sm_loss_sums_plain(fw, strips, scalars)):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
     with pytest.raises(ValueError):
         katt.sc_attention_forward(q.double(), q.double(), q.double(), geom.double(), 0.1)
 
@@ -1197,3 +1244,203 @@ def test_fpfh_on_card_matches_cpu(dev):
     ref_keypts, ref_feats = fpfh.extract_fpfh(src, voxel_size=0.03, device="cpu")
     np.testing.assert_array_equal(keypts, ref_keypts)
     assert (np.abs(feats - ref_feats) <= 1e-3).mean() >= 0.995
+
+
+# ------------------------------------------------------------ widths above 128 (C12)
+#
+# A wider model's channels are zero-padded to a multiple of 128 and every
+# kernel walks them in chunks of 128: the attentions make one pass per output
+# chunk, the logits summed over all chunks in each. Held to the plain
+# versions at the narrow kernels' tolerances; C = 160 and 384 are not
+# multiples of 128 (padded to 256 and 384), C = 384 takes three chunks.
+
+WIDE_CS = [160, 256, 384]
+
+
+@pytest.mark.parametrize("c", WIDE_CS)
+def test_wide_cached_attention(dev, c):
+    """The running-max and the offset kernels over the int8 cache at N = 1000
+    (ragged), the second pair's last 10% masked, against their plain
+    versions on the bf16 operands: atol = rtol = 2e-3 (test_sc_attention);
+    one launch a call."""
+    src, tgt, mask, _ = pair(1000, dev)
+    gen = torch.Generator().manual_seed(c)
+    q, k, v = (torch.randn((B, 1000, c), generator=gen).to(dev) for _ in range(3))
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    geom = katt.pack_geometry(src, tgt, mask)
+    cache = katt.compat_cache_plain(geom, katt.cache_coef(0.1))
+    bias = geom[:, 8].contiguous()
+    for offset, plain in ((False, katt.sc_attention_cached_plain),
+                          (True, katt.sc_attention_cached_offset_plain)):
+        kernels.reset_launches()
+        out = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                             offset_softmax=offset)
+        assert sum(kernels.launch_counts().values()) == 1 and out.shape == q.shape
+        torch.testing.assert_close(out, plain(qh, kh, vh, cache, bias), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("c", WIDE_CS)
+def test_wide_nocache_attention(dev, c):
+    """The running max without a cache at N = 1000 against its plain version
+    on the bf16 operands, atol = rtol = 2e-3 (test_sc_attention_nocache)."""
+    src, tgt, mask, _ = pair(1000, dev)
+    gen = torch.Generator().manual_seed(c)
+    q, k, v = (torch.randn((B, 1000, c), generator=gen).to(dev) for _ in range(3))
+    out = katt.fused_sc_attention(q, k, v, src, tgt, 0.1, mask=mask)
+    ref = katt.sc_attention_nocache_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                          katt.pack_geometry(src, tgt, mask), 0.1)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("c", WIDE_CS)
+def test_wide_encoder_layer(dev, c):
+    """The split pair above C = 128 (the one-launch kernel refuses the width
+    and ``fused_layer`` runs the pair at every N): PointCN + QKV at N = 1000
+    (ragged), h and kscale as test_pcn_qkv holds them, q, k, v within one
+    bf16 step and 1e-5 (see below), the attention + MLP + residual on the
+    plain version's own h, q, k, v, kscale at N = 512, masked, and the layer
+    through ``fused_layer`` against the plain layer, atol = rtol = 2e-3."""
+    x, weights = pcn_case(1000, dev, c=c)
+    got, ref = kenc.pcn_qkv(x, weights), kenc.pcn_qkv_plain(x, weights)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    for g, want in zip(got[1:4], ref[1:4]):
+        # q, k, v: sums of C terms in another order land up to ~1e-6 apart in
+        # f32 at C = 384, so a value near zero may round more than its own
+        # bf16 step away; a value on a rounding boundary by one step
+        diff = (g.float() - want.float()).abs()
+        assert bool((diff <= want.float().abs() * 2.0 ** -7 + 1e-5).all())
+        assert float((diff > 0).float().mean()) <= 1e-2
+    torch.testing.assert_close(got[4], ref[4], atol=0, rtol=1e-5)
+    x, cache, kbias, weights = layer_case(512, dev, True, c=c)
+    h, q, k, v, kscale = kenc.pcn_qkv_plain(x, weights)
+    out = kenc.attn_mlp_residual(kscale, q, k, v, cache, kbias, h, weights)
+    ref = kenc.attn_mlp_residual_plain(kscale, q, k, v, cache, kbias, h, weights)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
+    kernels.reset_launches()
+    ws = kenc.new_workspace(B, 512, kchk.padded_width(c), dev)
+    out = kenc.fused_layer(x, cache, kbias, weights, ws)
+    assert kernels.launch_counts()["pcn_qkv"] == 1
+    assert kernels.launch_counts()["attn_mlp_residual"] == 1
+    torch.testing.assert_close(out, kenc.fused_layer_plain(x, cache, kbias, weights),
+                               atol=2e-3, rtol=2e-3)
+    with pytest.raises(ValueError, match="pair"):
+        kenc.fused_encoder_layer(x, cache, kbias, weights)
+
+
+@pytest.mark.parametrize("c", WIDE_CS)
+def test_wide_train_attention(dev, c):
+    """The trainable attention's forward (out and lse, atol = rtol = 1e-4)
+    and its two backward kernels (atol = rtol = 2e-4) at N = 1000, as
+    test_sc_attention_train_forward and _backward hold them; no gradient
+    reaches a padded key."""
+    src, tgt, mask, _ = pair(1000, dev)
+    gen = torch.Generator().manual_seed(c)
+    q, k, v, d_out = (torch.randn((B, 1000, c), generator=gen).to(dev) for _ in range(4))
+    geom = katt.pack_geometry(src, tgt, mask)
+    out, lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
+    ref, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    dvec = torch.sum(d_out * ref, dim=-1)
+    args = (q, k, v, geom, ref_lse, dvec, d_out, 0.1)
+    got = (katt.sc_attention_backward_dq(*args), *katt.sc_attention_backward_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, katt.sc_attention_backward_plain(*args)):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4, msg=lambda m: f"{name}: {m}")
+    assert float(got[1][1, 900:].abs().max()) == 0.0 and float(got[2][1, 900:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("c", WIDE_CS)
+def test_wide_sm_loss(dev, c):
+    """The SM-loss sums (rtol 1e-5), dF (atol 1e-6 of its largest entry) and
+    dsigma (rtol 1e-4) at N = 1000, as test_sm_loss_kernels holds them."""
+    gen = torch.Generator().manual_seed(c)
+    f = torch.nn.functional.normalize(torch.randn((B, 1000, c), generator=gen), dim=-1).to(dev)
+    gt = (torch.rand((B, 1000), generator=gen) < 0.3).float().to(dev)
+    mask = torch.ones((B, 1000), dtype=torch.bool, device=dev)
+    mask[1, 900:] = False
+    strips = ksm.pack_labels(gt, mask)
+    wp, wn = ksm.balance_weights(strips, True)
+    sigma = torch.full((B,), 1.07, device=dev)
+    scalars = torch.stack([sigma, wp, wn, torch.zeros_like(wp)], dim=-1).contiguous()
+    for a, b in zip(ksm.sm_loss_sums(f, strips, scalars),
+                    ksm.sm_loss_sums_plain(f, strips, scalars)):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
+    (df, ds), (rdf, rds) = ksm.sm_loss_grads(f, strips, scalars), \
+        ksm.sm_loss_grads_plain(f, strips, scalars)
+    assert df.shape == f.shape
+    assert float((df - rdf).abs().max()) <= 1e-6 * float(rdf.abs().max()) + 1e-12
+    torch.testing.assert_close(ds, rds, atol=0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("c", WIDE_CS)
+def test_wide_seed_knn(dev, c):
+    """The seed k-NN on C-wide features (the product walks the padded
+    channels 32 at a time) against the plain sort, near ties aside, at
+    N = 5120, S = 512, k = 40."""
+    gen = torch.Generator().manual_seed(c)
+    n = 5120
+    f = torch.nn.functional.normalize(torch.randn((B, n, c), generator=gen), dim=-1).to(dev)
+    seeds = torch.stack([torch.randperm(n, generator=gen)[: n // 10] for _ in range(B)]).to(dev)
+    _, _, mask, _ = pair(n, dev)
+    idx = kknn.seed_knn_exact(f, seeds, 40, mask=mask)
+    ref = kknn.seed_knn_plain(f, seeds, 40, kknn.knn_bias(mask, f))
+    sf = torch.gather(f, 1, seeds[..., None].expand(-1, -1, c))
+    assert knn_sets_agree(idx, ref, torch.einsum("bsc,bnc->bsn", sf, f), 40)
+
+
+@pytest.mark.parametrize("k,c", [(129, 128), (200, 128), (256, 128), (100, 512)])
+def test_seed_hypotheses_above_128_neighbours(dev, k, c):
+    """The hypotheses kernel with more neighbours than threads (a thread owns
+    rows t + 128 i): M in shared memory at k = 129, in its device workspace at
+    k = 200 and 256 (k x (k + 1) floats beside the features pass the 200 KB
+    arena), the features in theirs at C = 512 (k x 516 floats); every seed
+    transform against the f64 plain version within its tolerance
+    (``seed_trans_reference``), at batch 2, the second sample padded."""
+    from pointdsc_tpu_torch.data.synthetic import seed_stage_inputs
+
+    assert kscore.hypotheses_layout(k, c) == {129: (False, False), 200: (False, True),
+                                             256: (False, True), 100: (True, False)}[k]
+    d = seed_stage_inputs(4096, batch=B, channels=c, pad_fraction=0.1)
+    f, seeds, src, tgt, mask = (torch.as_tensor(d[key]).to(dev)
+                                for key in ("feats", "seeds", "src", "tgt", "mask"))
+    knn = kknn.seed_knn_plain(f, seeds, k, kknn.knn_bias(mask, f))
+    sigma = torch.full((1,), 0.8, device=dev)
+    args = (f, seeds, knn, src, tgt, mask, sigma, d["sigma_d"], d["inlier_threshold"], 10)
+    kernels.reset_launches()
+    trans = kscore.seed_hypotheses(*args)[0]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["seed_hypotheses"] == 1
+    ref, tol_rot, tol_trans = kscore.seed_trans_reference(f, knn, src, tgt, mask, sigma,
+                                                          d["sigma_d"], 10)
+    err = (trans.double() - ref).abs()
+    assert bool(torch.all(err[..., :3, :3].amax((-1, -2)) <= tol_rot))
+    assert bool(torch.all(err[..., :3, 3].amax(-1) <= tol_trans))
+
+
+@pytest.mark.parametrize("offset_softmax", [True, False])
+def test_fused_forward_at_c256_matches_dense(dev, offset_softmax):
+    """A two-layer C = 256 model (random weights of seed 0) at N = 4096 fused
+    on the card: the split pair of layer kernels by default (the running-max
+    attention with ``offset_softmax=False``), the seed k-NN and the seed
+    stage on two chunks of 128 channels; the confidence head plain (JAX's
+    gate at C = 128). Against the dense path: final_trans atol 1e-3, labels
+    > 0.99."""
+    model = PointDSC(num_layers=2, num_channels=256, offset_softmax=offset_softmax,
+                     device=dev, generator=torch.Generator().manual_seed(0))
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=4096, seed=4)[0]
+    args = [torch.as_tensor(ex[k])[None].to(dev) for k in ("corr_pos", "src_keypts", "tgt_keypts")]
+    with torch.no_grad():
+        kernels.reset_launches()
+        out = model(*args, fused=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref = model(*args, fused=False)
+    if offset_softmax:
+        assert counts["pcn_qkv"] == 2 and counts["attn_mlp_residual"] == 2
+        assert counts["fused_encoder_layer"] == 0
+    else:
+        assert counts["sc_attention_cached"] == 2
+    assert counts["seed_knn_exact"] == 1 and counts["seed_hypotheses"] == 1
+    assert counts["confidence_head"] == 0
+    torch.testing.assert_close(out.final_trans, ref.final_trans, atol=1e-3, rtol=0)
+    assert float((out.final_labels == ref.final_labels).float().mean()) > 0.99

@@ -202,7 +202,8 @@ def test_confidence_head(rng, n):
     ref = j_conf.confidence_head(jnp.asarray(x, jnp.float32), params)
     weights = [torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a, np.float32))
                for kb in dense for a in kb]
-    out = t_conf.confidence_head(torch.from_numpy(x.astype(np.float32)), *weights)
+    out = t_conf.confidence_head(torch.from_numpy(x.astype(np.float32)),
+                                 t_conf.pack_head_weights(*weights))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
@@ -361,7 +362,7 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     t_nms.nms_top_m(torch.randn(1, 256), None, 64, 25)
     t_score.seed_inlier_counts(torch.eye(4).expand(1, 8, 4, 4).contiguous(), st, tt, 0.1)
     head = [torch.zeros(shape) for shape in ((32, 128), (32,), (32, 32), (32,), (1, 32), (1,))]
-    t_conf.confidence_head(q, *head)
+    t_conf.confidence_head(q, t_conf.pack_head_weights(*head))
     t_knn.seed_knn_exact(q, torch.arange(8)[None], 4)
     t_ref.fused_post_refinement(torch.eye(4)[None], st, tt, torch.ones(1, 256, dtype=torch.bool),
                                 0.1, 3)
@@ -402,7 +403,9 @@ def test_wrappers_check_arguments():
         t_att.build_compat_cache_int8(pts[..., :2], pts[..., :2], 0.1)
     head = [torch.zeros(shape) for shape in ((32, 128), (32,), (32, 32), (32,), (1, 32), (1,))]
     with pytest.raises(ValueError):
-        t_conf.confidence_head(q, *head[:4], torch.zeros(2, 32), head[5])
+        t_conf.pack_head_weights(*head[:4], torch.zeros(2, 32), head[5])
+    with pytest.raises(ValueError):
+        t_conf.confidence_head(q, t_conf.pack_head_weights(*head)[:-4])
     with pytest.raises(ValueError):
         t_knn.seed_knn_exact(q, torch.arange(8, dtype=torch.int32)[None], 4)
     with pytest.raises(ValueError):

@@ -1,7 +1,7 @@
 """The seed stage after the seed k-NN, ``kernels/scoring.py::seed_hypotheses``
 (hypotheses, inlier counts, selection), and the card's width and seed-count
-limits lifted (C <= 128 zero-padded to the kernels' 128; any number of seeds),
-on the CPU.
+limits lifted (C zero-padded to a multiple of the kernels' 128; any number of
+seeds), on the CPU.
 
 - ``seed_hypotheses_plain`` against the JAX model's ``_seed_transforms`` with
   ``fused=True`` (its Pallas scoring kernel in interpret mode) on the same
@@ -366,10 +366,14 @@ def test_seed_knn_padding_is_exact():
 
 
 def test_widths_above_the_kernels_raise():
-    _check.check_width(1, "x")
-    _check.check_width(128, "x")
-    with pytest.raises(ValueError, match="C <= 128"):
-        _check.check_width(129, "the attention kernels")
+    """Every width from 1 up is taken (padded to the next multiple of 128);
+    only C < 1 raises."""
+    for c in (1, 128, 129, 256, 300):
+        _check.check_width(c, "x")
+        assert _check.padded_width(c) == 128 * -(-c // 128)
+    assert tuple(_check.pad_channels(torch.ones(2, 129)).shape) == (2, 256)
+    with pytest.raises(ValueError, match="C >= 1"):
+        _check.check_width(0, "the attention kernels")
 
 
 # ------------------------------------------------------------ the fused model at C = 32
@@ -411,8 +415,8 @@ def test_hypothesis_gate_predicate(needs_grad):
 
 
 def test_forward_takes_any_k_on_the_cpu(monkeypatch):
-    """Above the hypotheses kernel's 128 neighbours (the card refuses a fused
-    eval forward there) the CPU's fused forward still reaches the seed
+    """Above the hypotheses kernel's 128 threads (on the card a thread then
+    owns several neighbour rows) the CPU's fused forward reaches the seed
     stage's wrapper, whose plain version takes any k, and agrees with the
     dense path (final_trans atol 1e-3, labels > 0.99)."""
     calls = []
