@@ -159,10 +159,6 @@ OPS_PER_ATTN_PAIR_EXTRA = 8  # scale, compat multiply, bias add, max, exp, sum p
 OPS_PER_CONF_ROW = 2 * (128 * 32 + 32 * 32 + 32) + 2 * 32 + 1  # three layers, biases, ReLUs
 OPS_PER_KNN_PAIR = 2 * C + 1  # the 128-term dot product and one compare of the selection
 OPS_PER_REFINE_POINT = 63  # warp (18), residual (5), test and weight (5), Gram terms (35)
-OPS_PER_COMPAT_PAIR = 25  # two 3-dots (10), two gram distances (10), diff, square, divide, 1 -, max
-OPS_PER_ATTN_BWD_PAIR_EXTRA = 9  # scale, compat multiply, bias, - lse, exp, dP - D, 3 multiplies
-OPS_PER_SM_PAIR = 14  # u (3), clip and diagonal (3), pm and gtM (3), two squared terms (5)
-OPS_PER_SM_BWD_PAIR = 24  # the forward's M terms (9), g (8), gate (4), dsigma term (3)
 OPS_PER_NN_PAIR = 9  # 3-dot (5), norm sum (1), 2x and subtract (2), compare (1)
 OPS_PER_NN_POINT = 5  # |p|^2 of each query and base point, in the packing
 OPS_PER_REFINE_MEAN_POINT = 7  # masked sums of 6 coordinates and the count
@@ -1343,42 +1339,41 @@ def check_train_kernels(torch, dev) -> list[dict]:
               f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e}", flush=True)
         return max(e_out, e_lse), errs["dq"], max(errs["dk"], errs["dv"])
 
-    def attention_counts(bs, n):
-        """(bytes, operations) of forward, dQ and dK, dV."""
-        act, vec, pairs = bs * n * C * 4, bs * n * 4, float(bs) * n * n
-        geom = 16 * vec
-        extra_f = OPS_PER_COMPAT_PAIR + OPS_PER_ATTN_PAIR_EXTRA
-        extra_b = OPS_PER_COMPAT_PAIR + OPS_PER_ATTN_BWD_PAIR_EXTRA
-        return ((4 * act + geom + vec, pairs * (4 * C + extra_f)),
-                (5 * act + geom + 2 * vec, pairs * (6 * C + extra_b)),
-                (6 * act + geom + 2 * vec, pairs * (8 * C + extra_b)))
-
     # -- the attention trio at the training shape, and at the KITTI scale
     main = attention_case(TRAIN_BS, TRAIN_N, 0.1, train_batch(TRAIN_BS, TRAIN_NODE), seed=4)
     e_f, e_q, e_kv = attention_errors(main, f"bs {TRAIN_BS} N={TRAIN_N}")
     big = attention_case(1, N_KITTI, 1.2, train_batch(1, N_KITTI, **KITTI_DATA), seed=5)
     b_f, b_q, b_kv = attention_errors(big, f"bs 1 N={N_KITTI}")
-    cm, cb = attention_counts(TRAIN_BS, TRAIN_N), attention_counts(1, N_KITTI)
+    # (bytes, operations) of each kernel: the port's yardstick, which
+    # tools/time_attention.py also reads
+    cm = katt.train_attention_work(TRAIN_BS, TRAIN_N, C)
+    cb = katt.train_attention_work(1, N_KITTI, C)
     entries = (
-        ("sc_attention_forward", "sc_attention.py:649", e_f, b_f,
+        ("sc_attention_forward", "forward", "sc_attention.py:649", e_f, b_f,
          lambda c: katt.sc_attention_forward(*c["fwd"]),
          lambda c: katt.sc_attention_forward_plain(*c["fwd"])),
-        ("sc_attention_backward_dq", "sc_attention.py:710", e_q, b_q,
+        ("sc_attention_backward_dq", "dq", "sc_attention.py:710", e_q, b_q,
          lambda c: katt.sc_attention_backward_dq(*c["bwd"]),
          lambda c: katt.sc_attention_backward_plain(*c["bwd"])),
-        ("sc_attention_backward_dkv", "sc_attention.py:742", e_kv, b_kv,
+        ("sc_attention_backward_dkv", "dkv", "sc_attention.py:742", e_kv, b_kv,
          lambda c: katt.sc_attention_backward_dkv(*c["bwd"]),
          lambda c: katt.sc_attention_backward_plain(*c["bwd"])),
     )
-    for i, (name, replaces, err, err_big, fn, plain_fn) in enumerate(entries):
+    for name, work, replaces, err, err_big, fn, plain_fn in entries:
         # the plain backward computes dq, dk and dv at once: its time stands
         # beside both backward kernels
-        big_bound, _ = bound_ms(*cb[i])
+        big_bound, _ = bound_ms(*cb[work])
+        big_ms = time_ms(lambda: fn(big), reps=5, warmup=1)
         row(name, "sc_attention_train.cu", replaces, err, lambda: fn(main),
-            lambda: plain_fn(main), *cm[i],
-            n12288=dict(max_abs_err=err_big, ms=time_ms(lambda: fn(big), reps=5, warmup=1),
+            lambda: plain_fn(main), *cm[work],
+            n12288=dict(max_abs_err=err_big, ms=big_ms,
                         plain_ms=time_ms(lambda: plain_fn(big), reps=5, warmup=1),
-                        bound_ms=big_bound))
+                        bound_ms=big_bound, ms_over_bound=big_ms / big_bound))
+        rows[-1]["ms_over_bound"] = rows[-1]["ms"] / rows[-1]["bound_ms"]
+        print(f"{name}: {rows[-1]['ms']:.4f} ms at bs {TRAIN_BS} / N = {TRAIN_N} "
+              f"({rows[-1]['ms_over_bound']:.2f} x its bound {rows[-1]['bound_ms']:.4f}), "
+              f"{big_ms:.4f} ms at 1 x {N_KITTI} ({big_ms / big_bound:.2f} x "
+              f"{big_bound:.4f})", flush=True)
     del main, big
     torch.cuda.empty_cache()
 
@@ -1403,7 +1398,7 @@ def check_train_kernels(torch, dev) -> list[dict]:
     check(torch.equal(katt.fused_sc_attention(qh, kh, vh, x["src"], x["tgt"], 0.1,
                                               mask=x["mask"]), out),
           "fused_sc_attention: f32 inputs are not the bf16 inputs' result")
-    (bytes_f, ops_f), _, _ = attention_counts(1, N)
+    bytes_f, ops_f = katt.train_attention_work(1, N, C)["forward"]
     row("fused_sc_attention", "sc_attention.cu", "sc_attention.py:82", err,
         lambda: katt.fused_sc_attention(q, k, v, x["src"], x["tgt"], 0.1, mask=x["mask"]),
         lambda: katt.sc_attention_nocache_plain(qh, kh, vh, katt.pack_geometry(
@@ -1431,13 +1426,10 @@ def check_train_kernels(torch, dev) -> list[dict]:
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     check(all(torch.allclose(a, b, atol=0, rtol=1e-5) for a, b in zip(got, ref)),
           f"SM-loss sums max err {err}")
-    pairs = float(TRAIN_BS) * TRAIN_N * TRAIN_N
-    act, strip_bytes = TRAIN_BS * TRAIN_N * C * 4, strips.numel() * 4 + scalars.numel() * 4
-    tiles = -(-TRAIN_N // ksm.TILE)
+    sm_work = ksm.sm_loss_work(TRAIN_BS, TRAIN_N, C)
     row("sm_loss_sums", "sm_loss.cu", "sm_loss.py:87", err,
         lambda: ksm.sm_loss_sums(f, strips, scalars),
-        lambda: ksm.sm_loss_sums_plain(f, strips, scalars),
-        act + strip_bytes + TRAIN_BS * tiles * tiles * 8, pairs * (2 * C + OPS_PER_SM_PAIR))
+        lambda: ksm.sm_loss_sums_plain(f, strips, scalars), *sm_work["sums"])
     (df, ds), (rdf, rds) = ksm.sm_loss_grads(f, strips, scalars), \
         ksm.sm_loss_grads_plain(f, strips, scalars)
     err = float((df - rdf).abs().max())
@@ -1446,8 +1438,7 @@ def check_train_kernels(torch, dev) -> list[dict]:
           f"SM-loss dsigma max err {float((ds - rds).abs().max())}")
     row("sm_loss_grads", "sm_loss.cu", "sm_loss.py:108", err,
         lambda: ksm.sm_loss_grads(f, strips, scalars),
-        lambda: ksm.sm_loss_grads_plain(f, strips, scalars),
-        2 * act + strip_bytes + TRAIN_BS * tiles * 4, pairs * (4 * C + OPS_PER_SM_BWD_PAIR),
+        lambda: ksm.sm_loss_grads_plain(f, strips, scalars), *sm_work["grads"],
         dsigma_max_abs_err=float((ds - rds).abs().max()))
 
     # the public entry against the dense chain it replaces, value and gradients

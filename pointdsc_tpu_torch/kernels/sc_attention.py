@@ -341,6 +341,30 @@ def sc_attention_backward_plain(q, k, v, geom, lse, dvec, d_out, sigma_d, c=None
     return dq, dk, dv
 
 
+# f32 operations per (query, key) pair beside the C-term products, counted
+# from csrc/compat_geom.cuh and csrc/sc_attention_train.cu
+OPS_PER_COMPAT_PAIR = 25  # two 3-dots (10), two gram distances (10), diff, square, divide, 1 -, max
+OPS_PER_FWD_PAIR_EXTRA = 8  # scale, compat multiply, bias add, max, exp, sum
+OPS_PER_BWD_PAIR_EXTRA = 9  # scale, compat multiply, bias, - lse, exp, dP - D, 3 multiplies
+
+
+def train_attention_work(bs: int, n: int, c: int = 128) -> dict:
+    """The least work of the trainable attention's three kernels on a batch of
+    bs samples of n points at width c: {"forward", "dq", "dkv"} -> (bytes,
+    operations). Bytes: each [N, C] operand read once and each output written
+    once (q, k, v, out for the forward; q, k, v, dO, dQ; q, k, v, dO, dK, dV),
+    the 16-row geometry strip, the lse written or read and D read.
+    Operations: 2 C per pair for each C-term product (s, and dP, P V, dQ, dK,
+    dV), and the compat entry and softmax work of every pair."""
+    act, vec = bs * n * c * 4, bs * n * 4
+    geom, pairs = 16 * vec, float(bs) * n * n
+    extra_f = OPS_PER_COMPAT_PAIR + OPS_PER_FWD_PAIR_EXTRA
+    extra_b = OPS_PER_COMPAT_PAIR + OPS_PER_BWD_PAIR_EXTRA
+    return {"forward": (4 * act + geom + vec, pairs * (4 * c + extra_f)),
+            "dq": (5 * act + geom + 2 * vec, pairs * (6 * c + extra_b)),
+            "dkv": (6 * act + geom + 2 * vec, pairs * (8 * c + extra_b))}
+
+
 def _check_qkv_geom(q, k, v, geom):
     """Shapes of the no-cache kernels' inputs; float32 on a CUDA tensor (the
     plain versions also take float64, for gradient checks)."""

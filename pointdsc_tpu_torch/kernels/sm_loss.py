@@ -30,6 +30,23 @@ from pointdsc_tpu_torch.kernels._check import (
 )
 
 TILE = 64  # the kernels' tile side
+# f32 operations per pair beside the C-term product, counted from csrc/sm_loss.cu
+OPS_PER_SM_PAIR = 14  # u (3), clip and diagonal (3), pm and gtM (3), two squared terms (5)
+OPS_PER_SM_BWD_PAIR = 24  # the forward's M terms (9), g (8), gate (4), dsigma term (3)
+
+
+def sm_loss_work(bs: int, n: int, c: int = 128) -> dict:
+    """The least work of the two SM-loss kernels on bs samples of n points
+    at width c: {"sums", "grads"} -> (bytes, operations). Bytes: the features
+    read once (dF written once by the gradients), the label strips and the
+    scalars, and the per-tile partial sums written. Operations: 2 C per pair
+    for the feature product (4 C for the gradients' two), and the pair terms."""
+    act, strip_bytes = bs * n * c * 4, (8 * bs * n + 4 * bs) * 4
+    tiles, pairs = -(-n // TILE), float(bs) * n * n
+    return {"sums": (act + strip_bytes + bs * tiles * tiles * 8,
+                     pairs * (2 * c + OPS_PER_SM_PAIR)),
+            "grads": (2 * act + strip_bytes + bs * tiles * 4,
+                      pairs * (4 * c + OPS_PER_SM_BWD_PAIR))}
 
 
 def pack_labels(gt_labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

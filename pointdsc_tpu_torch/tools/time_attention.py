@@ -1,6 +1,7 @@
 """Kernel-only times of the attention loops, of the split PointCN + QKV
 kernel, of the post-refinement, of the int8 cache build, of the seed NMS,
-of the scoring kernel and of the confidence head, on a CUDA card.
+of the scoring kernel, of the confidence head and of the trainable
+attention, on a CUDA card.
 
     python -m pointdsc_tpu_torch.tools.time_attention [--cases NAME,...] [--out FILE]
 
@@ -29,10 +30,18 @@ scoring (``seed_inlier_counts``, S = 512 transforms near the ground truth)
 at N = 5120 and the confidence head at N = 5120, 12288 and 20480; the seed stage
 after the seed k-NN (``seed_hypotheses``: ``data.synthetic.seed_stage_inputs``,
 S = N / 10, k = 40, at N = 5120 in a 2 m cube and 12288 in a 100 m one, each
-of its three kernels in ``kernels_ms``). ``wrapper_ms``: CUDA events around one
-wrapper call; ``kernel_ms``: the kernel's own device time per call from
-``torch.profiler`` (``profile_forward``'s device summary over 20 calls; the
-seed NMS's kernels each in ``kernels_ms``), beside all the call's device
+of its three kernels in ``kernels_ms``); the trainable attention's three
+kernels (``train_attention``: forward with the LSE, backward dQ, backward
+dK, dV, each through its public entry) and the two SM-loss kernels (sums,
+grads) at bs 16 / N = 1024 (1000 correspondences a pair, 24 padded;
+sigma_d 0.1) and at 1 x 12288 in the KITTI regime (sigma_d 1.2, 50 m pairs),
+each kernel's time beside its bound (``kernels/sc_attention.py::
+train_attention_work`` and ``kernels/sm_loss.py::sm_loss_work`` at
+67 TFLOP/s f32 and 3.35 TB/s; a tree without them gives no bound).
+``wrapper_ms``: CUDA events around one wrapper call; ``kernel_ms``: the
+kernel's own device time per call from ``torch.profiler``
+(``profile_forward``'s device summary over 20 calls; the seed NMS's
+kernels each in ``kernels_ms``), beside all the call's device
 operations (``device_ops``, ``device_ms``); PointCN + QKV also with its two
 products as ``torch.addmm`` in f32 (TF32 off): two calls, the products only.
 """
@@ -47,16 +56,22 @@ import subprocess
 
 import torch
 
-from pointdsc_tpu_torch.data import SyntheticPairDataset
+from pointdsc_tpu_torch.data import SyntheticPairDataset, collate_batch
 from pointdsc_tpu_torch.kernels import conf_mlp as kconf
 from pointdsc_tpu_torch.kernels import encoder_layer as kenc
 from pointdsc_tpu_torch.kernels import nms as knms
 from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
 from pointdsc_tpu_torch.kernels import scoring as kscore
+from pointdsc_tpu_torch.kernels import sm_loss as ksm
 from pointdsc_tpu_torch.tools.profile_forward import SNAPSHOTS, _device_profile
 
 C = 128
+# published H100 SXM peaks (NVIDIA data sheet): f32 CUDA-core FLOP/s, HBM bytes/s
+F32_FLOP_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# the training shapes: n -> (batch, correspondences a pair, sigma_d, data)
+TRAIN_SHAPES = {1024: (16, 1000, 0.1, {}), 12288: (1, 12288, 1.2, SNAPSHOTS["kitti"][2])}
 
 
 def _event_ms(fn, reps=10, warmup=2):
@@ -189,6 +204,50 @@ def confidence_case(n, dev):
             **_device_split(call, "conf_mlp_kernel")}
 
 
+def bound_ms(bytes_moved, ops):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory rate
+    and f32 operations over the CUDA-core rate."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def train_attention_case(n, dev):
+    bs, node, sigma_d, data = TRAIN_SHAPES[n]
+    ds = SyntheticPairDataset(num_pairs=bs, num_corr=node, inlier_ratio=0.35, seed=3, **data)
+    batch = collate_batch([ds[i] for i in range(bs)])
+    src, tgt, mask, gt = (torch.as_tensor(batch[k]).to(dev)
+                          for k in ("src_keypts", "tgt_keypts", "mask", "gt_labels"))
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, d_out = (torch.randn((bs, n, C), generator=gen).to(dev) for _ in range(4))
+    geom = katt.pack_geometry(src, tgt, mask)
+    out, lse = katt.sc_attention_forward(q, k, v, geom, sigma_d)
+    bwd = (q, k, v, geom, lse, torch.sum(d_out * out, dim=-1), d_out, sigma_d)
+    # the SM loss as chip_smoke.py phase 12 feeds it: unit features, sigma 1.07
+    f = torch.nn.functional.normalize(torch.randn((bs, n, C), generator=gen), dim=-1).to(dev)
+    strips = ksm.pack_labels(gt, mask)
+    wp, wn = ksm.balance_weights(strips, balanced=False)
+    scalars = torch.stack([torch.full((bs,), 1.07, device=dev), wp, wn, torch.zeros_like(wp)],
+                          dim=-1).contiguous()
+    calls = {"forward": lambda: katt.sc_attention_forward(q, k, v, geom, sigma_d),
+             "dq": lambda: katt.sc_attention_backward_dq(*bwd),
+             "dkv": lambda: katt.sc_attention_backward_dkv(*bwd),
+             "sums": lambda: ksm.sm_loss_sums(f, strips, scalars),
+             "grads": lambda: ksm.sm_loss_grads(f, strips, scalars)}
+    work = {}
+    if hasattr(katt, "train_attention_work"):  # a tree from before it gives no bounds
+        work = {**katt.train_attention_work(bs, n, C), **ksm.sm_loss_work(bs, n, C)}
+    res = {"kernel": "train_attention", "bs": bs, "n": n, "padded": n - node}
+    for name, call in calls.items():
+        kernel = "sm_loss" if name in ("sums", "grads") else "sc_attention"
+        res[name] = {"wrapper_ms": _event_ms(call), **_device_split(call, kernel)}
+        if name in work:
+            b, by = bound_ms(*work[name])
+            res[name].update(bound_ms=b, bound_by=by)
+            if res[name]["kernel_ms"] != "not measured":
+                res[name]["kernel_over_bound"] = res[name]["kernel_ms"] / b
+    return res
+
+
 def pcn_qkv_case(n, dev):
     x, w = _layer_inputs(n, dev, torch.Generator().manual_seed(0))
     res = {"kernel": "pcn_qkv", "n": n, "wrapper_ms": _event_ms(lambda: kenc.pcn_qkv(x, w)),
@@ -266,6 +325,7 @@ def main(argv=None) -> int:
         cases += [(scoring_case, 5120)]
         cases += [(confidence_case, n) for n in (5120, 12288, 20480)]
         cases += [(seed_stage_case, n) for n in (5120, 12288)]
+        cases += [(train_attention_case, n) for n in TRAIN_SHAPES]
         for case, n in cases:
             if only and case.__name__ not in only:
                 continue

@@ -1096,6 +1096,63 @@ def test_sc_attention_trainable_function(dev):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
 
 
+def backward_case(dev, bs, n, pad, sigma_d, src=None, tgt=None, seed=2):
+    """(args of the two backward wrappers, the plain version's dq, dk, dv):
+    bs samples of n points whose last ``pad`` keys are masked in every
+    sample; random points in a unit cube (tgt within ~5 cm) unless src and
+    tgt are given; q, k, v, dO of unit variance; lse and D from the plain
+    forward."""
+    gen = torch.Generator().manual_seed(seed)
+    if src is None:
+        src = torch.rand((bs, n, 3), generator=gen)
+        tgt = src + 0.05 * torch.randn((bs, n, 3), generator=gen)
+    mask = (torch.arange(n) < n - pad).expand(bs, n)
+    q, k, v, d_out = (torch.randn((bs, n, 128), generator=gen).to(dev) for _ in range(4))
+    geom = katt.pack_geometry(src.to(dev), tgt.to(dev), mask.to(dev))
+    out, lse = katt.sc_attention_forward_plain(q, k, v, geom, sigma_d)
+    args = (q, k, v, geom, lse, torch.sum(d_out * out, dim=-1), d_out, sigma_d)
+    return args, katt.sc_attention_backward_plain(*args)
+
+
+def check_backward(args, ref, pad, tol):
+    """The two backward kernels against the plain version at atol = rtol =
+    tol; a masked key's dK and dV rows exactly 0; a second call equal to the
+    first bit for bit (one owner per output row, no atomics)."""
+    got = (katt.sc_attention_backward_dq(*args), *katt.sc_attention_backward_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=lambda m: f"{name}: {m}")
+    if pad:
+        assert float(got[1][:, -pad:].abs().max()) == 0.0
+        assert float(got[2][:, -pad:].abs().max()) == 0.0
+    again = (katt.sc_attention_backward_dq(*args), *katt.sc_attention_backward_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+
+
+@pytest.mark.parametrize("n,pad", [(1, 0), (33, 3), (64, 6), (65, 6), (1000, 100), (1024, 24)])
+def test_sc_attention_train_backward_sizes(dev, n, pad):
+    """dQ, dK, dV around the C = 128 kernels' 64-row owners and 32-row tiles:
+    one point, a partial owner and tile, one whole owner, one row past it, a
+    ragged last tile (1000) and the training shape (1000 correspondences
+    padded to 1024), at atol = rtol = 2e-4 as test_sc_attention_train_backward
+    holds them (sums of n terms of either sign, in another order)."""
+    args, ref = backward_case(dev, B, n, pad, 0.1)
+    check_backward(args, ref, pad, 2e-4)
+
+
+def test_sc_attention_train_backward_kitti(dev):
+    """bs 2 x N = 12288 in the KITTI regime (sigma_d 1.2, 50 m pairs of the
+    SyntheticKITTI data) at atol = rtol = 5e-4, chip_smoke.py phase 12's
+    tolerance at this N (sums of 12288 terms)."""
+    exs = [SyntheticPairDataset(num_pairs=2, num_corr=12288, inlier_ratio=0.35, seed=3,
+                                scene_scale=50.0, noise=0.05, inlier_threshold=0.6)[i]
+           for i in range(2)]
+    src, tgt = (torch.as_tensor(np.stack([e[key] for e in exs]))
+                for key in ("src_keypts", "tgt_keypts"))
+    args, ref = backward_case(dev, 2, 12288, 0, 1.2, src=src, tgt=tgt)
+    check_backward(args, ref, 0, 5e-4)
+
+
 def sm_inputs(dev, n, seed=3):
     gen = torch.Generator().manual_seed(seed)
     f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1).to(dev)

@@ -66,11 +66,25 @@ def test_sc_attention_trainable_matches_jax(rng, masked):
     suite's own bounds against its dense reference: both sides sum 256 keys in
     f32 in another order, and the compat factor divides a difference of two
     distances by 0.01."""
-    q, k, v, w, src, tgt, mask = attention_inputs(rng, 256, 32, masked)
+    check_trainable_against_jax(rng, 256, 32, masked)
+
+
+def test_sc_attention_trainable_matches_jax_at_card_width(rng):
+    """The card kernels' width, C = 128, at N = 512 with the last fifth
+    masked: the function the C = 128 backward kernels are held to on the card
+    (``tests/test_torch_port_cuda.py``), at the C = 32 test's bounds."""
+    check_trainable_against_jax(rng, 512, 128, True)
+
+
+def check_trainable_against_jax(rng, n, c, masked):
+    """The port's trainable attention (its plain versions on the CPU) against
+    JAX's custom-VJP kernels in interpret mode: out atol 2e-5, the gradients
+    of sum(out * w) atol 5e-4; a padded key gets no gradient."""
+    q, k, v, w, src, tgt, mask = attention_inputs(rng, n, c, masked)
     wj = jnp.asarray(w)
 
     out_j, grads_j = jax.value_and_grad(
-        lambda a, b, c: jnp.sum(jax_trainable(a, b, c, src, tgt, mask, masked) * wj),
+        lambda qq, kk, vv: jnp.sum(jax_trainable(qq, kk, vv, src, tgt, mask, masked) * wj),
         argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     ref = np.asarray(jax_trainable(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), src, tgt,
                                    mask, masked))
@@ -85,9 +99,24 @@ def test_sc_attention_trainable_matches_jax(rng, masked):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(gj), atol=5e-4,
                                    err_msg=f"d{name}")
     if masked:  # a padded key's P is exactly 0
-        pad = 256 - 256 // 5
+        pad = n - n // 5
         assert float(leaves[1].grad[:, pad:].abs().max()) == 0.0
         assert float(leaves[2].grad[:, pad:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bs,n,dq_ms,dkv_ms",
+                         [(16, 1024, 0.20083, 0.26493), (1, 12288, 1.80743, 2.38437)])
+def test_train_attention_bounds(bs, n, dq_ms, dkv_ms):
+    """The backward kernels' bounds, from the one count of their work that
+    chip_smoke.py phase 12 and tools/time_attention.py both read, are the
+    values PERF.md gives them (f32 operations at 67 TFLOP/s; the bytes take
+    a few hundredths of that)."""
+    from pointdsc_tpu_torch.tools import time_attention
+
+    work = t_att.train_attention_work(bs, n)
+    for name, want in (("dq", dq_ms), ("dkv", dkv_ms)):
+        got, by = time_attention.bound_ms(*work[name])
+        assert by == "operations" and abs(got - want) < 5e-6, (name, got, by)
 
 
 def test_geometry_strip_and_no_cache_forward_match_jax(rng):
