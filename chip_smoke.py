@@ -94,7 +94,9 @@ builds itself (``make_scene``; no demo data is needed):
  19. the nearest-neighbour kernel against its plain version at N = M = 20480,
      at 5120 with a mask and with every base point masked (d2 bit for bit),
      and the symmetric cache build against the full-grid kernel (byte for
-     byte) and its plain version at N = 5120 and 20480; time them;
+     byte) and its plain version at N = 5120 and 20480; time them (the
+     search also kernel only, in two device operations at 20480: the merge's
+     workspace set to ones, then the kernel; its issue floor on a line of its own);
  20. ``tools/demo_registration.main`` on the scene written as PLY (~200k raw
      points a cloud, FPFH, 5000 correspondences, the Synthetic snapshot,
      ICP) with the counts set to 0 before and read after: it must register
@@ -159,8 +161,6 @@ OPS_PER_ATTN_PAIR_EXTRA = 8  # scale, compat multiply, bias add, max, exp, sum p
 OPS_PER_CONF_ROW = 2 * (128 * 32 + 32 * 32 + 32) + 2 * 32 + 1  # three layers, biases, ReLUs
 OPS_PER_KNN_PAIR = 2 * C + 1  # the 128-term dot product and one compare of the selection
 OPS_PER_REFINE_POINT = 63  # warp (18), residual (5), test and weight (5), Gram terms (35)
-OPS_PER_NN_PAIR = 9  # 3-dot (5), norm sum (1), 2x and subtract (2), compare (1)
-OPS_PER_NN_POINT = 5  # |p|^2 of each query and base point, in the packing
 OPS_PER_REFINE_MEAN_POINT = 7  # masked sums of 6 coordinates and the count
 N_LARGE = 20480  # the Redwood scale: the split kernel is also timed there
 # phase 11b: a C = 32 model's pair, a pair whose every point is a seed, and
@@ -1777,6 +1777,13 @@ def check_registration_kernels(torch, dev) -> list[dict]:
     equal, or where not, the d2 at both indices equal. ``library_ms`` is null:
     ``torch.cdist(q, b).min(dim=1)`` computes the same function in two calls
     (a matrix and a reduction); its time stands beside as ``cdist_min_ms``.
+    Beside the wrapper's time, the kernel's own (``kernel_ms``, torch.profiler)
+    and the device operations of a search: 1, or 2 where the base is split
+    over blocks (the merge's workspace set to ones, then the kernel). Phase 19's
+    own line prints the launch's grid and, beside the bound (9 f32 operations
+    a pair at the f32 rate), the issue floor of the kernel's 10 instructions
+    a pair at the H100's published SM count and clock
+    (``kernels/nn_search.py``); neither is measured, so neither is in the row.
 
     compat_cache_int8_sym: equal byte for byte to the full-grid kernel at
     N = 5120 and 20480 (compat_value is exactly symmetric), and within +-1 on
@@ -1789,6 +1796,7 @@ def check_registration_kernels(torch, dev) -> list[dict]:
     from pointdsc_tpu_torch.kernels import nn_search as knn
     from pointdsc_tpu_torch.kernels import sc_attention as katt
     from pointdsc_tpu_torch.kernels import symcache as ksym
+    from pointdsc_tpu_torch.tools.time_attention import _device_split
 
     rows = []
     _, _, gt, skp, tkp = scene_keypoints()
@@ -1824,8 +1832,11 @@ def check_registration_kernels(torch, dev) -> list[dict]:
             fq, fb = q, b
     print(f"nearest_neighbors vs plain: {json.dumps(errs)}", flush=True)
     n = NN_N
-    b_, o_ = bound_ms(2 * n * 3 * 4 + n * (4 + 8), float(n) * n * OPS_PER_NN_PAIR
-                      + 2 * n * OPS_PER_NN_POINT)
+    b_, o_ = bound_ms(*knn.nn_search_work(1, n, n))
+    split = _device_split(lambda: knn.nearest_neighbors(fq, fb), "nn_kernel")
+    grid = knn.nn_grid(1, n, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"nearest_neighbors at N = M = {n}: grid (query blocks, splits, range) {list(grid)}, "
+          f"issue floor {knn.nn_issue_floor_ms(1, n, n)} ms, bound {b_} ms ({o_})", flush=True)
     rows.append(dict(
         name="nearest_neighbors", route="cuda",
         source="pointdsc_tpu_torch/kernels/csrc/nn_search.cu",
@@ -1834,8 +1845,12 @@ def check_registration_kernels(torch, dev) -> list[dict]:
         plain_ms=time_ms(lambda: plain_nn(fq, fb), reps=10),
         bound_ms=b_, bound_by=o_, library_ms=None,
         cdist_min_ms=time_ms(lambda: torch.cdist(fq, fb).min(dim=1), reps=10),
+        kernel_ms=split["kernel_ms"], device_ops=split["device_ops"],
         n=n, m=n, index_mismatches=errs["full"]["index_mismatches"],
         masked_5120=errs["masked"], all_masked_5120=errs["all_masked"]))
+    want = 2 if grid[1] > 1 else 1
+    check(split["device_ops"] == want, f"nearest_neighbors: {split['device_ops']} device "
+                                       f"operations a search, expected {want}")
     del fq, fb
     torch.cuda.empty_cache()
 

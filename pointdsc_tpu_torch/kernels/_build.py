@@ -58,7 +58,7 @@ SIGNATURES = {
                 "seed_inlier_counts": [P] * 5 + [I, I, I, F, P],
                 "select_hypothesis": [P] * 9 + [I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},
-    "nn_search": {"nearest_neighbors": [P, P, P, P, I, I, I, P]},
+    "nn_search": {"nearest_neighbors": [P] * 6 + [I] * 7 + [P]},
     "compat_cache_sym": {"compat_cache_tri": [P, P, P, I, I, I, I, F, P],
                          "compat_cache_mirror": [P, P, I, I, I, I, P]},
 }

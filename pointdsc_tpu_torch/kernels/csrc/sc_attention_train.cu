@@ -34,14 +34,14 @@
 //
 // Bound on the H100: the operands are f32, so the products run on the CUDA
 // cores (67 TFLOP/s): 4 N^2 C operations per sample forward, 6 N^2 C for dQ
-// and 8 N^2 C for dK, dV, against a few [N, C] streams. The forward (and the
-// backward above C = 128) stages tiles through shared memory and uses scalar
-// FMAs; the C = 128 backward (sc_attention_bwd128_kernel) is built for the
-// FMA rate: 64 owned rows a block, register tiles in both phases whose
-// operands are read as float4, and the next tile copied by cp.async while
-// the current one is worked (its notes below).
+// and 8 N^2 C for dK, dV, against a few [N, C] streams. Above C = 128 the
+// kernels stage tiles through shared memory and use scalar FMAs; at C = 128
+// (sc_attention_bwd128_kernel, sc_attention_fwd128_kernel) they are built
+// for the FMA rate: 64 owned rows a block, register tiles in both phases
+// whose operands are read as float4, and the next tile copied by cp.async
+// while the current one is worked (their notes below).
 //
-// Above C = 128 (kWide): q, k, v, dO and the outputs are [B, N, ld], the
+// Above C = 128: q, k, v, dO and the outputs are [B, N, ld], the
 // model's channels zero-padded to ld = 128 m. A block makes m passes, one per
 // 128-wide output chunk; in each it recomputes, tile by tile, the logits (and
 // in the backward dP) summed over all m chunks in one order, staging the
@@ -94,7 +94,7 @@ __device__ __forceinline__ void load_geom(float* dst, const float* __restrict__ 
   }
 }
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------------------- forward, above C = 128
 
 constexpr int F_OFF_V = 0;  // float4-aligned rows
 constexpr int F_OFF_K = F_OFF_V + BT * C;
@@ -107,7 +107,6 @@ constexpr int F_OFF_L = F_OFF_ALPHA + BO;
 constexpr int F_OFF_M = F_OFF_L + BO;
 constexpr size_t F_SMEM_BYTES = (F_OFF_M + BO) * sizeof(float);
 
-template <bool kWide>
 __global__ void __launch_bounds__(THREADS)
 sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ geom,
@@ -128,14 +127,12 @@ sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BO;
   const size_t base = static_cast<size_t>(b) * n;
-  const int w = kWide ? ld : C;  // row width
-  const int chunks = kWide ? ld / C : 1;
-  q += base * w;
-  k += base * w;
-  v += base * w;
+  const int chunks = ld / C;
+  q += base * ld;
+  k += base * ld;
+  v += base * ld;
   geom += base * GSTRIDE;
 
-  if constexpr (!kWide) load_rows(Qs, q, q0, BO, n);
   load_geom(Gq, geom, q0, BO, n);
 
   // phase-1 layout: 16 row pairs x 16 column lanes (columns tx + 16 j)
@@ -154,17 +151,13 @@ sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 
     for (int k0 = 0; k0 < n; k0 += BT) {
       __syncthreads();  // the previous tile's readers are done
-      if constexpr (kWide) {
-        load_rows(Qs, q, q0, BO, n, ld, 0);
-        load_rows(Ks, k, k0, BT, n, ld, 0);
-      } else {
-        load_rows(Ks, k, k0, BT, n);
-      }
+      load_rows(Qs, q, q0, BO, n, ld, 0);
+      load_rows(Ks, k, k0, BT, n, ld, 0);
       for (int i = tid; i < BT * C / 4; i += THREADS) {
         const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
         float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
         if (k0 + r < n)
-          vx = *reinterpret_cast<const float4*>(v + static_cast<size_t>(k0 + r) * w + C * oc + c4);
+          vx = *reinterpret_cast<const float4*>(v + static_cast<size_t>(k0 + r) * ld + C * oc + c4);
         *reinterpret_cast<float4*>(Vs + r * C + c4) = vx;
       }
       load_geom(Gk, geom, k0, BT, n);
@@ -177,13 +170,11 @@ sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
       for (int ch = 0; ch < chunks; ++ch) {
-        if constexpr (kWide) {
-          if (ch > 0) {  // the next chunk of Q and K
-            __syncthreads();
-            load_rows(Qs, q, q0, BO, n, ld, C * ch);
-            load_rows(Ks, k, k0, BT, n, ld, C * ch);
-            __syncthreads();
-          }
+        if (ch > 0) {  // the next chunk of Q and K
+          __syncthreads();
+          load_rows(Qs, q, q0, BO, n, ld, C * ch);
+          load_rows(Ks, k, k0, BT, n, ld, C * ch);
+          __syncthreads();
         }
 #pragma unroll 8
         for (int c = 0; c < C; ++c) {
@@ -265,7 +256,7 @@ sc_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
       const float inv = 1.0f / (l_s[row] + 1e-30f);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        out[(base + q0 + row) * w + C * oc + cx + 32 * j] = acc[r][j] * inv;
+        out[(base + q0 + row) * ld + C * oc + cx + 32 * j] = acc[r][j] * inv;
     }
     if (oc == 0 && tid < BO && q0 + tid < n)
       lse[base + q0 + tid] = m_s[tid] + logf(l_s[tid] + 1e-30f);
@@ -502,6 +493,18 @@ static_assert(STAGES * 2 * TILE <= 2 * OWN, "statistics stage");
 static_assert(S_GO % 4 == 0 && S_DL % 4 == 0 && S_PT % 4 == 0 && DS % 4 == 0,
               "16-byte aligned rows");
 static_assert(OWN == 8 * (THREADS / 32) && TILE == 32 && C == 128, "the lane roles below");
+// the forward's stages
+constexpr int F_Q = 0;                               // [OWN][C]
+constexpr int F_K = F_Q + OWN * C;                   // [STAGES][TILE][C]
+constexpr int F_V = F_K + STAGES * TILE * C;         // [STAGES][TILE][C]
+constexpr int F_GO = F_V + STAGES * TILE * C;        // [GROWS][OWN]
+constexpr int F_GT = F_GO + GROWS * OWN;             // [STAGES][GROWS][TILE]
+constexpr int F_P = F_GT + STAGES * GROWS * TILE;    // [TILE][DS] P
+constexpr int F_ALPHA = F_P + TILE * DS;             // [OWN] the tile's rescale
+constexpr int F_L = F_ALPHA + OWN;                   // [OWN] l, then m, at the end
+constexpr int F_M = F_L + OWN;
+constexpr size_t BYTES_FWD = (F_M + OWN) * sizeof(float);
+static_assert(F_P % 4 == 0 && F_ALPHA % 4 == 0, "16-byte aligned rows");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -783,6 +786,184 @@ sc_attention_bwd128_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// ------------------------------------------------------- forward, C = 128
+//
+// The C = 128 backward's layout on the forward (the same helpers): a block
+// of 8 warps owns OWN = 64 query rows, copied once with their 9 geometry
+// rows; K, V and each tile's 9 geometry rows (row 8: the key bias) are
+// double-buffered by cp.async in tiles of TILE = 32 rows.
+// - Phase 1: warp_rows_dot gives lane (tg, kg) q.k of own row 8w + kg
+//   against tile rows tg + 4t; compat_entries their compat bits.
+//   s = compat * (q.k * scale) + bias, -inf past n (a padded key within n
+//   has bias -1e9, as in the plain version). The row's tile maximum and the
+//   sum of exp(s - m_new) over its 32 keys are reduced across its four tg
+//   lanes by xor shuffles (8, then 16); each lane adds the same two terms at
+//   each level, so all four hold the same m and l. P goes to a [TILE][OWN]
+//   stage, alpha = exp(m_old - m_new) of each own row to shared memory.
+// - Phase 2: a lane holds an 8 x 8 tile of the output (own rows rp .. rp + 7,
+//   channels cq + {0..3} and 64 + the same); warps 0-3 sum the tile's rows
+//   0-15, warps 4-7 rows 16-31, each half rescaled by the same alpha every
+//   tile; the halves are added once at the end, in that order.
+// - Epilogue: out = acc * (1 / (l + 1e-30)), lse = m + log(l + 1e-30). Every sum
+//   has one owner and a fixed order: the result is the same from run to run.
+// Shared memory: 113 KB; one block an SM (the registers).
+
+__global__ void __launch_bounds__(THREADS, 1)
+sc_attention_fwd128_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ geom,
+                           float* __restrict__ out, float* __restrict__ lse, int n, float sig2,
+                           float scale) {
+  using namespace b128;
+  extern __shared__ __align__(16) float smem[];
+  const float* Go = smem + F_GO;
+  float* P = smem + F_P;
+  float* alpha_s = smem + F_ALPHA;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y;
+  const int o0 = blockIdx.x * OWN;
+  const size_t base = static_cast<size_t>(b) * n;
+  q += base * C;
+  k += base * C;
+  v += base * C;
+  geom += base * GSTRIDE;
+  const double inv_sig2 = 1.0 / static_cast<double>(sig2);
+
+  auto issue_tile = [&](int t0, int st) {
+    copy_rows<TILE>(smem + F_K + st * TILE * C, k, t0, n);
+    copy_rows<TILE>(smem + F_V + st * TILE * C, v, t0, n);
+    copy_cols<TILE>(smem + F_GT + st * GROWS * TILE, geom, GROWS, t0, n);
+    cp_async_commit();
+  };
+  copy_rows<OWN>(smem + F_Q, q, o0, n);
+  copy_cols<OWN>(smem + F_GO, geom, GROWS, o0, n);
+  issue_tile(0, 0);  // one group with the owned rows
+
+  const int kg = lane & 7, tg = lane >> 3;  // phase 1
+  const int ro = 8 * warp + kg;             //   own row of the lane's logits
+  const int half = warp >> 2;               // phase 2
+  const int rp = 16 * (warp & 3) + 8 * (lane >> 4);  // own rows rp .. rp + 7
+  const int cq = 4 * (lane & 15);           //   channels cq + {0..3}, 64 + cq + {0..3}
+
+  float m_row = NEG, l_row = 0.f;  // own row ro's softmax state
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  const int tiles = (n + TILE - 1) / TILE;
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t & 1, t0 = t * TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; phase 2 of tile t - 1 is done
+    if (t + 1 < tiles) issue_tile(t0 + TILE, st ^ 1);
+    const float* Kt = smem + F_K + st * TILE * C;
+    const float* Vt = smem + F_V + st * TILE * C;
+    const float* Gt = smem + F_GT + st * GROWS * TILE;
+
+    // ---- phase 1: s of own row ro against tile rows tg + 4 j, the softmax state
+    float s[8], compat[8];
+    warp_rows_dot(smem + F_Q + 8 * warp * C, Kt, kg, tg, s);
+    compat_entries(Go, ro, Gt, tg, sig2, inv_sig2, compat);
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = tg + 4 * j;
+      s[j] = compat[j] * (s[j] * scale) + Gt[8 * TILE + col];
+      if (t0 + col >= n) s[j] = -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    const float m_new = fmaxf(m_row, mx);
+    const float alpha = expf(m_row - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = expf(s[j] - m_new);
+      P[(tg + 4 * j) * DS + ro] = p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+    l_row = l_row * alpha + sum;
+    m_row = m_new;
+    if (tg == 0) alpha_s[ro] = alpha;
+    __syncthreads();  // P and alpha of the whole tile
+
+    // ---- phase 2: acc = acc * alpha + P V over the half's 16 tile rows
+    const float4 a0 = ld4(alpha_s + rp), a1 = ld4(alpha_s + rp + 4);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= a[r];
+#pragma unroll 16
+    for (int jj = 0; jj < TILE / 2; ++jj) {
+      const int j = 16 * half + jj;
+      const float4 p0 = ld4(P + j * DS + rp), p1 = ld4(P + j * DS + rp + 4);
+      const float4 x0 = ld4(Vt + j * C + cq), x1 = ld4(Vt + j * C + 64 + cq);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(p[r], x[c], acc[r][c]);
+    }
+  }
+
+  // the second half's sums join the first's through the owned Q stage
+  float* part = smem + F_Q;
+  if (tg == 0) {
+    smem[F_L + ro] = l_row;
+    smem[F_M + ro] = m_row;
+  }
+  __syncthreads();  // every warp is past its last phase 2
+  if (half) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      *reinterpret_cast<float4*>(part + (rp + r) * C + cq) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      *reinterpret_cast<float4*>(part + (rp + r) * C + 64 + cq) =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+  __syncthreads();
+  if (half) return;
+  if (tid < OWN && o0 + tid < n)
+    lse[base + o0 + tid] = smem[F_M + tid] + logf(smem[F_L + tid] + 1e-30f);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = rp + r;
+    if (o0 + row >= n) continue;
+    const float4 y0 = ld4(part + row * C + cq), y1 = ld4(part + row * C + 64 + cq);
+    const float inv = 1.0f / (smem[F_L + row] + 1e-30f);
+    float* o = out + (base + o0 + row) * C;
+    *reinterpret_cast<float4*>(o + cq) =
+        make_float4((acc[r][0] + y0.x) * inv, (acc[r][1] + y0.y) * inv,
+                    (acc[r][2] + y0.z) * inv, (acc[r][3] + y0.w) * inv);
+    *reinterpret_cast<float4*>(o + 64 + cq) =
+        make_float4((acc[r][4] + y1.x) * inv, (acc[r][5] + y1.y) * inv,
+                    (acc[r][6] + y1.z) * inv, (acc[r][7] + y1.w) * inv);
+  }
+}
+
+int launch_fwd128(const void* q, const void* k, const void* v, const void* geom, void* out,
+                  void* lse, int batch, int n, float sig2, float scale, void* stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(sc_attention_fwd128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(b128::BYTES_FWD));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + b128::OWN - 1) / b128::OWN, batch);
+  sc_attention_fwd128_kernel<<<grid, THREADS, b128::BYTES_FWD,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(geom), static_cast<float*>(out), static_cast<float*>(lse), n,
+      sig2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool DKV>
 int launch_bwd128(const void* q, const void* k, const void* v, const void* d_out,
                   const void* geom, const void* lse, const void* dvec, void* out_a, void* out_b,
@@ -819,18 +1000,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_out, c
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kWide>
 int launch_fwd(const void* q, const void* k, const void* v, const void* geom, void* out,
                void* lse, int batch, int n, int ld, float sig2, float scale, void* stream) {
   // per call: the attribute belongs to the current device
   const cudaError_t err =
-      cudaFuncSetAttribute(sc_attention_fwd_kernel<kWide>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(sc_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(F_SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + BO - 1) / BO, batch);
-  sc_attention_fwd_kernel<kWide><<<grid, THREADS, F_SMEM_BYTES,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  sc_attention_fwd_kernel<<<grid, THREADS, F_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(geom), static_cast<float*>(out), static_cast<float*>(lse), n,
       sig2, scale, ld);
@@ -844,8 +1022,8 @@ extern "C" int sc_attention_train_fwd(const void* q, const void* k, const void* 
                                       const void* geom, void* out, void* lse, int batch, int n,
                                       int ld, float sig2, float scale, void* stream) {
   if (ld < C || ld % C) return static_cast<int>(cudaErrorInvalidValue);
-  return ld == C ? launch_fwd<false>(q, k, v, geom, out, lse, batch, n, ld, sig2, scale, stream)
-                 : launch_fwd<true>(q, k, v, geom, out, lse, batch, n, ld, sig2, scale, stream);
+  return ld == C ? launch_fwd128(q, k, v, geom, out, lse, batch, n, sig2, scale, stream)
+                 : launch_fwd(q, k, v, geom, out, lse, batch, n, ld, sig2, scale, stream);
 }
 
 extern "C" int sc_attention_train_bwd_dq(const void* q, const void* k, const void* v,

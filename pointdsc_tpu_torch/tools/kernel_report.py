@@ -9,8 +9,8 @@ Compiles the two sources of ``kernels/csrc`` that hold the attention loop,
 QKV kernel), the seed k-NN's ``seed_knn``, the refinement's ``refine``, the
 int8 cache's ``compat_cache``, the seed NMS's ``nms``, the seed stage's
 ``scoring`` (which shares ``csrc/horn.cuh`` with ``refine``), the training
-kernels' ``sc_attention_train`` and ``sm_loss`` and the confidence head's
-``conf_mlp``, with the build's
+kernels' ``sc_attention_train`` and ``sm_loss``, the confidence head's
+``conf_mlp`` and the nearest-neighbour search's ``nn_search``, with the build's
 flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
 ``cuobjdump --dump-sass``. Prints one JSON object per kernel: registers,
 spill stores and loads (bytes), stack frame, and the count of each ``HMMA``
@@ -47,7 +47,7 @@ from collections import Counter
 from pointdsc_tpu_torch.kernels import _build
 
 SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine", "compat_cache", "nms",
-           "scoring", "sc_attention_train", "sm_loss", "conf_mlp")
+           "scoring", "sc_attention_train", "sm_loss", "conf_mlp", "nn_search")
 CACHE_COLUMNS = 16  # entries a thread computes in one pass of the cache kernel's row loop
 FLOOR_SIZES = (5120, 12288)
 

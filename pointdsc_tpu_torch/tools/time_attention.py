@@ -1,7 +1,7 @@
 """Kernel-only times of the attention loops, of the split PointCN + QKV
 kernel, of the post-refinement, of the int8 cache build, of the seed NMS,
-of the scoring kernel, of the confidence head and of the trainable
-attention, on a CUDA card.
+of the scoring kernel, of the confidence head, of the trainable attention
+and of the nearest-neighbour search, on a CUDA card.
 
     python -m pointdsc_tpu_torch.tools.time_attention [--cases NAME,...] [--out FILE]
 
@@ -37,7 +37,12 @@ grads) at bs 16 / N = 1024 (1000 correspondences a pair, 24 padded;
 sigma_d 0.1) and at 1 x 12288 in the KITTI regime (sigma_d 1.2, 50 m pairs),
 each kernel's time beside its bound (``kernels/sc_attention.py::
 train_attention_work`` and ``kernels/sm_loss.py::sm_loss_work`` at
-67 TFLOP/s f32 and 3.35 TB/s; a tree without them gives no bound).
+67 TFLOP/s f32 and 3.35 TB/s; a tree without them gives no bound); the
+nearest-neighbour search of ICP (``nn_search``: ``nearest_neighbors`` at
+N = M = 2048, 5120 and 20480, a base cloud in a 3 m cube and each query a
+base point moved by ~1 cm) beside its bound and its issue floor
+(``kernels/nn_search.py::nn_search_work``, ``nn_issue_floor_ms``; not in a
+tree without them).
 ``wrapper_ms``: CUDA events around one wrapper call; ``kernel_ms``: the
 kernel's own device time per call from ``torch.profiler``
 (``profile_forward``'s device summary over 20 calls; the seed NMS's
@@ -60,6 +65,7 @@ from pointdsc_tpu_torch.data import SyntheticPairDataset, collate_batch
 from pointdsc_tpu_torch.kernels import conf_mlp as kconf
 from pointdsc_tpu_torch.kernels import encoder_layer as kenc
 from pointdsc_tpu_torch.kernels import nms as knms
+from pointdsc_tpu_torch.kernels import nn_search as knn
 from pointdsc_tpu_torch.kernels import refine as kref
 from pointdsc_tpu_torch.kernels import sc_attention as katt
 from pointdsc_tpu_torch.kernels import scoring as kscore
@@ -248,6 +254,26 @@ def train_attention_case(n, dev):
     return res
 
 
+def nn_search_case(n, dev):
+    gen = torch.Generator().manual_seed(6)
+    base = torch.rand((n, 3), generator=gen) * 3.0
+    pick = torch.randint(0, n, (n,), generator=gen)
+    query = (base[pick] + 0.01 * torch.randn((n, 3), generator=gen)).to(dev)
+    base = base.to(dev)
+
+    def call():
+        return knn.nearest_neighbors(query, base)
+
+    res = {"kernel": "nearest_neighbors", "n": n, "m": n, "wrapper_ms": _event_ms(call),
+           **_device_split(call, "nn_kernel")}
+    if hasattr(knn, "nn_search_work"):  # a tree from before it gives no bound
+        res["bound_ms"], res["bound_by"] = bound_ms(*knn.nn_search_work(1, n, n))
+        res["issue_floor_ms"] = knn.nn_issue_floor_ms(1, n, n)
+        if res["kernel_ms"] != "not measured":
+            res["kernel_over_issue_floor"] = res["kernel_ms"] / res["issue_floor_ms"]
+    return res
+
+
 def pcn_qkv_case(n, dev):
     x, w = _layer_inputs(n, dev, torch.Generator().manual_seed(0))
     res = {"kernel": "pcn_qkv", "n": n, "wrapper_ms": _event_ms(lambda: kenc.pcn_qkv(x, w)),
@@ -326,6 +352,7 @@ def main(argv=None) -> int:
         cases += [(confidence_case, n) for n in (5120, 12288, 20480)]
         cases += [(seed_stage_case, n) for n in (5120, 12288)]
         cases += [(train_attention_case, n) for n in TRAIN_SHAPES]
+        cases += [(nn_search_case, n) for n in (2048, 5120, 20480)]
         for case, n in cases:
             if only and case.__name__ not in only:
                 continue

@@ -1096,19 +1096,24 @@ def test_sc_attention_trainable_function(dev):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
 
 
-def backward_case(dev, bs, n, pad, sigma_d, src=None, tgt=None, seed=2):
-    """(args of the two backward wrappers, the plain version's dq, dk, dv):
-    bs samples of n points whose last ``pad`` keys are masked in every
-    sample; random points in a unit cube (tgt within ~5 cm) unless src and
-    tgt are given; q, k, v, dO of unit variance; lse and D from the plain
-    forward."""
+def attention_operands(dev, bs, n, pad, src=None, tgt=None, seed=2):
+    """q, k, v, dO [bs, n, 128] of unit variance and the packed geometry of bs
+    samples of n points whose last ``pad`` keys are masked in every sample;
+    random points in a unit cube (tgt within ~5 cm) unless src and tgt are
+    given."""
     gen = torch.Generator().manual_seed(seed)
     if src is None:
         src = torch.rand((bs, n, 3), generator=gen)
         tgt = src + 0.05 * torch.randn((bs, n, 3), generator=gen)
     mask = (torch.arange(n) < n - pad).expand(bs, n)
     q, k, v, d_out = (torch.randn((bs, n, 128), generator=gen).to(dev) for _ in range(4))
-    geom = katt.pack_geometry(src.to(dev), tgt.to(dev), mask.to(dev))
+    return q, k, v, d_out, katt.pack_geometry(src.to(dev), tgt.to(dev), mask.to(dev))
+
+
+def backward_case(dev, bs, n, pad, sigma_d, src=None, tgt=None, seed=2):
+    """(args of the two backward wrappers, the plain version's dq, dk, dv):
+    ``attention_operands``' inputs, lse and D from the plain forward."""
+    q, k, v, d_out, geom = attention_operands(dev, bs, n, pad, src, tgt, seed)
     out, lse = katt.sc_attention_forward_plain(q, k, v, geom, sigma_d)
     args = (q, k, v, geom, lse, torch.sum(d_out * out, dim=-1), d_out, sigma_d)
     return args, katt.sc_attention_backward_plain(*args)
@@ -1151,6 +1156,58 @@ def test_sc_attention_train_backward_kitti(dev):
                 for key in ("src_keypts", "tgt_keypts"))
     args, ref = backward_case(dev, 2, 12288, 0, 1.2, src=src, tgt=tgt)
     check_backward(args, ref, 0, 5e-4)
+
+
+@pytest.mark.parametrize("bs", [1, 16])
+@pytest.mark.parametrize("n,pad", [(65, 5), (1000, 100), (1024, 24), (2049, 49)])
+def test_sc_attention_train_forward_sizes(dev, bs, n, pad):
+    """The C = 128 forward (64-row owners, 32-row tiles) at ragged n: a
+    partial owner and tile (65), a ragged last tile (1000), the training
+    shape (1000 correspondences padded to 1024) and one row past whole
+    owners (2049), against the plain version at atol = rtol = 1e-4 (out and
+    lse; the 128-term logits and the n-term sums in another order); a second
+    call equal bit for bit (one owner per row, no atomics); each sample of
+    the batch equal bit for bit to its call alone."""
+    q, k, v, _, geom = attention_operands(dev, bs, n, pad, seed=n + bs)
+    out, lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
+    ref, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    again, again_lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
+    assert torch.equal(again, out) and torch.equal(again_lse, lse)
+    for i in {0, bs - 1}:
+        one, one_lse = katt.sc_attention_forward(
+            *(t[i:i + 1].contiguous() for t in (q, k, v, geom)), 0.1)
+        assert torch.equal(one[0], out[i]) and torch.equal(one_lse[0], lse[i])
+
+
+def test_sc_attention_train_forward_all_keys_padded(dev):
+    """A sample whose every key is padded (bias -1e9 on all of them, so every
+    logit lies near -1e9 and the row's maximum at the -1e9 clamp) beside a
+    sample with none padded: out and lse within 1e-4 of the plain version."""
+    q, k, v, _, geom = attention_operands(dev, 2, 100, 0, seed=7)
+    geom[1, 8] = -1e9
+    out, lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
+    ref, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+
+
+def test_sc_attention_train_backward_from_the_forward_kernel(dev):
+    """dQ, dK, dV at the training shape (bs 16, 1000 of 1024 valid) from the
+    forward kernel's lse and out (D = rowsum(dO * out)) against the plain
+    backward from the plain forward's, at the backward's tolerance of
+    atol = rtol = 2e-4."""
+    q, k, v, d_out, geom = attention_operands(dev, 16, 1024, 24, seed=11)
+    out, lse = katt.sc_attention_forward(q, k, v, geom, 0.1)
+    args = (q, k, v, geom, lse, torch.sum(d_out * out, dim=-1), d_out, 0.1)
+    ref_out, ref_lse = katt.sc_attention_forward_plain(q, k, v, geom, 0.1)
+    ref = katt.sc_attention_backward_plain(q, k, v, geom, ref_lse,
+                                           torch.sum(d_out * ref_out, dim=-1), d_out, 0.1)
+    got = (katt.sc_attention_backward_dq(*args), *katt.sc_attention_backward_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4, msg=lambda m: f"{name}: {m}")
 
 
 def sm_inputs(dev, n, seed=3):
@@ -1242,6 +1299,138 @@ def test_nearest_neighbors(dev, n, m, mask_share):
         d2i, idxi = knn_s.nearest_neighbors(q[i].contiguous(), b[i].contiguous(),
                                             None if mask is None else mask[i].contiguous())
         assert torch.equal(d2i, d2[i]) and torch.equal(idxi, idx[i])
+
+
+def assert_nn_matches_plain(q, b, mask):
+    """The kernel's (d2, idx) of a batch against the plain version's: d2
+    equal bit for bit, idx int64 and equal or tied (the d2 at both indices
+    equal); returns them."""
+    d2, idx = knn_s.nearest_neighbors(q, b, mask)
+    rd, ri = plain_nn(q, b, mask)
+    assert idx.dtype == torch.int64 and d2.dtype == torch.float32
+    assert torch.equal(d2, rd)
+    for bi, r in (idx != ri).nonzero().tolist():
+        qp = knn_s.pack_points(q[bi, r])
+        bp = knn_s.pack_points(b[bi], None if mask is None else mask[bi])
+        at = lambda i: (qp[3] + bp[i, 3]) - 2.0 * ((qp[0] * bp[i, 0] + qp[1] * bp[i, 1])
+                                                   + qp[2] * bp[i, 2])
+        assert torch.equal(at(idx[bi, r]), at(ri[bi, r]))
+    return d2, idx
+
+
+def nn_splits(dev, batch, n, m):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return knn_s.nn_grid(batch, n, m, sms)
+
+
+@pytest.mark.parametrize("n", [64, 513, 2048])
+@pytest.mark.parametrize("mask_share", [None, 0.3, 1.0])
+def test_nearest_neighbors_split_base(dev, n, mask_share):
+    """N = 64-2048 queries against M = 20480 base points, batch 2: the base is
+    cut into ranges over many blocks, merged by 64-bit keys. Against the plain
+    version (d2 bit for bit, indices equal or tied; every base point masked:
+    (1e30, 0)); a second call equal bit for bit, whichever blocks finish
+    first."""
+    m = 20480
+    assert nn_splits(dev, B, n, m)[1] > 1
+    gen = torch.Generator().manual_seed(n)
+    b = (torch.rand((B, m, 3), generator=gen) * 3.0).to(dev)
+    q = (b[:, :n] + 0.01 * torch.randn((B, n, 3), generator=gen).to(dev)).contiguous()
+    mask = None if mask_share is None else (torch.rand((B, m), generator=gen) >= mask_share).to(dev)
+    d2, idx = assert_nn_matches_plain(q, b, mask)
+    if mask_share == 1.0:
+        assert bool((idx == 0).all()) and bool((d2 == 1e30).all())
+    again = knn_s.nearest_neighbors(q, b, mask)
+    assert torch.equal(again[0], d2) and torch.equal(again[1], idx)
+
+
+def test_nearest_neighbors_ties_across_splits(dev):
+    """Copies of one point on both sides of each boundary between base ranges
+    (and one more range on): a query at the point gets the lowest index, as
+    in the plain version, whichever block finishes first."""
+    n, m = 256, 20480
+    _, splits, rng = nn_splits(dev, 1, n, m)
+    assert splits - 2 >= n  # every query its own boundary
+    gen = torch.Generator().manual_seed(5)
+    b = torch.rand((m, 3), generator=gen) * 3.0
+    q = torch.rand((n, 3), generator=gen) * 3.0
+    first = []
+    for i in range(n):
+        s = 1 + i
+        at = [s * rng - 1, s * rng, (s + 1) * rng + 3]
+        b[at] = q[i]
+        first.append(at[0])
+    q, b = q.to(dev), b.to(dev)
+    d2, idx = knn_s.nearest_neighbors(q, b)
+    rd, ri = plain_nn(q, b)
+    assert torch.equal(d2, rd) and torch.equal(idx, ri)
+    assert idx.tolist() == first
+
+
+def test_nearest_neighbors_negative_d2(dev):
+    """Points ~100 m from the origin and queries within 1e-5 of base points:
+    the rounding of |q|^2 + |b|^2 - 2 q.b (~4e-3 there) makes some d2
+    negative, which the merge's keys must order below zero. d2 bit for bit
+    the plain version's, indices equal or tied."""
+    n, m = 1024, 20480
+    assert nn_splits(dev, 1, n, m)[1] > 1
+    gen = torch.Generator().manual_seed(9)
+    b = 100.0 + torch.rand((1, m, 3), generator=gen) * 3.0
+    pick = torch.randperm(m, generator=gen)[:n]
+    q = b[:, pick] + 1e-5 * torch.randn((1, n, 3), generator=gen)
+    d2, _ = assert_nn_matches_plain(q.to(dev), b.to(dev), None)
+    assert bool((d2 < 0).any()) and bool((d2 > 0).any())
+
+
+@pytest.mark.parametrize("plan", ["ok", "qblocks", "short_workspace", "no_workspace"])
+def test_nearest_neighbors_entry_checks_the_plan(dev, plan):
+    """The C entry launches only the plan it was built for: query blocks of
+    its own 512 rows (the counters are indexed by them) and a merge
+    workspace of at least 8 B N + 4 B qblocks bytes; anything else is
+    refused before a launch."""
+    from pointdsc_tpu_torch.kernels import _build
+
+    b, n, m = 2, 600, 20480
+    qblocks, splits, rng = nn_splits(dev, b, n, m)
+    assert qblocks == 2 and splits > 1
+    q, bp = torch.rand((b, n, 3), device=dev), torch.rand((b, m, 3), device=dev)
+    d2 = torch.empty((b, n), device=dev)
+    idx = torch.empty((b, n), dtype=torch.int64, device=dev)
+    words = b * n + b * qblocks // 2
+    work = torch.empty((words,), dtype=torch.int64, device=dev)
+    args = dict(qblocks=qblocks, work=work.data_ptr(), words=words)
+    args.update({"ok": {}, "qblocks": {"qblocks": qblocks + 1},
+                 "short_workspace": {"words": words - 1}, "no_workspace": {"work": 0}}[plan])
+
+    def call():
+        _build.launch("nn_search", "nearest_neighbors", dev, q.data_ptr(), bp.data_ptr(), 0,
+                      d2.data_ptr(), idx.data_ptr(), args["work"], b, n, m, args["qblocks"],
+                      splits, rng, args["words"])
+
+    if plan == "ok":
+        call()
+        assert torch.equal(d2, knn_s.nearest_neighbors(q, bp)[0])
+    else:
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            call()
+
+
+@pytest.mark.parametrize("n,m", [(20480, 20480), (2048, 2048), (2048, 40)])
+def test_nearest_neighbors_device_operations(dev, n, m):
+    """A search is one device operation where the base is one range (M = 40)
+    and two where it is split over blocks: the merge's workspace set to
+    ones, then the kernel (it reads the clouds and the mask in place and writes
+    the int64 index); at N = M = 2048 the grid has a block for every SM."""
+    gen = torch.Generator().manual_seed(1)
+    q, b = (torch.rand((s, 3), generator=gen).to(dev) for s in (n, m))
+    mask = torch.rand((m,), generator=gen).to(dev) > 0.1
+    qblocks, splits, _ = nn_splits(dev, 1, n, m)
+    assert (splits > 1) == (m > 40)
+    if n == m == 2048:
+        assert qblocks * splits >= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert device_operations(lambda: knn_s.nearest_neighbors(q, b, mask)) == (2 if splits > 1
+                                                                               else 1)
+    assert_nn_matches_plain(q[None], b[None], mask[None])
 
 
 @pytest.mark.parametrize("n,block", [(1024, 256), (2048, 512), (2048, 1024), (512, 512)])

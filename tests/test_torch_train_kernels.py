@@ -119,6 +119,18 @@ def test_train_attention_bounds(bs, n, dq_ms, dkv_ms):
         assert by == "operations" and abs(got - want) < 5e-6, (name, got, by)
 
 
+@pytest.mark.parametrize("bs,n,fwd_ms", [(16, 1024, 0.13647), (1, 12288, 1.22824)])
+def test_train_attention_forward_bound(bs, n, fwd_ms):
+    """The forward kernel's bound (4 N^2 C operations a sample, the compat
+    entry and the softmax of every pair, at 67 TFLOP/s), from the count that
+    chip_smoke.py phase 12 and tools/time_attention.py read, is the value
+    PERF.md gives it."""
+    from pointdsc_tpu_torch.tools import time_attention
+
+    got, by = time_attention.bound_ms(*t_att.train_attention_work(bs, n)["forward"])
+    assert by == "operations" and abs(got - fwd_ms) < 5e-6, (got, by)
+
+
 def test_geometry_strip_and_no_cache_forward_match_jax(rng):
     """``pack_geometry`` is the JAX strip; the eval attention without a cache
     is JAX's ``fused_sc_attention`` in interpret mode (atol 2e-5), and the
