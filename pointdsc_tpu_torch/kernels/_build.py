@@ -44,8 +44,8 @@ SIGNATURES = {
     "sc_attention_train": {"sc_attention_train_fwd": [P] * 6 + [I, I, I, F, F, P],
                            "sc_attention_train_bwd_dq": [P] * 8 + [I, I, I, F, F, P],
                            "sc_attention_train_bwd_dkv": [P] * 9 + [I, I, I, F, F, P]},
-    "sm_loss": {"sm_loss_fwd": [P] * 4 + [I, I, I, P],
-                "sm_loss_bwd": [P] * 5 + [I, I, I, P]},
+    "sm_loss": {"sm_loss_fwd": [P] * 4 + [I, P, I, I, I, P],
+                "sm_loss_bwd": [P] * 6 + [I] * 5 + [P]},
     "encoder_layer": {"fused_encoder_layer": [P] * 19 + [I, I, F, F, P],
                       "pcn_qkv": [P] * 10 + [I, I, I, F, P],
                       "attn_mlp_residual": [P] * 15 + [I, I, I, I, F, P]},

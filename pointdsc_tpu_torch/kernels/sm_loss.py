@@ -13,10 +13,16 @@ differentiable in (normed_features, sigma).
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
 it launches its kernel or raises. The kernels take any C (F zero-padded to a
 multiple of 128, dF sliced back; above 128 the tile products sum over the
-128-wide chunks) and any N.
+128-wide chunks) and any N. At C = 128 the launch plans are this module's:
+the sums kernel's work items over the triangle of pairs (``sums_plan``) and
+the gradients kernel's split of each row block's walk (``grads_plan``); the
+C entries launch the plan they are given and refuse one that does not cover
+their tiles.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -29,7 +35,14 @@ from pointdsc_tpu_torch.kernels._check import (
     unpad_channels,
 )
 
-TILE = 64  # the kernels' tile side
+OWN = 64  # rows a block of either kernel owns (csrc/sm_loss.cu); the tile side above C = 128
+TILE = 32  # rows of the tiles a block walks at C = 128
+# the plans (csrc/sm_loss.cu's notes; both kernels run one block an SM): the
+# sums are cut into work items of at most MAX_RUN tiles, at least one an SM;
+# the gradients' walk is split in two where that fills the card's last wave by
+# at least SPLIT_GAIN more
+MAX_RUN = 64
+SPLIT_GAIN = 0.1
 # f32 operations per pair beside the C-term product, counted from csrc/sm_loss.cu
 OPS_PER_SM_PAIR = 14  # u (3), clip and diagonal (3), pm and gtM (3), two squared terms (5)
 OPS_PER_SM_BWD_PAIR = 24  # the forward's M terms (9), g (8), gate (4), dsigma term (3)
@@ -39,14 +52,63 @@ def sm_loss_work(bs: int, n: int, c: int = 128) -> dict:
     """The least work of the two SM-loss kernels on bs samples of n points
     at width c: {"sums", "grads"} -> (bytes, operations). Bytes: the features
     read once (dF written once by the gradients), the label strips and the
-    scalars, and the per-tile partial sums written. Operations: 2 C per pair
-    for the feature product (4 C for the gradients' two), and the pair terms."""
+    scalars, and the outputs written (two sums, or dsigma, a sample).
+    Operations: 2 C for the feature product and the pair terms for each of
+    the bs n (n - 1) / 2 unordered pairs of the sums, whose every term is
+    symmetric in (i, j) and whose diagonal terms are 0; 4 C for the two
+    products and the pair terms for each of the bs n^2 ordered pairs of the
+    gradients, whose dF rows each have one owner."""
     act, strip_bytes = bs * n * c * 4, (8 * bs * n + 4 * bs) * 4
-    tiles, pairs = -(-n // TILE), float(bs) * n * n
-    return {"sums": (act + strip_bytes + bs * tiles * tiles * 8,
-                     pairs * (2 * c + OPS_PER_SM_PAIR)),
-            "grads": (2 * act + strip_bytes + bs * tiles * 4,
-                      pairs * (4 * c + OPS_PER_SM_BWD_PAIR))}
+    return {"sums": (act + strip_bytes + bs * 8,
+                     float(bs) * n * (n - 1) / 2 * (2 * c + OPS_PER_SM_PAIR)),
+            "grads": (2 * act + strip_bytes + bs * 4,
+                      float(bs) * n * n * (4 * c + OPS_PER_SM_BWD_PAIR))}
+
+
+def sums_plan(batch: int, n: int, sms: int) -> list[tuple[int, int, int]]:
+    """Work items (owned block o, first tile, tiles) of the sums kernel at
+    C = 128, longest first. Owned block o (rows 64 o ..) walks the 32-row
+    tiles from its diagonal block on, 2 o .. ceil(n / 32) - 1, cut into runs
+    of near-equal length of at most ``run`` tiles: the batch's tiles over the
+    ``sms`` SMs, at most MAX_RUN. A block's fixed cost (its owned rows, its
+    first tile, its sums) is paid once an item, so long items win while the
+    longest-first order keeps the last of them short."""
+    tiles, blocks = -(-n // TILE), -(-n // OWN)
+    walks = [tiles - 2 * o for o in range(blocks)]
+    run = max(1, min(MAX_RUN, batch * sum(walks) // sms))
+    items = []
+    for o, walk in enumerate(walks):
+        runs = -(-walk // run)
+        size, longer = divmod(walk, runs)
+        first = 2 * o
+        for r in range(runs):
+            count = size + (r < longer)
+            items.append((o, first, count))
+            first += count
+    return sorted(items, key=lambda it: (-it[2], it[0], it[1]))
+
+
+def grads_plan(batch: int, n: int, sms: int) -> tuple[int, int]:
+    """(splits, run) of the gradients kernel at C = 128: each row block's walk
+    over the ceil(n / 32) tiles in ``splits`` consecutive runs of ``run``
+    tiles, none empty. Two where the batch ceil(n / 64) row blocks, one an SM,
+    fill the last of their waves on ``sms`` SMs at least SPLIT_GAIN less than
+    twice as many blocks would."""
+    tiles, blocks = -(-n // TILE), batch * -(-n // OWN)
+
+    def fill(splits):
+        return blocks * splits / (-(-blocks * splits // sms) * sms)
+
+    splits = 2 if tiles > 1 and fill(2) >= fill(1) + SPLIT_GAIN else 1
+    return splits, -(-tiles // splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sums_plan_on(batch: int, n: int, device: torch.device) -> torch.Tensor:
+    """``sums_plan`` as the kernel reads it, [items, 3] int32 on ``device``
+    (made once a shape: a read-only table)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.tensor(sums_plan(batch, n, sms), dtype=torch.int32, device=device)
 
 
 def pack_labels(gt_labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -99,19 +161,37 @@ def sm_loss_sums_plain(f, strips, scalars):
             torch.sum(m * m * (pm - gtm), dim=(1, 2)))
 
 
-def sm_loss_grads_plain(f, strips, scalars):
-    """Plain version of the backward kernel: (dF [B, N, C], dsigma [B]) for a
-    unit cotangent of sum_b wp sum_p + wn sum_n."""
+def _grad_terms(f, strips, scalars):
+    """(S, u, g, the valid off-diagonal pairs) of the backward, and its
+    coefficient 2 / sigma^2 [B, 1, 1]."""
     s, u, m, pm, gtm, offdiag = _tile_terms(f, strips, scalars)
     sigma = scalars[:, 0]
     wp, wn = scalars[:, 1, None, None], scalars[:, 2, None, None]
     g = wp * 2.0 * (m - 1.0) * gtm + wn * 2.0 * m * (pm - gtm)
-    gate = ((u > 0.0) & (u < 1.0)).to(f.dtype) * offdiag * pm
-    gg = g * gate
+    return s, u, g, offdiag * pm, (2.0 / (sigma * sigma))[:, None, None]
+
+
+def sm_loss_grads_plain(f, strips, scalars):
+    """Plain version of the backward kernel: (dF [B, N, C], dsigma [B]) for a
+    unit cotangent of sum_b wp sum_p + wn sum_n."""
+    s, u, g, pairs, coef = _grad_terms(f, strips, scalars)
+    sigma = scalars[:, 0]
+    gg = g * ((u > 0.0) & (u < 1.0)).to(f.dtype) * pairs
     # the factor 2 stands for the mirrored tile (g and gate are symmetric)
-    df = (2.0 / (sigma * sigma))[:, None, None] * torch.einsum("bnm,bmc->bnc", gg, f)
+    df = coef * torch.einsum("bnm,bmc->bnc", gg, f)
     dsigma = torch.sum(gg * 2.0 * (1.0 - s), dim=(1, 2)) / (sigma * sigma * sigma)
     return df, dsigma
+
+
+def grads_gate_slack(f, strips, scalars, window: float = 1e-6):
+    """[B, N, C]: how far dF may move when the gates of the pairs whose u lies
+    within ``window`` of 0 or 1 fall on the other side. The gradient is
+    discontinuous there (the gate opens, g stays), so two versions whose S
+    differ by rounding may disagree by one term (2 / sigma^2) |g| |F_j| for
+    each such pair; every other entry of dF is continuous in S."""
+    _, u, g, pairs, coef = _grad_terms(f, strips, scalars)
+    near = ((u.abs() <= window) | ((u - 1.0).abs() <= window)).to(f.dtype) * pairs
+    return coef * torch.einsum("bnm,bmc->bnc", g.abs() * near, f.abs())
 
 
 def _check(f, strips, scalars) -> bool:
@@ -135,28 +215,42 @@ def sm_loss_sums(f, strips, scalars):
         return sm_loss_sums_plain(f, strips, scalars)
     b, n, _ = f.shape
     f = pad_channels(f)
-    tiles = -(-n // TILE)
-    partial = torch.empty((b, tiles * tiles, 2), dtype=torch.float32, device=f.device)
+    ld = f.shape[-1]
+    if ld == 128:  # [items, B, 2] partials
+        plan = _sums_plan_on(b, n, f.device)
+        items, plan_ptr, shape = plan.shape[0], plan.data_ptr(), (plan.shape[0], b, 2)
+    else:  # [B, tiles^2, 2] partials, 64 x 64 tiles
+        items, plan_ptr, shape = 0, None, (b, (-(-n // OWN)) ** 2, 2)
+    partial = torch.empty(shape, dtype=torch.float32, device=f.device)
     sm_loss_sums.launches += 1
     _build.launch("sm_loss", "sm_loss_fwd", f.device, f.data_ptr(), strips.data_ptr(),
-                  scalars.data_ptr(), partial.data_ptr(), b, n, f.shape[-1])
-    sums = torch.sum(partial, dim=1)
+                  scalars.data_ptr(), plan_ptr, items, partial.data_ptr(), b, n, ld)
+    sums = torch.sum(partial, dim=0 if items else 1)
     return sums[:, 0], sums[:, 1]
 
 
 def sm_loss_grads(f, strips, scalars):
-    """(dF [B, N, C], dsigma [B]) for a unit cotangent of the loss."""
+    """(dF [B, N, C], dsigma [B]) for a unit cotangent of the loss. Where the
+    plan splits the walk, the second run's dF is added here to the first's;
+    the per-block dsigma partials are added in a fixed order."""
     if not _check(f, strips, scalars):
         return sm_loss_grads_plain(f, strips, scalars)
     b, n, c = f.shape
     f = pad_channels(f)
-    tiles = -(-n // TILE)
+    ld = f.shape[-1]
+    splits, run = (1, 0) if ld != 128 else grads_plan(
+        b, n, torch.cuda.get_device_properties(f.device).multi_processor_count)
     df = torch.empty_like(f)
-    partial = torch.empty((b, tiles), dtype=torch.float32, device=f.device)
+    df_split = torch.empty_like(f) if splits > 1 else None
+    partial = torch.empty((splits, b, -(-n // OWN)), dtype=torch.float32, device=f.device)
     sm_loss_grads.launches += 1
     _build.launch("sm_loss", "sm_loss_bwd", f.device, f.data_ptr(), strips.data_ptr(),
-                  scalars.data_ptr(), df.data_ptr(), partial.data_ptr(), b, n, f.shape[-1])
-    return unpad_channels(df, c), torch.sum(partial, dim=1)
+                  scalars.data_ptr(), df.data_ptr(),
+                  None if df_split is None else df_split.data_ptr(), partial.data_ptr(),
+                  b, n, ld, splits, run)
+    if df_split is not None:
+        df.add_(df_split)
+    return unpad_channels(df, c), torch.sum(partial, dim=(0, 2))
 
 
 sm_loss_sums.launches = 0

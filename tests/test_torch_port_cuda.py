@@ -1210,35 +1210,168 @@ def test_sc_attention_train_backward_from_the_forward_kernel(dev):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4, msg=lambda m: f"{name}: {m}")
 
 
-def sm_inputs(dev, n, seed=3):
+def sm_inputs(dev, n, seed=3, batch=B):
     gen = torch.Generator().manual_seed(seed)
-    f = torch.nn.functional.normalize(torch.randn((B, n, 128), generator=gen), dim=-1).to(dev)
-    gt = (torch.rand((B, n), generator=gen) < 0.3).float().to(dev)
-    mask = torch.ones((B, n), dtype=torch.bool)
-    mask[1, n - n // 10:] = False
-    return f, gt, mask.to(dev)
+    f = torch.nn.functional.normalize(torch.randn((batch, n, 128), generator=gen), dim=-1)
+    gt = (torch.rand((batch, n), generator=gen) < 0.3).float()
+    mask = torch.ones((batch, n), dtype=torch.bool)
+    mask[batch - 1, n - n // 10:] = False
+    return f.to(dev), gt.to(dev), mask.to(dev)
+
+
+def sm_scalars(strips, balanced, sigma=1.07):
+    wp, wn = ksm.balance_weights(strips, balanced)
+    sig = torch.full_like(wp, sigma)
+    return torch.stack([sig, wp, wn, torch.zeros_like(wp)], dim=-1).contiguous()
+
+
+def assert_sm_close(got, ref, slack=0.0):
+    """Sums rtol 1e-5 (non-negative terms; the kernel adds per-block partial
+    sums), dF atol 1e-6 relative to its largest entry, dsigma rtol 1e-4
+    (terms of either sign). A pair whose u lies within rounding of 0 or 1 may
+    fall on either side of the gate in the two versions, and dF then moves by
+    that pair's term: ``slack`` (``ksm.grads_gate_slack``) adds it where
+    such a pair is."""
+    (sp, sn), (df, ds) = got
+    (rsp, rsn), (rdf, rds) = ref
+    for a, b in ((sp, rsp), (sn, rsn)):
+        torch.testing.assert_close(a.to(b.dtype), b, atol=0, rtol=1e-5)
+    err = (df.to(rdf.dtype) - rdf).abs() - slack
+    assert float(err.max()) <= 1e-6 * float(rdf.abs().max()) + 1e-12
+    torch.testing.assert_close(ds.to(rds.dtype), rds, atol=0, rtol=1e-4)
+
+
+def sm_both(f, strips, scalars):
+    return ksm.sm_loss_sums(f, strips, scalars), ksm.sm_loss_grads(f, strips, scalars)
+
+
+def sm_plain(f, strips, scalars):
+    """The plain versions on the inputs widened to f64, and dF's slack at the
+    gate. The f32 plain dF sums N terms in cuBLAS's order, whose rounding
+    reaches ~1.5e-6 of its largest entry at N = 1000: more than the kernels'
+    own (~5e-7), and more than the tolerance."""
+    f, strips, scalars = f.double(), strips.double(), scalars.double()
+    return ((ksm.sm_loss_sums_plain(f, strips, scalars), ksm.sm_loss_grads_plain(f, strips, scalars)),
+            ksm.grads_gate_slack(f, strips, scalars))
 
 
 @pytest.mark.parametrize("balanced", [True, False])
-@pytest.mark.parametrize("n", [1000, 2048])
+@pytest.mark.parametrize("n", [1, 31, 33, 65, 1000, 1024, 2048])
 def test_sm_loss_kernels(dev, n, balanced):
-    """Sums rtol 1e-5 (n^2 non-negative terms; the kernel adds per-tile
-    partial sums), dF atol 1e-6 relative to its largest entry, dsigma rtol
-    1e-4 (terms of either sign). A pair whose u lies within rounding of 0 or 1
-    may fall on either side of the gate in the two versions; its gradient
-    term is then O(1) x w, far below the tolerance."""
+    """Both kernels against their plain versions (``assert_sm_close``) at N
+    below one tile, off the 32- and 64-row tiles and at the training shape,
+    the second sample's last tenth masked."""
     f, gt, mask = sm_inputs(dev, n)
     strips = ksm.pack_labels(gt, mask)
-    wp, wn = ksm.balance_weights(strips, balanced)
-    sigma = torch.full((B,), 1.07, device=dev)
-    scalars = torch.stack([sigma, wp, wn, torch.zeros_like(wp)], dim=-1).contiguous()
-    got, ref = ksm.sm_loss_sums(f, strips, scalars), ksm.sm_loss_sums_plain(f, strips, scalars)
-    for a, b in zip(got, ref):
-        torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
-    (df, ds), (rdf, rds) = ksm.sm_loss_grads(f, strips, scalars), \
-        ksm.sm_loss_grads_plain(f, strips, scalars)
-    assert float((df - rdf).abs().max()) <= 1e-6 * float(rdf.abs().max()) + 1e-12
-    torch.testing.assert_close(ds, rds, atol=0, rtol=1e-4)
+    scalars = sm_scalars(strips, balanced)
+    assert_sm_close(sm_both(f, strips, scalars), *sm_plain(f, strips, scalars))
+
+
+def test_sm_loss_kernels_kitti_scale(dev):
+    """One sample of N = 12288, its last tenth masked: the gradients' walk is
+    split in two there (on a card of 132 SMs); held to the plain versions and
+    the same bit for bit from run to run."""
+    f, gt, mask = sm_inputs(dev, 12288, batch=1)
+    strips = ksm.pack_labels(gt, mask)
+    scalars = sm_scalars(strips, False)
+    got = sm_both(f, strips, scalars)
+    assert_sm_close(got, *sm_plain(f, strips, scalars))
+    again = sm_both(f, strips, scalars)
+    for a, b in zip((*got[0], *got[1]), (*again[0], *again[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [65, 1000])
+def test_sm_loss_clamp_live_on_both_sides(dev, n):
+    """sigma = 0.4, features in clusters and not of unit norm, so that u
+    falls below 0, inside (0, 1) and above 1 (the gate and both clamps)."""
+    gen = torch.Generator().manual_seed(11)
+    centres = torch.nn.functional.normalize(torch.randn((B, 8, 128), generator=gen), dim=-1)
+    pick = torch.randint(0, 8, (B, n), generator=gen)
+    f = torch.gather(centres, 1, pick[..., None].expand(B, n, 128))
+    f = torch.nn.functional.normalize(f + 0.03 * torch.randn((B, n, 128), generator=gen), dim=-1)
+    f = f * (0.9 + 0.2 * torch.rand((B, n, 1), generator=gen))
+    gt = (torch.rand((B, n), generator=gen) < 0.3).float()
+    mask = torch.ones((B, n), dtype=torch.bool)
+    mask[1, n - n // 10:] = False
+    f, strips = f.to(dev), ksm.pack_labels(gt.to(dev), mask.to(dev))
+    scalars = sm_scalars(strips, True, sigma=0.4)
+    u = 1.0 - (1.0 - torch.einsum("bnc,bmc->bnm", f, f)) / 0.16
+    assert bool((u < 0).any()) and bool(((u > 0) & (u < 1)).any()) and bool((u > 1).any())
+    assert_sm_close(sm_both(f, strips, scalars), *sm_plain(f, strips, scalars))
+
+
+def test_sm_loss_sample_all_masked(dev):
+    """A sample whose every point is masked adds nothing: its sums, dF and
+    dsigma are 0, and the other sample's are the plain version's."""
+    f, gt, mask = sm_inputs(dev, 1000)
+    mask[1] = False
+    strips = ksm.pack_labels(gt, mask)
+    scalars = sm_scalars(strips, True)
+    got = sm_both(f, strips, scalars)
+    assert_sm_close(got, *sm_plain(f, strips, scalars))
+    (sp, sn), (df, ds) = got
+    assert float(sp[1]) == 0.0 and float(sn[1]) == 0.0 and float(ds[1]) == 0.0
+    assert float(df[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n", [1000, 12288])
+def test_sm_loss_batch_rows_are_single_samples(dev, n):
+    """Each row of a batch of two equals that sample alone, within the
+    plain-version tolerances (the plans differ with the batch: at 12288 the
+    gradients' walk is split for one sample and not for two)."""
+    f, gt, mask = sm_inputs(dev, n)
+    strips = ksm.pack_labels(gt, mask)
+    scalars = sm_scalars(strips, False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if n == 12288 and sms == 132:
+        assert ksm.grads_plan(1, n, sms)[0] == 2 and ksm.grads_plan(2, n, sms)[0] == 1
+    (sp, sn), (df, ds) = sm_both(f, strips, scalars)
+    for i in range(B):
+        one = sm_both(f[i:i + 1], strips[i:i + 1], scalars[i:i + 1])
+        assert_sm_close(one, ((sp[i:i + 1], sn[i:i + 1]), (df[i:i + 1], ds[i:i + 1])))
+
+
+@pytest.mark.parametrize("case", ["ok", "no_plan", "short_split", "empty_split", "three",
+                                  "no_workspace"])
+def test_sm_loss_entries_check_the_plan(dev, case):
+    """The C entries launch only a plan that covers their tiles: the sums
+    entry takes a plan at C = 128, the gradients entry 1 or 2 consecutive
+    runs of tiles, none empty, that reach the last tile, and a workspace for
+    the second run; anything else is refused before a launch."""
+    from pointdsc_tpu_torch.kernels import _build
+
+    b, n = 2, 1000
+    f, gt, mask = sm_inputs(dev, n)
+    strips = ksm.pack_labels(gt, mask)
+    scalars = sm_scalars(strips, True)
+    tiles = -(-n // ksm.TILE)
+    df, df_split = torch.empty_like(f), torch.empty_like(f)
+    plan = ksm.grads_plan(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((plan[0], b, -(-n // ksm.OWN)), device=dev)
+    splits, run, ws = {"short_split": (2, tiles // 2 - 1, df_split),
+                       "empty_split": (2, tiles, df_split), "three": (3, -(-tiles // 3), df_split),
+                       "no_workspace": (2, -(-tiles // 2), None)}.get(case, (*plan, df_split))
+
+    def grads():
+        _build.launch("sm_loss", "sm_loss_bwd", dev, f.data_ptr(), strips.data_ptr(),
+                      scalars.data_ptr(), df.data_ptr(), None if ws is None else ws.data_ptr(),
+                      partial.data_ptr(), b, n, 128, splits, run)
+
+    if case == "no_plan":
+        sums = torch.empty((1, b, 2), device=dev)
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            _build.launch("sm_loss", "sm_loss_fwd", dev, f.data_ptr(), strips.data_ptr(),
+                          scalars.data_ptr(), None, 0, sums.data_ptr(), b, n, 128)
+    elif case == "ok":
+        grads()
+        if splits > 1:
+            df.add_(df_split)
+        ref_df, ref_ds = ksm.sm_loss_grads(f, strips, scalars)
+        assert torch.equal(df, ref_df) and torch.equal(torch.sum(partial, dim=(0, 2)), ref_ds)
+    else:
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            grads()
 
 
 def test_sm_loss_function_and_determinism(dev):

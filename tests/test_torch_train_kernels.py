@@ -235,6 +235,93 @@ def test_sm_loss_takes_any_n(rng):
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
 
 
+@pytest.mark.parametrize("bs,n,sums_ms,grads_ms",
+                         [(16, 1024, 0.03377, 0.13422), (1, 12288, 0.30422, 1.20796)])
+def test_sm_loss_bounds(bs, n, sums_ms, grads_ms):
+    """The SM-loss kernels' bounds, from the one count of their work that
+    chip_smoke.py phase 12 and tools/time_attention.py read, are the values
+    PERF.md gives them: 2 C + 14 f32 operations for each unordered pair of
+    the sums (every term is symmetric in (i, j), the diagonal's is 0), 4 C +
+    24 for each ordered pair of the gradients, at 67 TFLOP/s."""
+    from pointdsc_tpu_torch.tools import time_attention
+
+    work = t_sm.sm_loss_work(bs, n)
+    for name, want in (("sums", sums_ms), ("grads", grads_ms)):
+        got, by = time_attention.bound_ms(*work[name])
+        assert by == "operations" and abs(got - want) < 5e-6, (name, got, by)
+
+
+@pytest.mark.parametrize("window", [0.0, 0.02])
+def test_grads_gate_slack_bounds_a_flipped_gate(window):
+    """Flipping the gate of every valid off-diagonal pair whose u lies within
+    ``window`` of 0 or 1 moves the plain dF by no more than
+    ``grads_gate_slack``, entry by entry; with no pair there the slack is 0.
+    (float64, so that the flips are the only change.)"""
+    gen = torch.Generator().manual_seed(5)
+    f = torch.nn.functional.normalize(torch.randn((2, 90, 16), generator=gen,
+                                                  dtype=torch.float64), dim=-1)
+    gt = (torch.rand((2, 90), generator=gen) < 0.3).double()
+    mask = torch.arange(90)[None].expand(2, -1) < 80
+    strips = t_sm.pack_labels(gt, mask)
+    wp, wn = t_sm.balance_weights(strips, True)
+    scalars = torch.stack([torch.full_like(wp, 0.7), wp, wn, torch.zeros_like(wp)], dim=-1)
+    _, u, g, pairs, coef = t_sm._grad_terms(f, strips, scalars)
+    gate = ((u > 0.0) & (u < 1.0)).double() * pairs
+    near = ((u.abs() <= window) | ((u - 1.0).abs() <= window)).double() * pairs
+    flipped = coef * torch.einsum("bnm,bmc->bnc", g * (gate + near - 2 * gate * near), f)
+    df, _ = t_sm.sm_loss_grads_plain(f, strips, scalars)
+    slack = t_sm.grads_gate_slack(f, strips, scalars, window)
+    assert bool(((flipped - df).abs() <= slack + 1e-15).all())
+    if window:
+        assert float(near.sum()) > 0 and float(slack.max()) > 0.0
+    else:
+        assert float(slack.max()) == 0.0
+
+
+PLAN_NS = [1, 31, 33, 63, 65, 1000, 1024, 12288]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_sums_plan_covers_the_triangle(n, batch):
+    """The sums kernel's items count every unordered pair of points exactly
+    twice. An item's step (owned block o, tile t) covers the 32-row tiles
+    2 o and 2 o + 1 against tile t, at the kernel's weight: 1 in o's diagonal
+    block (t // 2 == o), whose pairs it walks in both orders, else 2. So the
+    weights W[a, t] of the ordered tile pairs must give W + W^T = 2
+    everywhere: a pair of distinct tiles once at weight 2 or both orders at
+    weight 1, a tile against itself once at weight 1, no tile twice."""
+    items = t_sm.sums_plan(batch, n, 132)
+    tiles = -(-n // t_sm.TILE)
+    w = np.zeros((tiles, tiles))
+    for o, first, count in items:
+        assert 1 <= count <= t_sm.MAX_RUN and 2 * o <= first and first + count <= tiles
+        for t in range(first, first + count):
+            for a in (2 * o, 2 * o + 1):
+                if a < tiles:
+                    w[a, t] += 1.0 if t // 2 == o else 2.0
+    np.testing.assert_array_equal(w + w.T, np.full((tiles, tiles), 2.0))
+    assert [it[2] for it in items] == sorted((it[2] for it in items), reverse=True)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_grads_plan_covers_each_walk(n, batch):
+    """The gradients kernel's runs cover each row block's ceil(n / 32) tiles
+    exactly once, in one or two consecutive runs, none empty; the walk is
+    split where one block an SM leaves the last wave part-empty (1 x 12288 on
+    132 SMs: 192 blocks) and not where it fills it (16 x 1024: 256)."""
+    splits, run = t_sm.grads_plan(batch, n, 132)
+    tiles = -(-n // t_sm.TILE)
+    covered = [t for s in range(splits) for t in range(s * run, min(tiles, (s + 1) * run))]
+    assert splits in (1, 2) and covered == list(range(tiles))
+    assert all(s * run < tiles for s in range(splits))
+    if (batch, n) == (1, 12288):
+        assert splits == 2
+    if (batch, n) == (16, 1024):
+        assert splits == 1
+
+
 # ---------------------------------------------------------------- losses
 
 def loss_inputs(rng, b=3, n=200):
