@@ -10,7 +10,9 @@ Phases, in order (any failure raises and the exit code is not 0):
      the card at the main paths' shapes (N = 5120, C = 128, S = 512, the last
      5% of points padded; the split pair of encoder-layer kernels, and the
      seed k-NN a second time and the NMS prefilter's top-M select, at
-     N = 12288; the PointCN + QKV kernel also at N = 20480; the refinement
+     N = 12288; the PointCN + QKV kernel also at N = 20480; the int8 cache
+     build also at N = FULL_GRID_N, where it takes the full-grid kernel
+     (at N = 5120 the symmetric one); the refinement
      also on a pair ~100 m from the origin; the seed stage after the seed
      k-NN, hypotheses, counts and selection, also at N = 12288 in a 100 m
      cube), and time both with CUDA events; then the seed NMS's gated
@@ -107,7 +109,8 @@ builds itself (``make_scene``; no demo data is needed):
  21. ``Evaluator(use_icp=True)`` on the 3 pairs of phase 8, beside it
      without ICP (recall, model_time, launches);
  22. the ICP crossover: kernel against plain search at N = M in ICP_SIZES;
- 23. ``tools/exp_symcache.py``, the symmetric-cache experiment, at SYM_RUNS.
+ 23. ``tools/exp_symcache.py``, the symmetric cache against the full grid,
+     at each N of SYM_RUNS.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -147,7 +150,6 @@ F32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
 
 # f32 operations per element of each kernel's work, counted from its source
-OPS_PER_CACHE_ENTRY = 28  # two 3-dots (10), two gram distances (8), one-sqrt diff (5), scale+round (5)
 OPS_PER_NMS_PAIR = 13  # 3-dot (5), gram distance (4), two compares and the AND (4)
 OPS_PER_SCORING_PAIR = 29  # three 4-term rows (18), residual (3), squared norm (5), test+count (3)
 # per unordered neighbour pair (M is symmetric: the kernel builds its upper
@@ -179,7 +181,10 @@ KITTI_BS = 2
 SCENE_POINTS, DEMO_NODE, DEMO_VOXEL = 200_000, 5000, 0.03
 NN_N, NN_N_MASKED = 20480, N
 ICP_SIZES = (2048, 5120, 8192, 20480)
-SYM_RUNS = ((20480, 256), (20480, 1024), (5120, 256))
+SYM_RUNS = (5000, 5120, 12288, 20480)
+# below the symmetric cache's gate (the demo's default num_node): the
+# production cache build's full-grid route, phase 3's second cache row
+FULL_GRID_N = 2048
 
 
 def _rot(axis, angle):
@@ -542,6 +547,7 @@ def check_kernels(torch, dev) -> list[dict]:
     layer kernels around the latter): those products count at the dense bf16
     tensor-core peak, the rest at the f32 rate. They carry a second figure,
     ``bound_ms_f32_cores``, with everything at the f32 CUDA-core peak."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
     from pointdsc_tpu_torch.kernels import conf_mlp as kconf
     from pointdsc_tpu_torch.kernels import encoder_layer as kenc
     from pointdsc_tpu_torch.kernels import nms as knms
@@ -570,10 +576,36 @@ def check_kernels(torch, dev) -> list[dict]:
     off1 = int((diff == 1).sum())
     check(int(diff.max()) <= 1, f"cache differs by {int(diff.max())}")
     check(off1 <= 1e-3 * N * N, f"cache: {off1} entries off by 1")
-    row("compat_cache_int8", "compat_cache.cu", "sc_attention.py:236", float(diff.max()),
+    # the route the production wrapper takes at N (the symmetric kernel or the
+    # full grid: the same bytes), named by the row's source
+    # (its bound: the least work of the function, ``compat_cache_work``)
+    sym_route = katt.use_symmetric_cache(N)
+    row("compat_cache_int8", "compat_cache_sym.cu" if sym_route else "compat_cache.cu",
+        "sc_attention.py:343,368" if sym_route else "sc_attention.py:236", float(diff.max()),
         lambda: katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask),
         lambda: katt.compat_cache_plain(katt.pack_geometry(src, tgt, mask), coef),
-        src.numel() * 4 * 2 + N + N * N, N * N * OPS_PER_CACHE_ENTRY, off_by_one=off1)
+        *katt.compat_cache_work(1, N), off_by_one=off1,
+        production_route="symmetric" if sym_route else "full_grid")
+    # the same wrapper at FULL_GRID_N, below the gate: the full-grid kernel,
+    # held to the plain version by the same rule; its launches are phase 17's
+    # (the trainer's eval batches at TRAIN_N, also below the gate)
+    check(not katt.use_symmetric_cache(FULL_GRID_N) and not katt.use_symmetric_cache(TRAIN_N),
+          "the full-grid sizes are not below the symmetric gate")
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=FULL_GRID_N, inlier_ratio=0.4, seed=1)[0]
+    fsrc, ftgt = (torch.as_tensor(ex[key])[None].to(dev) for key in ("src_keypts", "tgt_keypts"))
+    fmask = (torch.arange(FULL_GRID_N) < FULL_GRID_N - int(FULL_GRID_N * PAD_FRACTION))[None]
+    fmask = fmask.to(dev)
+    fcache = katt.build_compat_cache_int8(fsrc, ftgt, 0.1, mask=fmask)
+    fplain = katt.compat_cache_plain(katt.pack_geometry(fsrc, ftgt, fmask), coef)
+    fdiff = (fcache.int() - fplain.int()).abs()
+    foff1 = int((fdiff == 1).sum())
+    check(int(fdiff.max()) <= 1, f"cache at N = {FULL_GRID_N} differs by {int(fdiff.max())}")
+    check(foff1 <= 1e-3 * FULL_GRID_N ** 2, f"cache at N = {FULL_GRID_N}: {foff1} entries off by 1")
+    row("compat_cache_int8_full_grid", "compat_cache.cu", "sc_attention.py:236",
+        float(fdiff.max()), lambda: katt.build_compat_cache_int8(fsrc, ftgt, 0.1, mask=fmask),
+        lambda: katt.compat_cache_plain(katt.pack_geometry(fsrc, ftgt, fmask), coef),
+        *katt.compat_cache_work(1, FULL_GRID_N), off_by_one=foff1, n=FULL_GRID_N,
+        production_route="full_grid")
 
     # -- running-max attention on the kernel's own cache, on the f32 q, k, v
     # the running-max encoder gives it: the wrapper rounds them to bf16 (as
@@ -1768,7 +1800,10 @@ def training(torch, pt, kernels, dev) -> dict:
                           "peak_memory_gib_before_the_error": peak_gib()}), flush=True)
     del trainer, state, kbatch
     torch.cuda.empty_cache()
-    return {name: counts[name] for name in TRAIN_KERNELS}
+    # the eval batches' cache builds at TRAIN_N, below the symmetric gate: the
+    # full-grid kernel's launches (phase 3's compat_cache_int8_full_grid row)
+    return {**{name: counts[name] for name in TRAIN_KERNELS},
+            "compat_cache_int8_full_grid": counts["compat_cache_int8"]}
 
 
 def scene_keypoints(seed=0):
@@ -1819,10 +1854,11 @@ def check_registration_kernels(torch, dev) -> list[dict]:
     (``kernels/nn_search.py``); neither is measured, so neither is in the row.
 
     compat_cache_int8_sym: equal byte for byte to the full-grid kernel at
-    N = 5120 and 20480 (compat_value is exactly symmetric), and within +-1 on
+    N = 5120 and 20480 (compat_level is exactly symmetric), and within +-1 on
     <= 0.1% of entries of its plain version (cuBLAS's gram-form distances
-    round otherwise); timed at N = 20480, block 256. Its bound counts the
-    output written once (the N^2 bytes) and the N(N+1)/2 entries a symmetric
+    round otherwise); timed at N = 20480 beside the full-grid kernel's launch
+    (``full_grid_ms``). Its bound counts the output written once (the N^2
+    bytes) and the N(N+1)/2 entries a symmetric
     build must compute. ``library_ms`` is null: no PyTorch call builds it."""
     import numpy as np
 
@@ -1893,7 +1929,7 @@ def check_registration_kernels(torch, dev) -> list[dict]:
         ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.3, seed=7)[0]
         src = torch.as_tensor(ex["src_keypts"])[None].to(dev)
         tgt = torch.as_tensor(ex["tgt_keypts"])[None].to(dev)
-        full = katt.build_compat_cache_int8(src, tgt, 0.1)
+        full = katt._launch_compat_cache(src, tgt, katt.cache_coef(0.1))
         sym = ksym.build_compat_cache_int8_sym(src, tgt, 0.1)
         check(torch.equal(sym, full), f"symmetric cache differs from the full-grid one at N = {n}")
         plain = ksym.compat_cache_sym_plain(katt.pack_geometry(src, tgt), katt.cache_coef(0.1))
@@ -1903,8 +1939,7 @@ def check_registration_kernels(torch, dev) -> list[dict]:
               f"symmetric cache vs plain at N = {n}: max {int(d.max())}, {off1} off by 1")
         del full, sym, plain, d
         torch.cuda.empty_cache()
-    ops = n * (n + 1) / 2 * OPS_PER_CACHE_ENTRY
-    b_, o_ = bound_ms(src.numel() * 4 * 2 + float(n) * n, ops)
+    b_, o_ = bound_ms(*katt.compat_cache_work(1, n))
     rows.append(dict(
         name="compat_cache_int8_sym", route="cuda",
         source="pointdsc_tpu_torch/kernels/csrc/compat_cache_sym.cu",
@@ -1912,8 +1947,9 @@ def check_registration_kernels(torch, dev) -> list[dict]:
         ms=time_ms(lambda: ksym.build_compat_cache_int8_sym(src, tgt, 0.1), reps=10),
         plain_ms=time_ms(lambda: ksym.compat_cache_sym_plain(katt.pack_geometry(src, tgt),
                                                              katt.cache_coef(0.1)), reps=5),
-        bound_ms=b_, bound_by=o_, library_ms=None, n=n, block=256, off_by_one=off1,
-        full_grid_ms=time_ms(lambda: katt.build_compat_cache_int8(src, tgt, 0.1), reps=10)))
+        bound_ms=b_, bound_by=o_, library_ms=None, n=n, off_by_one=off1,
+        full_grid_ms=time_ms(lambda: katt._launch_compat_cache(src, tgt, katt.cache_coef(0.1)),
+                             reps=10)))
     torch.cuda.empty_cache()
     return rows
 
@@ -2108,19 +2144,20 @@ def icp_crossover(torch, dev) -> None:
 
 
 def symcache_experiment(kernels) -> int:
-    """Phase 23: the experiment tool ``tools/exp_symcache.py`` at each of
-    SYM_RUNS (N, block), counts set to 0 before the first and read after it.
-    Returns the symmetric build's launches of that run."""
+    """Phase 23: the experiment tool ``tools/exp_symcache.py`` at each N of
+    SYM_RUNS (both cache kernels' times, the card's name and power limit),
+    counts set to 0 before the first and read after it. Returns the
+    symmetric build's launches of that run."""
     from pointdsc_tpu_torch.tools import exp_symcache
 
     launches = None
-    for n, blk in SYM_RUNS:
-        os.environ.update(PROFILE_N=str(n), SYM_BLOCK=str(blk), PROFILE_ITERS="16")
+    for n in SYM_RUNS:
+        os.environ.update(PROFILE_N=str(n), PROFILE_ITERS="16")
         kernels.reset_launches()
         res = exp_symcache.main([])
         if launches is None:
             launches = kernels.launch_counts()["compat_cache_int8_sym"]
-        check(res["bitwise_equal"], f"symmetric cache differs at N = {n}, block {blk}")
+        check(res["bitwise_equal"], f"symmetric cache differs at N = {n}")
     return launches
 
 

@@ -59,8 +59,7 @@ SIGNATURES = {
                 "select_hypothesis": [P] * 9 + [I, I, I, F, P]},
     "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},
     "nn_search": {"nearest_neighbors": [P] * 6 + [I] * 7 + [P]},
-    "compat_cache_sym": {"compat_cache_tri": [P, P, P, I, I, I, I, F, P],
-                         "compat_cache_mirror": [P, P, I, I, I, I, P]},
+    "compat_cache_sym": {"compat_cache_sym": [P, P, P, I, I, P, I, I, F, P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,25 +1,25 @@
 // int8 spatial-consistency cache, CUDA C++ for sm_90a.
 //
-// Replaces the TPU kernels pointdsc_tpu/kernels/sc_attention.py:236
-// (_compat_cache_kernel via _build_compat_cache_single) and :343/:368 (the
-// symmetric triangle + mirror pair): both write the same bytes.
+// Replaces the TPU kernel pointdsc_tpu/kernels/sc_attention.py:236
+// (_compat_cache_kernel via _build_compat_cache_single); the symmetric
+// triangle + mirror pair of :343/:368 is compat_cache_sym.cu, which writes
+// the same bytes.
 //
 //   out[b, i, j] = round(max(127 - coef * (d_s - d_t)^2, 0)),  coef = 127 / sigma_d^2
 //
 // with the one-sqrt form (d_s - d_t)^2 = s2 + t2 - 2 sqrt(s2 t2) and the gram
 // form s2 = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0): compat::compat_level of
-// csrc/compat_tile.cuh, the entry the symmetric build (compat_cache_sym.cu)
-// shares, with IEEE sqrtf (its branch-free path, compat::sqrt_in_range, for
-// every entry of a row whose products all lie in its range, and sqrtf for
-// the rows that hold a zero distance), rounded and packed four bytes at a
-// time by compat::pack_levels: the symmetric build's compat_value, bit for
-// bit. Nothing is masked: the attention kernel's key bias
+// csrc/compat_tile.cuh, with IEEE sqrtf (its branch-free path,
+// compat::sqrt_in_range, for every entry of a row whose products all lie in
+// its range, and sqrtf for the rows that hold a zero distance:
+// compat::row_bytes), rounded and packed four bytes at a time by
+// compat::pack_levels. Nothing is masked: the attention kernel's key bias
 // handles invalid keys. The value is clamped at 127 so a rounding excess can
 // never wrap the int8.
 //
 // The kernel reads src and tgt [B, N, 3] in place and computes the squared
-// norms itself (compat::sq_norm, as the symmetric build does from its strip's
-// coordinates): the bytes equal the symmetric build's.
+// norms itself (compat::sq_norm, as the symmetric build does): the bytes
+// equal the symmetric build's.
 //
 // Bound on the H100: issue, not bytes. Each entry takes ~30 instructions on
 // its common path (two 3-dots, two gram distances, the IEEE sqrtf and its
@@ -37,11 +37,9 @@
 // every block stays resident, loads its keys once and takes the same number
 // of rows, give or take a band.
 // Where N is not a multiple of 16, a second instantiation guards the ragged
-// edge with byte stores. The symmetric half-build of the TPU version is not
-// used here: measured on an H100 (compat_cache_sym.cu, the experiment), it
-// took 0.91x an earlier full-grid kernel's time at N = 20480, and takes
-// 1.35x this one's (its mirror pass costs about what the skipped arithmetic
-// saves).
+// edge with byte stores. The symmetric build computes each unordered pair
+// once; kernels/sc_attention.py::use_symmetric_cache takes it at the N where
+// it measured faster on an H100 (PERF.md, row 15).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,25 +54,6 @@ constexpr int COLS = 16;               // key columns a thread
 constexpr int WARPS = 4;               // warps a block, one row each at a time
 constexpr int BLOCK_COLS = 32 * COLS;  // 512 columns a block (each warp all of them)
 constexpr int MIN_BLOCKS = 2;          // resident blocks an SM (at 3, 168 registers, it spills)
-
-// xyz of points j0 .. j0 + COLS - 1 (0 past n) into v[COLS * 3]
-__device__ __forceinline__ void load_points(const float* __restrict__ p, int j0, int n,
-                                            float (&v)[COLS * 3]) {
-  const float* base = p + static_cast<size_t>(j0) * 3;
-  if (j0 + COLS <= n && (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
-#pragma unroll
-    for (int c = 0; c < COLS * 3 / 4; ++c) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(base) + c);
-      v[4 * c] = f.x;
-      v[4 * c + 1] = f.y;
-      v[4 * c + 2] = f.z;
-      v[4 * c + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < COLS * 3; ++c) v[c] = j0 + c / 3 < n ? __ldg(base + c) : 0.0f;
-  }
-}
 
 // a thread's COLS bytes of a row in one store (dst aligned to COLS bytes)
 __device__ __forceinline__ void store_row(int8_t* dst, const uint32_t (&w)[COLS / 4]) {
@@ -99,61 +78,15 @@ compat_cache_kernel(const float* __restrict__ src, const float* __restrict__ tgt
 
   // the keys' geometry in compat_level's layout: xyz, |.|^2 of src then tgt
   float k[COLS][8];
-  {
-    float v[COLS * 3];
-    load_points(s, j0, n, v);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      k[c][0] = v[3 * c];
-      k[c][1] = v[3 * c + 1];
-      k[c][2] = v[3 * c + 2];
-      k[c][3] = compat::sq_norm(k[c][0], k[c][1], k[c][2]);
-    }
-    load_points(t, j0, n, v);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      k[c][4] = v[3 * c];
-      k[c][5] = v[3 * c + 1];
-      k[c][6] = v[3 * c + 2];
-      k[c][7] = compat::sq_norm(k[c][4], k[c][5], k[c][6]);
-    }
-  }
+  compat::load_keys<COLS>(s, t, j0, n, k);
 
   // bands of WARPS rows, block y taking bands y, y + gridDim.y, ...
   for (int row = static_cast<int>(blockIdx.y) * WARPS + warp; row < n;
        row += static_cast<int>(gridDim.y) * WARPS) {
     float q[8];
-    q[0] = __ldg(s + 3 * row);
-    q[1] = __ldg(s + 3 * row + 1);
-    q[2] = __ldg(s + 3 * row + 2);
-    q[3] = compat::sq_norm(q[0], q[1], q[2]);
-    q[4] = __ldg(t + 3 * row);
-    q[5] = __ldg(t + 3 * row + 1);
-    q[6] = __ldg(t + 3 * row + 2);
-    q[7] = compat::sq_norm(q[4], q[5], q[6]);
-    // the row's entries without a branch (sqrt_in_range), then once for the
-    // row: if any s2 t2 fell outside that path's range (a zero distance: the
-    // diagonal, a repeated point), the row again with sqrtf itself
-    bool in_range = true;
-    const auto fast_root = [&](float x) {
-      in_range &= compat::in_sqrt_range(x);
-      return compat::sqrt_in_range(x);
-    };
+    compat::load_query(s, t, row, q);
     uint32_t w[COLS / 4];
-#pragma unroll
-    for (int g = 0; g < COLS / 4; ++g)
-      w[g] = compat::pack_levels(compat::compat_level(q, k[4 * g], coef, fast_root),
-                                 compat::compat_level(q, k[4 * g + 1], coef, fast_root),
-                                 compat::compat_level(q, k[4 * g + 2], coef, fast_root),
-                                 compat::compat_level(q, k[4 * g + 3], coef, fast_root));
-    if (!in_range) {
-#pragma unroll  // constant indices keep k in registers
-      for (int g = 0; g < COLS / 4; ++g)
-        w[g] = compat::pack_levels(compat::compat_level(q, k[4 * g], coef, compat::ieee_sqrt),
-                                   compat::compat_level(q, k[4 * g + 1], coef, compat::ieee_sqrt),
-                                   compat::compat_level(q, k[4 * g + 2], coef, compat::ieee_sqrt),
-                                   compat::compat_level(q, k[4 * g + 3], coef, compat::ieee_sqrt));
-    }
+    compat::row_bytes<COLS>(q, k, coef, w);
     int8_t* dst = out + (static_cast<size_t>(b) * n + row) * n + j0;
     if (kVector) {
       store_row(dst, w);

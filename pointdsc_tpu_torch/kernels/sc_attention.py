@@ -1,10 +1,12 @@
 """Spatial-consistency attention kernels (PyTorch wrappers of
-``csrc/compat_cache.cu``, ``csrc/sc_attention.cu`` and
-``csrc/sc_attention_train.cu``; counterparts of
+``csrc/compat_cache.cu``, ``csrc/compat_cache_sym.cu``,
+``csrc/sc_attention.cu`` and ``csrc/sc_attention_train.cu``; counterparts of
 ``pointdsc_tpu/kernels/sc_attention.py``).
 
 Eval: the 12 encoder layers share one compat matrix, built once as int8
-(value = round(127 * compat)); each layer streams it through the offset or
+(value = round(127 * compat)) by the full-grid kernel or, where the card
+measured it faster (``use_symmetric_cache``), by the symmetric one, which
+computes each unordered pair once; each layer streams it through the offset or
 the running-max attention kernel. Without a cache (``fused_sc_attention``,
 the running-max kernel on bf16 operands) and in training
 (``sc_attention_trainable``, a ``torch.autograd.Function`` with an f32
@@ -15,6 +17,8 @@ on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -84,12 +88,125 @@ def _launch_compat_cache(src: torch.Tensor, tgt: torch.Tensor, coef: float) -> t
     return out
 
 
+# the symmetric kernel's shape (csrc/compat_cache_sym.cu): a block owns a
+# strip of SYM_COLS key columns and computes its rows in bands of SYM_BAND;
+# SYM_BLOCKS_PER_SM blocks are resident on an SM
+SYM_COLS, SYM_BAND, SYM_BLOCKS_PER_SM = 512, 32, 2
+# the work of a band, in twentieths of a band above the diagonal block: a band
+# of that block costs 1.75 of them, each of its rows holding a zero distance
+# (the diagonal) whose row the kernel computes again with sqrtf (the fastest of
+# 1.75, 1.9 and 2.0 kernel only on an NVIDIA H100 80GB HBM3 at 700 W: by 5% at
+# 12288, the same elsewhere; tools/time_attention.py --cases symcache_weights,
+# PERF.md, row 15)
+SYM_BAND_COST, SYM_DIAGONAL_COST = 20, 35
+# the least N at which the symmetric kernel beat the full-grid one, kernel
+# only, in the same run (PERF.md, row 15: 0.97x at 3072, 0.94x at 4096, 1.40x
+# at 2048)
+SYM_MIN_N = 3072
+# f32 operations an entry: two 3-dots (10), two gram distances (8), the
+# one-sqrt difference (5), the scale and the rounding (5)
+OPS_PER_CACHE_ENTRY = 28
+
+
+def compat_cache_work(bs: int, n: int) -> tuple[float, float]:
+    """The least work of a cache build on bs samples of n points, (bytes,
+    operations): src and tgt read once, the n^2 bytes written once, and each
+    of the n (n + 1) / 2 unordered pairs (the diagonal's included) computed
+    once, the matrix being symmetric."""
+    return (float(bs) * (2 * n * 3 * 4 + n * n),
+            float(bs) * n * (n + 1) / 2 * OPS_PER_CACHE_ENTRY)
+
+
+def use_symmetric_cache(n: int) -> bool:
+    """Whether the card builds the cache of N = n points with the symmetric
+    kernel (the same bytes as the full-grid one): from SYM_MIN_N on."""
+    return n >= SYM_MIN_N
+
+
+def symmetric_band_costs(n: int) -> list[list[int]]:
+    """The work of each band of each strip of the symmetric kernel: strip s
+    (key columns SYM_COLS s ..) computes the bands 0 ..
+    ceil(min(SYM_COLS (s + 1), n) / SYM_BAND) - 1 of its rows, those above
+    its diagonal block (mirrored) at SYM_BAND_COST, then that block's at
+    SYM_DIAGONAL_COST."""
+    costs = []
+    for s in range(-(-n // SYM_COLS)):
+        walk, above = -(-min(SYM_COLS * (s + 1), n) // SYM_BAND), SYM_COLS // SYM_BAND * s
+        costs.append([SYM_BAND_COST] * above + [SYM_DIAGONAL_COST] * (walk - above))
+    return costs
+
+
+def _cut(costs: list[int], limit: int) -> list[tuple[int, int]]:
+    """Runs (first band, bands) of consecutive bands, each of work at most
+    ``limit`` unless one band alone is more: the fewest such runs."""
+    runs, first, acc = [], 0, 0
+    for band, cost in enumerate(costs):
+        if acc + cost > limit and band > first:
+            runs.append((first, band - first))
+            first, acc = band, 0
+        acc += cost
+    runs.append((first, len(costs) - first))
+    return runs
+
+
+def symmetric_cache_plan(batch: int, n: int, sms: int) -> list[tuple[int, int, int]]:
+    """Work items (strip, first band, bands) of the symmetric kernel, the
+    most work first. Each strip's walk (``symmetric_band_costs``) is cut into
+    runs of consecutive bands: the least work a run for which the batch's
+    items fit the ``sms`` SMs' resident blocks (one wave), and within a strip
+    the runs as even as its count of them allows."""
+    costs = symmetric_band_costs(n)
+    slots = max(1, SYM_BLOCKS_PER_SM * sms // batch)
+
+    def least(walks, count):  # the least limit that cuts walks into count runs at most
+        lo = max(max(max(c) for c in walks), -(-sum(map(sum, walks)) // count))
+        hi = max(map(sum, walks))
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if sum(len(_cut(c, mid)) for c in walks) > count:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    limit = least(costs, max(slots, len(costs)))
+    items = []
+    for s, walk in enumerate(costs):
+        runs = _cut(walk, least([walk], len(_cut(walk, limit))))
+        items += [(s, first, count, sum(walk[first:first + count])) for first, count in runs]
+    return [it[:3] for it in sorted(items, key=lambda it: (-it[3], it[0], it[1]))]
+
+
+@functools.lru_cache(maxsize=None)
+def _symmetric_plan_on(batch: int, n: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """``symmetric_cache_plan`` as the kernel reads it, [items, 3] int32 on
+    ``device`` (made once a shape: a read-only table), and its band total."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = symmetric_cache_plan(batch, n, sms)
+    return (torch.tensor(plan, dtype=torch.int32, device=device),
+            sum(count for _, _, count in plan))
+
+
+def _launch_compat_cache_sym(src: torch.Tensor, tgt: torch.Tensor, coef: float) -> torch.Tensor:
+    """src, tgt f32 [B, N, 3], contiguous: the cache in one launch of the
+    symmetric kernel (each unordered pair once, the mirror written from the
+    computation)."""
+    b, n, _ = src.shape
+    plan, bands = _symmetric_plan_on(b, n, src.device)
+    out = torch.empty((b, n, n), dtype=torch.int8, device=src.device)
+    _build.launch("compat_cache_sym", "compat_cache_sym", src.device, src.data_ptr(),
+                  tgt.data_ptr(), plan.data_ptr(), plan.shape[0], bands, out.data_ptr(), b, n,
+                  coef)
+    return out
+
+
 def build_compat_cache_int8(src: torch.Tensor, tgt: torch.Tensor, sigma_d: float,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
     """[B, N, N] int8 cache of round(127 * compat) from src/tgt [B, N, 3].
     Nothing is masked: the attention's key bias handles invalid keys (the
     mask is checked and otherwise unused). On the card one launch reads src
-    and tgt in place."""
+    and tgt in place: the symmetric kernel where ``use_symmetric_cache``,
+    else the full-grid one (the same bytes); either is one launch here."""
     expect(src, "src", ndim=3, last=3)
     expect(tgt, "tgt", shape=src.shape, device=src.device)
     if mask is not None:
@@ -98,7 +215,9 @@ def build_compat_cache_int8(src: torch.Tensor, tgt: torch.Tensor, sigma_d: float
     if not on_cuda(src):
         return compat_cache_plain(pack_geometry(src, tgt, mask), coef)
     build_compat_cache_int8.launches += 1
-    return _launch_compat_cache(src.float(), tgt.float(), coef)
+    launch = (_launch_compat_cache_sym if use_symmetric_cache(src.shape[1])
+              else _launch_compat_cache)
+    return launch(src.float(), tgt.float(), coef)
 
 
 build_compat_cache_int8.launches = 0

@@ -10,7 +10,8 @@ QKV kernel), the seed k-NN's ``seed_knn``, the refinement's ``refine``, the
 int8 cache's ``compat_cache``, the seed NMS's ``nms``, the seed stage's
 ``scoring`` (which shares ``csrc/horn.cuh`` with ``refine``), the training
 kernels' ``sc_attention_train`` and ``sm_loss``, the confidence head's
-``conf_mlp`` and the nearest-neighbour search's ``nn_search``, with the build's
+``conf_mlp``, the nearest-neighbour search's ``nn_search`` and the symmetric
+int8 cache's ``compat_cache_sym``, with the build's
 flags into a cubin, with ``-Xptxas -v``, and reads its SASS with
 ``cuobjdump --dump-sass``. Prints one JSON object per kernel: registers,
 spill stores and loads (bytes), stack frame, and the count of each ``HMMA``
@@ -25,12 +26,20 @@ to compile to the same code.
 name here (template arguments and parameters aside) has the same SASS, the
 two digests side by side. The cubins go to the git-ignored build directory.
 
-With a card, one more object: the int8 cache kernel's issue floor. Its row
-loop (the 128-bit store instantiation's) computes 16 entries a thread; its
-instructions less its rare ones (the row's fallback to sqrtf, taken only
-for a row holding a zero distance), over 16, are the instructions an entry;
-at one instruction a lane a cycle on every SM at the card's maximum SM clock
-(``nvidia-smi``), N^2 entries take at least ``issue_floor_ms``.
+With a card, two more objects: the int8 cache kernels' issue floors. The
+full-grid kernel's row loop (the 128-bit store instantiation's) computes 16
+entries a thread; its instructions less its rare ones (the row's fallback to
+sqrtf, taken only for a row holding a zero distance), over 16, are the
+instructions an entry; at one instruction a lane a cycle on every SM at the
+card's maximum SM clock (``nvidia-smi``), N^2 entries take at least
+``issue_floor_ms``. The symmetric kernel's band loop (its largest; the
+128-bit store instantiation's) is one band of a thread: its row loop (the
+second largest) 8 times, each row's 16 columns computed, stored and staged,
+and the mirror's loads and stores; those common instructions times the
+block's 128 threads, over the 32 x 512 x 2 bytes a mirrored band writes,
+are the instructions an output byte, and the
+triangle's bands (each counted as a mirrored one: the diagonal block's skip
+the mirror) take at least ``issue_floor_ms``.
 """
 
 from __future__ import annotations
@@ -45,11 +54,16 @@ import subprocess
 from collections import Counter
 
 from pointdsc_tpu_torch.kernels import _build
+from pointdsc_tpu_torch.kernels.sc_attention import SYM_BAND, SYM_COLS, symmetric_cache_plan
 
 SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine", "compat_cache", "nms",
-           "scoring", "sc_attention_train", "sm_loss", "conf_mlp", "nn_search")
+           "scoring", "sc_attention_train", "sm_loss", "conf_mlp", "nn_search",
+           "compat_cache_sym")
 CACHE_COLUMNS = 16  # entries a thread computes in one pass of the cache kernel's row loop
-FLOOR_SIZES = (5120, 12288)
+FLOOR_SIZES = (5120, 12288, 20480)
+SYM_WARPS = 4  # the symmetric kernel's warps a block (128 threads)
+SYM_BAND_BYTES = 2 * SYM_BAND * SYM_COLS  # the bytes a block's mirrored band writes
+SYM_ROWS = SYM_BAND // SYM_WARPS  # the rows a warp of the symmetric kernel computes a band
 
 
 def _tool(name: str) -> str:
@@ -199,28 +213,59 @@ def report(name: str, csrc: str = _build.CSRC) -> list[dict]:
     return rows
 
 
-def cache_issue_floor(rows: list[dict]) -> dict | None:
-    """The int8 cache kernel's instructions an entry and its issue floor at
-    FLOOR_SIZES on the card present (None without one)."""
+def _card_clock():
+    """(name, power limit, max SM clock in MHz, SMs) of the card present."""
     import torch
 
-    loops = next((r["loops"] for r in rows
-                  if re.search(r"compat_cache_kernel<(true|\(bool\)1)>", r["kernel"])), None)
-    if not loops or not torch.cuda.is_available():
-        return None
-    row_loop = loops[0]
     query = "--query-gpu=name,power.limit,clocks.max.sm"
     name, power, mhz = (v.strip() for v in subprocess.run(
         ["nvidia-smi", query, "--format=csv,noheader,nounits"], capture_output=True,
         text=True, check=True, timeout=60).stdout.splitlines()[0].split(","))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_entry = (row_loop["instructions"] - row_loop["rare"]) / CACHE_COLUMNS
-    lanes_per_s = sms * 128 * float(mhz) * 1e6
-    return {"kernel": "compat_cache_kernel issue floor", "card": f"{name}, {power} W",
-            "row_loop": row_loop, "instructions_per_entry": per_entry,
-            "sms": sms, "max_sm_clock_mhz": float(mhz),
-            "issue_floor_ms": {str(n): n * n * per_entry / lanes_per_s * 1e3
-                               for n in FLOOR_SIZES}}
+    return name, power, float(mhz), torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _loops(rows: list[dict], pattern: str) -> list[dict]:
+    """The loops of the kernel whose name matches pattern, largest first."""
+    return next((r["loops"] for r in rows if re.search(pattern, r["kernel"])), [])
+
+
+def _common(loop: dict) -> int:
+    return loop["instructions"] - loop["rare"]
+
+
+def cache_issue_floors(rows: list[dict]) -> list[dict]:
+    """The int8 cache kernels' instructions an entry (the full grid) or an
+    output byte (the symmetric kernel) and their issue floors at
+    FLOOR_SIZES on the card present (none without one)."""
+    import torch
+
+    full = _loops(rows, r"compat_cache_kernel<(true|\(bool\)1)>")[:1]
+    sym = _loops(rows, r"compat_cache_sym_kernel<(\(int\))?16>")[:2]
+    if not (full or len(sym) == 2) or not torch.cuda.is_available():
+        return []
+    name, power, mhz, sms = _card_clock()
+    lanes_per_s = sms * 128 * mhz * 1e6
+    card = {"card": f"{name}, {power} W", "sms": sms, "max_sm_clock_mhz": mhz}
+    out = []
+    if full:
+        per_entry = _common(full[0]) / CACHE_COLUMNS
+        out.append({"kernel": "compat_cache_kernel issue floor", **card, "row_loop": full[0],
+                    "instructions_per_entry": per_entry,
+                    "issue_floor_ms": {str(n): n * n * per_entry / lanes_per_s * 1e3
+                                       for n in FLOOR_SIZES}})
+    if len(sym) == 2:
+        band, row = sym  # the row loop runs SYM_ROWS times a pass of the band loop
+        per_band = (_common(band) - _common(row) + SYM_ROWS * _common(row)) * 32 * SYM_WARPS
+
+        def bands(n):  # the triangle's
+            return sum(count for _, _, count in symmetric_cache_plan(1, n, sms))
+
+        out.append({"kernel": "compat_cache_sym_kernel issue floor", **card, "band_loop": band,
+                    "row_loop": row,
+                    "instructions_per_output_byte": per_band / SYM_BAND_BYTES,
+                    "issue_floor_ms": {str(n): bands(n) * per_band / lanes_per_s * 1e3
+                                       for n in FLOOR_SIZES}})
+    return out
 
 
 def base_name(kernel: str) -> str:
@@ -262,8 +307,7 @@ def main(argv=None) -> int:
             rows.append(row)
             lines.append(json.dumps(row))
             print(lines[-1], flush=True)
-    floor = cache_issue_floor(rows)
-    if floor is not None:
+    for floor in cache_issue_floors(rows):
         lines.append(json.dumps(floor))
         print(lines[-1], flush=True)
     if args.compare:

@@ -42,7 +42,12 @@ nearest-neighbour search of ICP (``nn_search``: ``nearest_neighbors`` at
 N = M = 2048, 5120 and 20480, a base cloud in a 3 m cube and each query a
 base point moved by ~1 cm) beside its bound and its issue floor
 (``kernels/nn_search.py::nn_search_work``, ``nn_issue_floor_ms``; not in a
-tree without them).
+tree without them); the two int8 cache kernels (``symcache``: the symmetric
+and the full-grid kernel, each through its launch, the symmetric wrapper and
+the production wrapper with the route it took, at SYM_SIZES, beside the
+bound of ``kernels/sc_attention.py::compat_cache_work``); the symmetric
+kernel's plan at three diagonal weights against the full-grid kernel
+(``symcache_weights``, rounds alternating them, at SYM_WEIGHT_SIZES).
 ``wrapper_ms``: CUDA events around one wrapper call; ``kernel_ms``: the
 kernel's own device time per call from ``torch.profiler``
 (``profile_forward``'s device summary over 20 calls; the seed NMS's
@@ -76,6 +81,15 @@ C = 128
 # published H100 SXM peaks (NVIDIA data sheet): f32 CUDA-core FLOP/s, HBM bytes/s
 F32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the cache kernels' sizes: the standard N, the demo's ragged 5000, and the
+# crossover between them
+SYM_SIZES = (1000, 2048, 3072, 4096, 5000, 5120, 8192, 12288, 20480)
+# symcache_weights: the diagonal band's weights the symmetric kernel's plan is
+# timed at (``kernels/sc_attention.py::SYM_DIAGONAL_COST``, in SYM_BAND_COST
+# units: 1.75, 1.9 and 2.0 bands), the rounds that alternate them with the
+# full-grid kernel, and the sizes, the gate's crossover among them
+SYM_WEIGHTS, SYM_WEIGHT_ROUNDS = (35, 38, 40), 4
+SYM_WEIGHT_SIZES = (2048, 3072, 4096, 5000, 5120, 8192, 12288, 20480)
 # the training shapes: n -> (batch, correspondences a pair, sigma_d, data)
 TRAIN_SHAPES = {1024: (16, 1000, 0.1, {}), 12288: (1, 12288, 1.2, SNAPSHOTS["kitti"][2])}
 
@@ -148,7 +162,76 @@ def cache_case(n, dev):
         return katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask)
 
     return {"kernel": "compat_cache_int8", "n": n, "wrapper_ms": _event_ms(call),
-            **_device_split(call, "compat_cache_kernel")}
+            **_device_split(call, "compat_cache_kernel", "compat_cache_sym_kernel")}
+
+
+def symcache_case(n, dev):
+    """The two cache kernels on one pair: the symmetric one and the full-grid
+    one through their launches (no checks), each kernel only beside its
+    wrapper time, then the production wrapper and the route it took."""
+    from pointdsc_tpu_torch.kernels import symcache as ksym
+
+    src, tgt, mask, _ = _pair(n, dev)
+    sigma_d = 0.1 if n <= 5120 else 1.2
+    coef = katt.cache_coef(sigma_d)
+    b_, o_ = bound_ms(*katt.compat_cache_work(1, n))
+    out = {"kernel": "compat_cache_int8_sym", "n": n, "bound_ms": b_, "bound_by": o_}
+    for name, call, kernel in (
+            ("sym", lambda: katt._launch_compat_cache_sym(src, tgt, coef), "compat_cache_sym_kernel"),
+            ("full_grid", lambda: katt._launch_compat_cache(src, tgt, coef), "compat_cache_kernel"),
+            ("sym_wrapper", lambda: ksym.build_compat_cache_int8_sym(src, tgt, sigma_d), None),
+            ("production", lambda: katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask),
+             None)):
+        out[name] = {"wrapper_ms": _event_ms(call)}
+        if kernel is not None:
+            out[name].update(_device_split(call, kernel))
+    out["production"]["route"] = "symmetric" if katt.use_symmetric_cache(n) else "full_grid"
+    return out
+
+
+def symcache_weights_case(n, dev):
+    """The symmetric kernel under the plan of each diagonal weight of
+    SYM_WEIGHTS (``SYM_DIAGONAL_COST`` set for the call, then restored) and
+    the full-grid kernel, through their launches, in SYM_WEIGHT_ROUNDS rounds
+    that alternate them. Each round is one profiler session of 20 calls; a
+    session that recorded other than one device operation a call lost
+    launches and is left out (``dropped``). Per variant: the kernel-only
+    times of the rounds kept and their median; per weight the ratio of that
+    median to the full grid's, and the plan's item count."""
+    src, tgt, _, _ = _pair(n, dev)
+    coef = katt.cache_coef(0.1 if n <= 5120 else 1.2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    variants = [(w, "compat_cache_sym_kernel") for w in SYM_WEIGHTS]
+    variants.append(("full_grid", "compat_cache_kernel"))
+    times = {str(v): [] for v, _ in variants}
+    dropped = {str(v): 0 for v, _ in variants}
+    items = {}
+    committed = katt.SYM_DIAGONAL_COST
+    try:
+        for _ in range(SYM_WEIGHT_ROUNDS):
+            for v, kernel in variants:
+                if v == "full_grid":
+                    call = lambda: katt._launch_compat_cache(src, tgt, coef)
+                else:
+                    katt.SYM_DIAGONAL_COST = v
+                    katt._symmetric_plan_on.cache_clear()
+                    items[str(v)] = len(katt.symmetric_cache_plan(1, n, sms))
+                    call = lambda: katt._launch_compat_cache_sym(src, tgt, coef)
+                split = _device_split(call, kernel)
+                if split["device_ops"] == 1.0:
+                    times[str(v)].append(split["kernel_ms"])
+                else:
+                    dropped[str(v)] += 1
+    finally:
+        katt.SYM_DIAGONAL_COST = committed
+        katt._symmetric_plan_on.cache_clear()
+    median = {v: statistics.median(t) if t else "not measured" for v, t in times.items()}
+    full = median["full_grid"]
+    ratio = {str(w): (median[str(w)] / full if isinstance(median[str(w)], float)
+                      and isinstance(full, float) else "not measured") for w in SYM_WEIGHTS}
+    return {"kernel": "compat_cache_sym weights", "n": n, "band_cost": katt.SYM_BAND_COST,
+            "committed_weight": committed, "plan_items": items, "kernel_ms": times,
+            "median_ms": median, "over_full_grid": ratio, "dropped": dropped}
 
 
 def nms_case(n, dev):
@@ -353,6 +436,8 @@ def main(argv=None) -> int:
         cases += [(seed_stage_case, n) for n in (5120, 12288)]
         cases += [(train_attention_case, n) for n in TRAIN_SHAPES]
         cases += [(nn_search_case, n) for n in (2048, 5120, 20480)]
+        cases += [(symcache_case, n) for n in SYM_SIZES]
+        cases += [(symcache_weights_case, n) for n in SYM_WEIGHT_SIZES]
         for case, n in cases:
             if only and case.__name__ not in only:
                 continue

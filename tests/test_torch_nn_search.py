@@ -1,8 +1,7 @@
 """The registration path's kernels and small linear algebra, the port's plain
 versions against the JAX package on the same numpy-seeded float32 inputs:
 the nearest-neighbour search (JAX's Pallas kernel in interpret mode), the
-symmetric cache build of the experiment (JAX's triangle + mirror build in
-interpret mode), ``pairwise_sq_dists``, the Jacobi eigensolvers and the
+symmetric cache build (JAX's triangle + mirror build in interpret mode), ``pairwise_sq_dists``, the Jacobi eigensolvers and the
 ``method="jacobi"`` Procrustes."""
 
 import jax.numpy as jnp
@@ -119,8 +118,8 @@ def test_nearest_neighbors_cpu_counts_no_launch(rng):
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_symmetric_cache_plain(rng, masked):
-    """The plain version of the symmetric build against JAX's triangle +
-    mirror build (N = 2048: two 1024 tiles, interpret mode): +-1 on at most
+    """The symmetric build's CPU result against JAX's triangle + mirror
+    build (N = 2048: two 1024 tiles, interpret mode): +-1 on at most
     0.1% of entries (both round 127 * compat; an entry within an ulp of a .5
     boundary may round either way). Both are exactly symmetric."""
     n = 2048
@@ -134,7 +133,7 @@ def test_symmetric_cache_plain(rng, masked):
         mask=None if mask is None else jnp.asarray(mask), interpret=True)).astype(np.int32)
     out = t_sym.build_compat_cache_int8_sym(
         torch.from_numpy(src), torch.from_numpy(tgt), 0.1,
-        mask=None if mask is None else torch.from_numpy(mask), block=1024).numpy().astype(np.int32)
+        mask=None if mask is None else torch.from_numpy(mask)).numpy().astype(np.int32)
     assert (out == out.transpose(0, 2, 1)).all() and (ref == ref.transpose(0, 2, 1)).all()
     diff = np.abs(out - ref)
     assert diff.max() <= 1
@@ -142,13 +141,18 @@ def test_symmetric_cache_plain(rng, masked):
 
 
 def test_symmetric_cache_refuses():
+    """The wrapper takes any N (the kernel guards a ragged edge), and refuses
+    what no build takes: another shape for tgt, points that are not 3-D, a
+    mask that is not a bool [B, N]."""
     pts = torch.zeros(1, 512, 3)
     with pytest.raises(ValueError):
-        t_sym.build_compat_cache_int8_sym(pts, pts, 0.1, block=384)
+        t_sym.build_compat_cache_int8_sym(pts, pts[:, :500].contiguous(), 0.1)
     with pytest.raises(ValueError):
-        t_sym.build_compat_cache_int8_sym(pts[:, :500].contiguous(), pts[:, :500].contiguous(), 0.1)
+        t_sym.build_compat_cache_int8_sym(pts[..., :2].contiguous(), pts[..., :2].contiguous(), 0.1)
     with pytest.raises(ValueError):
-        t_sym.build_compat_cache_int8_sym(pts, pts, 0.1, mirror=False)  # CUDA only
+        t_sym.build_compat_cache_int8_sym(pts, pts, 0.1, mask=torch.ones(1, 512))
+    assert t_sym.build_compat_cache_int8_sym(pts[:, :500].contiguous(), pts[:, :500].contiguous(),
+                                             0.1).shape == (1, 500, 500)
 
 
 @pytest.mark.parametrize("shape", [((40, 3), (50, 3)), ((2, 30, 5), (2, 20, 5)), ((25, 3), None)])

@@ -7,6 +7,7 @@ suite's conftest imports JAX, which the card's machine need not have):
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -364,16 +365,20 @@ def test_nms_flags(dev, n):
 
 
 def device_operations(fn) -> int:
-    """The device operations (kernels, copies, sets) of one call of fn, from
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The device operations (kernels, copies, sets) of one call of fn: the
+    nodes of a CUDA graph that captures it, after one call outside the
+    capture. torch.profiler gave the same counts, but now and then a session
+    lost all its device events, most often in a fresh process (C14)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    assert err == 0, f"cuGraphGetNodes failed with CUresult {err}"
+    return count.value
 
 
 def nms_case(n, case, dev):
@@ -1566,20 +1571,49 @@ def test_nearest_neighbors_device_operations(dev, n, m):
     assert_nn_matches_plain(q[None], b[None], mask[None])
 
 
-@pytest.mark.parametrize("n,block", [(1024, 256), (2048, 512), (2048, 1024), (512, 512)])
-def test_symmetric_cache(dev, n, block):
-    """Byte for byte the full-grid kernel's cache; within +-1 on <= 0.1% of
-    entries of its plain version; exactly symmetric."""
+@pytest.mark.parametrize("batch", [1, B])
+@pytest.mark.parametrize("n", [512, 1000, 1024, 2048, 5000, 12288])
+def test_symmetric_cache(dev, n, batch):
+    """Byte for byte the full-grid kernel's cache (at batch 2 the second
+    pair's last 10% is masked, which neither build reads); exactly
+    symmetric; within +-1 on <= 0.1% of entries of its plain version. N = 1000
+    and 5000 take the ragged edge's 8-byte stores (N % 16 == 8)."""
     src, tgt, mask, _ = pair(n, dev)
-    sym = ksym.build_compat_cache_int8_sym(src, tgt, 0.1, mask=mask, block=block)
-    assert torch.equal(sym, katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask))
+    src, tgt, mask = src[:batch], tgt[:batch], mask[:batch]
+    sym = ksym.build_compat_cache_int8_sym(src, tgt, 0.1, mask=mask)
+    assert torch.equal(sym, katt._launch_compat_cache(src, tgt, katt.cache_coef(0.1)))
     assert torch.equal(sym, sym.transpose(1, 2))
     plain = ksym.compat_cache_sym_plain(katt.pack_geometry(src, tgt, mask), katt.cache_coef(0.1))
     diff = (sym.int() - plain.int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 1).float().mean()) <= 1e-3
-    upper = ksym.build_compat_cache_int8_sym(src, tgt, 0.1, mask=mask, block=block, mirror=False)
-    iu = torch.triu_indices(n, n, offset=0, device=dev)
-    assert torch.equal(upper[:, iu[0], iu[1]], sym[:, iu[0], iu[1]])
+
+
+@pytest.mark.parametrize("n", [1, 31, 513, 1001, 1002, 1004])
+def test_symmetric_cache_edges(dev, n):
+    """Sizes below a band and a strip, and every store unit of a ragged N
+    (1, 2 and 4 bytes), with repeated points (zero distances off the
+    diagonal, the rows that fall back to sqrtf): the full-grid kernel's bytes."""
+    gen = torch.Generator().manual_seed(n)
+    src = torch.rand((B, n, 3), generator=gen)
+    tgt = src + 0.01 * torch.randn((B, n, 3), generator=gen)
+    src[:, n // 2], tgt[:, n // 2] = src[:, 0], tgt[:, 0]
+    src, tgt = src.to(dev), tgt.to(dev)
+    sym = ksym.build_compat_cache_int8_sym(src, tgt, 0.1)
+    assert torch.equal(sym, katt._launch_compat_cache(src, tgt, katt.cache_coef(0.1)))
+
+
+@pytest.mark.parametrize("n", [5000, 5120, 12288, 20480])
+def test_production_cache(dev, n):
+    """The eval forward's cache build, on the route ``use_symmetric_cache``
+    takes: the full-grid kernel's bytes, in one device operation."""
+    src, tgt, mask, _ = pair(n, dev)
+    sigma_d = 0.1 if n <= 5120 else 1.2
+
+    def build():
+        return katt.build_compat_cache_int8(src, tgt, sigma_d, mask=mask)
+
+    assert torch.equal(build(), katt._launch_compat_cache(src, tgt, katt.cache_coef(sigma_d)))
+    assert device_operations(build) == 1
 
 
 def test_icp_on_card_matches_plain_search(dev, monkeypatch):
