@@ -111,6 +111,25 @@ builds itself (``make_scene``; no demo data is needed):
  22. the ICP crossover: kernel against plain search at N = M in ICP_SIZES;
  23. ``tools/exp_symcache.py``, the symmetric cache against the full grid,
      at each N of SYM_RUNS.
+Then the dataset CLIs (``evaluation/test_3DMatch``, ``test_3DLoMatch``,
+``test_KITTI``, ``train_3DMatch``, ``train_KITTI``) through ``main(argv)`` on
+fake data roots in the reference's file layouts, written into a temporary
+directory (each phase prints its seconds beside the card's name and power
+limit):
+ 24. a 3DMatch test scene of 4 fragments of 5000 points with a snapshot of
+     the Synthetic release: 6 pairs at N = 5000 (bucket 5120), full width,
+     each held to the dense path of its sample (1e-3), the kernels of the
+     configuration the guard left launched, recall >= 5/6; again with ICP
+     (20 nn-search launches a forward); 3DLoMatch from a pickle and from 2
+     Predator files;
+ 25. ``kitti_prep.process_kitti`` on a fake odometry drive (4 frames of ~60k
+     points: ICP with the nn-search kernel, FPFH on the card), then the KITTI
+     CLI on its 2 pairs at ``--num_node 12000`` with the SyntheticKITTI
+     release, each pair held to the dense path;
+ 26. ``train_3DMatch`` for 4 steps at bs 16 / 1000 with the training kernels
+     (66 pairs of 12 fragments), its checkpoint through ``load_pretrained``
+     and ``register``; ``train_KITTI`` for one epoch at bs 2 on phase 25's
+     pairs.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -118,12 +137,15 @@ without one or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "snapshot", "PointDSC_Synthetic_release")
@@ -185,6 +207,17 @@ SYM_RUNS = (5000, 5120, 12288, 20480)
 # below the symmetric cache's gate (the demo's default num_node): the
 # production cache build's full-grid route, phase 3's second cache row
 FULL_GRID_N = 2048
+
+# phases 24-26, the dataset CLIs on fake roots in the reference's layouts: a
+# 3DMatch test scene of 4 fragments (6 pairs of N = 5000, bucket 5120), a
+# KITTI drive of 4 frames (2 pairs) evaluated at 12000 correspondences, a
+# training scene of 12 fragments (66 pairs: 4 steps of bs 16)
+TEST_SCENE = "7-scenes-redkitchen"
+SPLIT_SCENES = ("sun3d-brown_bm_1-brown_bm_1", "sun3d-brown_bm_4-brown_bm_4")  # train, val
+CLI_FRAGMENTS, CLI_POINTS, PREDATOR_POINTS = 4, 5000, 6000
+DRIVE_FRAMES, DRIVE_POINTS, KITTI_NODE = 4, 60_000, 12000
+PREP_ICP_ITERS = 200  # data/kitti_prep.py::process_kitti's ICP
+TRAIN_FRAGMENTS, TRAIN_POINTS = 12, 3000
 
 
 def _rot(axis, angle):
@@ -255,6 +288,219 @@ def make_scene(seed=0, n_points=200_000, room=2.5, noise=0.005, overlap_cut=(2.0
     tgt = tgt[tgt[:, 0] >= overlap_cut[1]]
     tgt = tgt @ gt[:3, :3].T + gt[:3, 3]
     return src, tgt, gt
+
+
+def _box_faces(o, ex, ey, ez):
+    """The five faces (not the bottom) of the box at corner o with edges ex, ey, ez."""
+    return [(o + ez, ex, ey), (o, ex, ez), (o + ey, ex, ez), (o, ey, ez), (o + ex, ey, ez)]
+
+
+def street_rects(seed, x0, x1, half_width=7.0, ground=-1.73, props=True):
+    """A seeded street along x in [x0, x1] as (origin, edge u, edge v)
+    rectangles, in metres in a frame whose origin is a LiDAR 1.73 m above the
+    road: the road, a row of facades on each side (segments of 6-14 m set back
+    0-1.5 m, joined by side walls) and, with ``props``, cars parked along both
+    kerbs and poles."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    width = 2 * half_width
+    rects = [(np.array([x0, -half_width, ground]), np.array([x1 - x0, 0, 0]),
+              np.array([0, width, 0]))]
+    for side in (-1.0, 1.0):
+        x, prev = x0, None
+        while x < x1:
+            seg, h = rng.uniform(6, 14), rng.uniform(5, 12)
+            y = side * (half_width + rng.uniform(0, 1.5))
+            rects.append((np.array([x, y, ground]), np.array([seg, 0, 0]), np.array([0, 0, h])))
+            if prev is not None:
+                rects.append((np.array([x, prev, ground]), np.array([0, y - prev, 0]),
+                              np.array([0, 0, h])))
+            prev, x = y, x + seg
+        if not props:
+            continue
+        x = x0 + rng.uniform(0, 4)
+        while x < x1:  # parked cars: 4.2 x 1.8 x 1.5 m boxes with a small yaw
+            R = _rot([0, 0, 1], rng.uniform(-0.1, 0.1))
+            o = np.array([x, side * (half_width - 1.4) - 0.9, ground])
+            rects += _box_faces(o, R @ [4.2, 0, 0], R @ [0, 1.8, 0], np.array([0, 0, 1.5]))
+            x += rng.uniform(6, 12)
+        for x in np.arange(x0 + rng.uniform(0, 15), x1, 15.0):  # poles
+            o = np.array([x, side * (half_width - 0.4), ground])
+            rects += _box_faces(o, np.array([0.2, 0, 0]), np.array([0, 0.2, 0]),
+                                np.array([0, 0, 5.0]))
+    return rects
+
+
+def sample_rects(rects, n_points, gen):
+    """n_points drawn uniformly by area over the rectangles."""
+    import numpy as np
+
+    areas = np.array([np.linalg.norm(np.cross(u, v)) for _, u, v in rects])
+    counts = gen.multinomial(n_points, areas / areas.sum())
+    pts = []
+    for (o, u, v), c in zip(rects, counts):
+        a, b = gen.uniform(size=(2, c, 1))
+        pts.append(o + a * u + b * v)
+    return np.concatenate(pts)
+
+
+def _unit_rows(x):
+    import numpy as np
+
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def scene_fragments(seed=0, n_frag=4, n_pts=5000, room=3.0, feat_noise=0.13):
+    """Fragments of one seeded indoor scene: n_pts of 1.6 n_pts points in a
+    ``room``-metre cube, each fragment seen from its own pose (a chain of
+    random 10-25 deg turns and 0.3 m steps) with 2 mm noise, its 32-d unit
+    "FCGF" features the points' shared latents plus ``feat_noise`` Gaussian
+    noise, so that about half of the descriptor matches of a pair are
+    inliers. Returns (poses, [(xyz float32, feature float32)], world,
+    latents)."""
+    import numpy as np
+
+    gen = np.random.default_rng(seed)
+    n_world = int(1.6 * n_pts)
+    world = gen.uniform(0, room, (n_world, 3))
+    latents = _unit_rows(gen.normal(size=(n_world, 32)))
+    poses = [np.eye(4)]
+    for _ in range(n_frag - 1):
+        step = np.eye(4)
+        step[:3, :3] = _rot(gen.normal(size=3), np.deg2rad(gen.uniform(10, 25)))
+        step[:3, 3] = 0.3 * _unit_rows(gen.normal(size=(1, 3)))[0]
+        poses.append(poses[-1] @ step)
+    frags = []
+    for pose in poses:
+        sel = gen.choice(n_world, n_pts, replace=False)
+        inv = np.linalg.inv(pose)
+        local = world[sel] @ inv[:3, :3].T + inv[:3, 3] + gen.normal(scale=0.002, size=(n_pts, 3))
+        feat = _unit_rows(latents[sel] + feat_noise * gen.normal(size=(n_pts, 32)))
+        frags.append((local.astype(np.float32), feat.astype(np.float32)))
+    return poses, frags, world, latents
+
+
+def write_3dmatch_scene(root, scene, seed=0, **kw):
+    """A 3DMatch test scene of ``scene_fragments`` in the reference's layout:
+    ``fragments/<scene>/cloud_bin_<i>_fcgf.npz`` (xyz, feature) and
+    ``gt_result/<scene>-evaluation/gt.log`` (target -> source, as the
+    reference stores it). Returns (poses, world, latents)."""
+    import numpy as np
+
+    poses, frags, world, latents = scene_fragments(seed, **kw)
+    frag_dir = os.path.join(root, "fragments", scene)
+    gt_dir = os.path.join(root, "gt_result", f"{scene}-evaluation")
+    os.makedirs(frag_dir, exist_ok=True)
+    os.makedirs(gt_dir, exist_ok=True)
+    for i, (xyz, feat) in enumerate(frags):
+        np.savez(os.path.join(frag_dir, f"cloud_bin_{i}_fcgf.npz"), xyz=xyz, feature=feat)
+    n = len(poses)
+    with open(os.path.join(gt_dir, "gt.log"), "w") as f:
+        for i in range(n):
+            for j in range(i + 1, n):
+                stored = np.linalg.inv(np.linalg.inv(poses[j]) @ poses[i])
+                f.write(f"{i}\t{j}\t{n}\n")
+                f.write("".join("\t".join(f"{v:.8f}" for v in row) + "\n" for row in stored))
+    return poses, world, latents
+
+
+def write_train_root(root, scenes, seed=0, **kw):
+    """A 3DMatch training root in the reference's layout (that of the JAX
+    tests' ``write_fake_train_root``): ``threedmatch_feat/<name>_fcgf.npz``
+    fragments of ``scene_fragments`` and, for each of ``scenes`` (names from
+    the packaged split files), a pair list ``threedmatch/<scene>@seq-01-0.30.txt``
+    naming every pair of the fragments."""
+    import numpy as np
+
+    _, frags, _, _ = scene_fragments(seed, **kw)
+    os.makedirs(os.path.join(root, "threedmatch_feat"), exist_ok=True)
+    os.makedirs(os.path.join(root, "threedmatch"), exist_ok=True)
+    names = [f"smoke-scene_{i:03d}.npz" for i in range(len(frags))]
+    for name, (xyz, feat) in zip(names, frags):
+        np.savez(os.path.join(root, "threedmatch_feat", name.replace(".npz", "_fcgf.npz")),
+                 xyz=xyz, feature=feat)
+    pairs = "".join(f"{a} {b} 0.5\n" for i, a in enumerate(names) for b in names[i + 1:])
+    for scene in scenes:
+        with open(os.path.join(root, "threedmatch", f"{scene}@seq-01-0.30.txt"), "w") as f:
+            f.write(pairs)
+
+
+def write_lomatch_pickle(root, scene, poses):
+    """``3DLoMatch.pkl`` over every pair of the scene's fragments: the
+    reference's fields, src -> tgt as ``rot`` [3, 3] and ``trans`` [3, 1]."""
+    import pickle
+
+    import numpy as np
+
+    infos = {"rot": [], "trans": [], "src": [], "tgt": []}
+    for i in range(len(poses)):
+        for j in range(i + 1, len(poses)):
+            gt = np.linalg.inv(poses[j]) @ poses[i]
+            infos["rot"].append(gt[:3, :3])
+            infos["trans"].append(gt[:3, 3:])
+            infos["src"].append(f"test/{scene}/cloud_bin_{i}.pth")
+            infos["tgt"].append(f"test/{scene}/cloud_bin_{j}.pth")
+    with open(os.path.join(root, "3DLoMatch.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+
+
+def write_predator_pair(path, src, tgt, src_feat, tgt_feat, gt, gen):
+    """One OverlapPredator output file (``torch.save``): ``len_src``, ``pcd``
+    and ``feats`` of both clouds stacked, per-point ``saliency`` and
+    ``overlaps`` in (0.1, 1), and the src -> tgt ``rot`` and ``trans`` [3, 1]."""
+    import numpy as np
+    import torch
+
+    n = len(src) + len(tgt)
+    torch.save({
+        "len_src": len(src),
+        "pcd": torch.from_numpy(np.concatenate([src, tgt]).astype(np.float32)),
+        "feats": torch.from_numpy(np.concatenate([src_feat, tgt_feat]).astype(np.float32)),
+        "saliency": torch.from_numpy(gen.uniform(0.1, 1, n).astype(np.float32)),
+        "overlaps": torch.from_numpy(gen.uniform(0.1, 1, n).astype(np.float32)),
+        "rot": torch.from_numpy(np.asarray(gt[:3, :3], np.float64)),
+        "trans": torch.from_numpy(np.asarray(gt[:3, 3:], np.float64)),
+    }, path)
+
+
+def write_fake_drive(root, drive=8, n_frames=4, n_points=60_000, spacing=8.0, noise=0.02,
+                     half_range=35.0, half_width=7.0, props=True, seed=0, extra_poses=1):
+    """A KITTI odometry drive in the reference's layout: ``poses/XX.txt`` (one
+    row of the 3 x 4 camera-to-world pose a frame) and
+    ``sequences/XX/velodyne/NNNNNN.bin`` (float32 x, y, z, reflectance). The
+    LiDAR drives along x, ``spacing`` metres a frame, through the street of
+    ``street_rects``; each frame holds ~n_points sampled on its own within
+    ``half_range`` metres along the street, with ``noise`` Gaussian noise. The
+    reference's pair rule takes the frame just before the first one more than
+    10 m away, so frames 8 m apart pair 0-1, 2-3, ...: ``extra_poses`` poses
+    past the last scan let the last pair form."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data.kitti_prep import VELO2CAM
+
+    velo_dir = os.path.join(root, "sequences", f"{drive:02d}", "velodyne")
+    os.makedirs(velo_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    x_end = spacing * (n_frames - 1)
+    rects = street_rects(seed, -half_range - 1.0, x_end + half_range + 1.0, half_width,
+                         props=props)
+    total = x_end + 2 * half_range + 2.0
+    velo_from_cam = np.linalg.inv(VELO2CAM.T)  # VELO2CAM is stored transposed
+    rows = []
+    for i in range(n_frames + extra_poses):
+        world_from_velo = np.eye(4)
+        world_from_velo[0, 3] = spacing * i
+        rows.append((world_from_velo @ velo_from_cam)[:3, :4].reshape(-1))
+        if i >= n_frames:
+            continue
+        gen = np.random.default_rng([seed, i])
+        pts = sample_rects(rects, int(n_points * total / (2 * half_range)), gen)
+        pts = pts[np.abs(pts[:, 0] - spacing * i) <= half_range]
+        pts = pts - [spacing * i, 0.0, 0.0] + gen.normal(scale=noise, size=pts.shape)
+        scan = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1).astype(np.float32)
+        scan.tofile(os.path.join(velo_dir, f"{i:06d}.bin"))
+    np.savetxt(os.path.join(root, "poses", f"{drive:02d}.txt"), np.array(rows))
 
 
 def check(ok, message: str) -> None:
@@ -2161,6 +2407,409 @@ def symcache_experiment(kernels) -> int:
     return launches
 
 
+def write_snapshot(workdir, name, release, **over):
+    """``<workdir>/snapshot/<name>/``: the release's config.json with
+    ``over`` applied and a copy of its ``models/model_best.pkl``."""
+    import shutil
+
+    with open(os.path.join(release, "config.json")) as f:
+        cfg = json.load(f)
+    cfg.update(over, exp_id=name)
+    snap = os.path.join(workdir, "snapshot", name)
+    os.makedirs(os.path.join(snap, "models"), exist_ok=True)
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    shutil.copy(os.path.join(release, "models", "model_best.pkl"), os.path.join(snap, "models"))
+
+
+@contextlib.contextmanager
+def recorded_cli_evaluators():
+    """Every Evaluator the eval CLIs build (``evaluation/_cli.py::
+    make_evaluator``) as a ``Recorded`` (its forwards, warm-ups included)
+    whose ``pairs`` list each evaluated sample with its transform and
+    labels."""
+    from pointdsc_tpu_torch.evaluation import _cli
+
+    made, make = [], _cli.make_evaluator
+
+    def recording(*args, **kwargs):
+        ev = make(*args, **kwargs)
+        rec = Recorded(ev)
+        rec.pairs = []
+        run_pair = ev.run_pair
+
+        def run(sample, scene_ind=0, data_time=0.0):
+            row, trans = run_pair(sample, scene_ind=scene_ind, data_time=data_time)
+            rec.pairs.append((sample, trans, rec.calls[-1][1]))  # the timed forward's labels
+            return row, trans
+
+        ev.run_pair = run
+        made.append(rec)
+        return ev
+
+    _cli.make_evaluator = recording
+    try:
+        yield made
+    finally:
+        _cli.make_evaluator = make
+
+
+@contextlib.contextmanager
+def counted(torch, kernels):
+    """Launch counts of the block: set to 0 just before, read just after
+    (``counts`` of the yielded dict), with the block's seconds (``s``)."""
+    res = {}
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    start = time.perf_counter()
+    yield res
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    res["s"] = time.perf_counter() - start
+    res["counts"] = kernels.launch_counts()
+
+
+def dense_errors(torch, dev, rec, details=None) -> list[float]:
+    """Each recorded pair's transform against the dense forward
+    (``fused=False``) of the same sample, padded to its bucket, through the
+    Evaluator's model, in whichever configuration the regime guard left it:
+    the largest entry difference a pair. ``details``, a list, gets each
+    pair's rotation (deg) and translation (cm) between the two, their label
+    agreement, and each one's rotation and translation error against the
+    ground truth."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data.pipeline import pad_to_bucket
+
+    errs = []
+    for sample, trans, labels in rec.pairs:
+        n = sample["corr_pos"].shape[0]
+        padded = pad_to_bucket(sample)  # as the Evaluator runs it: the seed count is the bucket's
+        cp, src, tgt, mask = (torch.as_tensor(padded[k])[None].to(dev)
+                              for k in ("corr_pos", "src_keypts", "tgt_keypts", "mask"))
+        dense = rec.ev.model(cp, src, tgt, mask=mask, fused=False)
+        ref = dense.final_trans[0].cpu().numpy()
+        errs.append(float(np.abs(trans - ref).max()))
+        if details is not None:
+            gt = sample["gt_trans"]
+            details.append({
+                "re_deg": rot_error_deg(trans, ref),
+                "te_cm": 100 * float(np.linalg.norm(trans[:3, 3] - ref[:3, 3])),
+                "labels": float((labels[0, :n] == dense.final_labels[0, :n]).float().mean()),
+                "vs_gt_fused": [rot_error_deg(trans, gt),
+                                100 * float(np.linalg.norm(trans[:3, 3] - gt[:3, 3]))],
+                "vs_gt_dense": [rot_error_deg(ref, gt),
+                                100 * float(np.linalg.norm(ref[:3, 3] - gt[:3, 3]))]})
+    return errs
+
+
+def eval_kernels(n: int, flipped: bool) -> tuple:
+    """The kernels one eval forward of N = n launches: the default
+    configuration's, or the running max's after the guard flipped."""
+    if flipped:
+        return RUNNING_MAX_KERNELS
+    tail = ("compat_cache_int8", "confidence_head", "nms_local_max", "nms_select",
+            "seed_knn_exact", "seed_hypotheses", "seed_inlier_counts", "select_hypothesis",
+            "fused_post_refinement")
+    encoder = (("fused_encoder_layer",) if n <= 6144 else
+               ("pcn_qkv", "attn_mlp_residual", "nms_top_m"))
+    return tail + encoder
+
+
+def check_launched(counts, names, tag) -> None:
+    missing = [name for name in names if counts[name] <= 0]
+    check(not missing, f"{tag}: kernels not launched: {missing}")
+
+
+def dataset_eval_3dmatch(torch, kernels, dev, tmp, card) -> dict:
+    """Phase 24: the 3DMatch and 3DLoMatch CLIs (``evaluation/test_3DMatch``,
+    ``test_3DLoMatch``) through ``main(argv)`` on a fake test root of one
+    TEST_SCENES scene (``write_3dmatch_scene``: 4 fragments of 5000 points),
+    with a snapshot directory of the Synthetic release (root overridden),
+    counts set to 0 before each run and read after. 3DMatch with
+    ``num_node all``: 6 pairs of N = 5000 (bucket 5120) at full width; each
+    pair's transform equal to the dense forward of its sample within 1e-3,
+    the kernels of the configuration the guard left launched, recall >=
+    5/6, the log and .npy written; again with ``--use_icp true``: the
+    nn-search kernel 20 times a forward. 3DLoMatch from a ``3DLoMatch.pkl``
+    over the same fragments (``--num_corr 5000``) and from 2 Predator files
+    (6000 points a cloud, sampled to 5000 by overlap x saliency; the
+    benchmark reads 1781 files, so the dataset's length is set to 2 here).
+    Returns the summary line."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data.predator import PredatorLoMatchDataset
+    from pointdsc_tpu_torch.evaluation import test_3DLoMatch, test_3DMatch
+
+    start = time.perf_counter()
+    root = os.path.join(tmp, "3dmatch")
+    poses, world, latents = write_3dmatch_scene(root, TEST_SCENE, n_frag=CLI_FRAGMENTS,
+                                                n_pts=CLI_POINTS)
+    n_pairs = CLI_FRAGMENTS * (CLI_FRAGMENTS - 1) // 2
+    work = os.path.join(tmp, "work_3dmatch")
+    write_snapshot(work, "smoke_3dmatch", SNAPSHOT, root=root)
+    argv = ["--chosen_snapshot", "smoke_3dmatch", "--device", DEVICE]
+    line = {"phase": "cli_3dmatch", "card": card, "pairs": n_pairs, "n": CLI_POINTS}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with recorded_cli_evaluators() as made, counted(torch, kernels) as run:
+            stats, agg = test_3DMatch.main(argv + ["--save_npy", "true"])
+        rec = made[-1]
+        check(stats.shape == (n_pairs, 12) and np.isfinite(stats).all(), "3DMatch CLI: bad stats")
+        check(all(s["corr_pos"].shape[0] == CLI_POINTS for s, *_ in rec.pairs),
+              "3DMatch CLI: not num_node all")
+        for ext in ("log", "npy"):
+            check(os.path.exists(f"logs/smoke_3dmatch-SVD-fcgf.{ext}"), f"no .{ext} written")
+        errs = dense_errors(torch, dev, rec)
+        names = eval_kernels(CLI_POINTS, rec.ev.flipped)
+        line.update(s=run["s"], recall=agg["pair_recall"], flipped=rec.ev.flipped,
+                    last_slack=rec.ev.last_slack, forwards=len(rec.calls), max_err_vs_dense=max(errs),
+                    launches={k: run["counts"][k] for k in names},
+                    model_time_ms=agg["model_time"] * 1e3, data_time_ms=agg["data_time"] * 1e3)
+        check_launched(run["counts"], names, "3DMatch CLI")
+        check(max(errs) <= 1e-3, f"3DMatch CLI: fused against dense {max(errs):.3e} > 1e-3")
+        check(agg["pair_recall"] >= 100.0 * (n_pairs - 1) / n_pairs - 1e-9,
+              f"3DMatch CLI: recall {agg['pair_recall']:.1f}%")
+
+        with recorded_cli_evaluators() as made, counted(torch, kernels) as run:
+            stats, agg = test_3DMatch.main(argv + ["--use_icp", "true"])
+        forwards = len(made[-1].calls)
+        nn = run["counts"]["nearest_neighbors"]
+        line.update(icp_s=run["s"], icp_recall=agg["pair_recall"], icp_nn_launches=nn)
+        check(stats.shape == (n_pairs, 12) and np.isfinite(stats).all(), "ICP run: bad stats")
+        check(os.path.exists("logs/smoke_3dmatch-SVD-fcgf-ICP.log"), "no ICP log written")
+        check(nn == 20 * forwards, f"ICP run: {nn} nn-search launches for {forwards} forwards")
+
+        write_lomatch_pickle(root, TEST_SCENE, poses)
+        with recorded_cli_evaluators() as made, counted(torch, kernels) as run:
+            stats, agg = test_3DLoMatch.main(argv + ["--num_corr", str(CLI_POINTS)])
+        errs = dense_errors(torch, dev, made[-1])
+        line.update(lomatch_s=run["s"], lomatch_recall=agg["pair_recall"],
+                    lomatch_max_err_vs_dense=max(errs))
+        check(stats.shape == (n_pairs, 12) and np.isfinite(stats).all(), "3DLoMatch: bad stats")
+        check(max(errs) <= 1e-3, f"3DLoMatch CLI: fused against dense {max(errs):.3e}")
+        check_launched(run["counts"], eval_kernels(CLI_POINTS, made[-1].ev.flipped), "3DLoMatch")
+
+        pred = os.path.join(tmp, "predator")
+        os.makedirs(pred, exist_ok=True)
+        gen = np.random.default_rng(5)
+        for p, (i, j) in enumerate(((0, 1), (2, 3))):
+            clouds = []
+            for pose in (poses[i], poses[j]):
+                sel = gen.choice(len(world), PREDATOR_POINTS, replace=False)
+                inv = np.linalg.inv(pose)
+                feat = _unit_rows(latents[sel] + 0.13 * gen.normal(size=(len(sel), 32)))
+                clouds.append((world[sel] @ inv[:3, :3].T + inv[:3, 3], feat))
+            write_predator_pair(os.path.join(pred, f"{p}.pth"), clouds[0][0], clouds[1][0],
+                                clouds[0][1], clouds[1][1], np.linalg.inv(poses[j]) @ poses[i],
+                                gen)
+        length = PredatorLoMatchDataset.__len__
+        PredatorLoMatchDataset.__len__ = lambda self: 2
+        try:
+            with recorded_cli_evaluators() as made, counted(torch, kernels) as run:
+                stats, agg = test_3DLoMatch.main(argv + ["--num_corr", str(CLI_POINTS),
+                                                         "--use_predator", "true",
+                                                         "--predator_root", pred])
+        finally:
+            PredatorLoMatchDataset.__len__ = length
+        errs = dense_errors(torch, dev, made[-1])
+        line.update(predator_s=run["s"], predator_recall=agg["pair_recall"],
+                    predator_max_err_vs_dense=max(errs))
+        check(stats.shape == (2, 12) and np.isfinite(stats).all(), "Predator: bad stats")
+        check(all(s["corr_pos"].shape[0] == CLI_POINTS for s, *_ in made[-1].pairs),
+              "Predator: not sampled to --num_corr")
+        check(max(errs) <= 1e-3, f"Predator CLI: fused against dense {max(errs):.3e}")
+    finally:
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def kitti_prep_and_eval(torch, kernels, dev, tmp, card) -> str:
+    """Phase 25: ``data/kitti_prep.py::process_kitti`` on the card over a fake
+    odometry drive (``write_fake_drive``: 4 frames of ~60k points, 8 m apart,
+    2 cm noise; pairs 0-1 and 2-3): ICP (200 iterations at a 5 cm voxel, the
+    nn-search kernel each) and FPFH at 0.30 m, written as ``fpfh_test``
+    pairs; then the KITTI CLI (``evaluation/test_KITTI``) with the
+    SyntheticKITTI release (root and descriptor overridden) at ``--num_node
+    12000`` (bucket 12288): each pair's transform equal to the dense forward
+    within 5e-3, or else within 0.25 deg and 5 cm of it with 98% of the
+    labels and the same verdict against the ground truth; the
+    configuration's kernels launched. Recall is printed, not required: FPFH
+    pairs leave the offset regime (ROADMAP C4). Returns the root of the
+    written pairs."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data import kitti_prep
+    from pointdsc_tpu_torch.evaluation import test_KITTI
+
+    start = time.perf_counter()
+    drive = os.path.join(tmp, "drive")
+    write_fake_drive(drive, drive=8, n_frames=DRIVE_FRAMES, n_points=DRIVE_POINTS)
+    split_dir = os.path.join(tmp, "kitti_splits")  # the test split's drive 8 alone
+    os.makedirs(split_dir, exist_ok=True)
+    with open(os.path.join(split_dir, "test_kitti.txt"), "w") as f:
+        f.write("8\n")
+    out = os.path.join(tmp, "kitti")
+    fpfh_calls, extract = [], kitti_prep.extract_fpfh
+
+    def extract_counted(points, **kw):
+        fpfh_calls.append(len(points))
+        return extract(points, **kw)
+
+    kitti_prep.extract_fpfh = extract_counted
+    try:
+        with counted(torch, kernels) as prep:
+            kitti_prep.process_kitti(drive, out, split="test", split_dir=split_dir, device=DEVICE)
+    finally:
+        kitti_prep.extract_fpfh = extract
+    names = sorted(os.listdir(os.path.join(out, "fpfh_test")))
+    n_pairs = DRIVE_FRAMES // 2
+    nn = prep["counts"]["nearest_neighbors"]
+    line = {"phase": "kitti_prep_and_cli", "card": card, "prep_s": prep["s"], "pairs": names,
+            "raw_points": fpfh_calls, "prep_nn_launches": nn}
+    check(names == [f"pair_8_{2 * i}_{2 * i + 1}.npz" for i in range(n_pairs)],
+          f"process_kitti wrote {names}")
+    check(nn == PREP_ICP_ITERS * n_pairs, f"process_kitti: {nn} nn-search launches")
+    check(len(fpfh_calls) == 2 * n_pairs, "process_kitti: FPFH not run for every cloud")
+    icp_moves = []
+    for name in names:
+        d = np.load(os.path.join(out, "fpfh_test", name))
+        check(all(np.isfinite(d[k]).all() for k in d.files) and d["features0"].shape[1] == 33,
+              f"{name}: bad pair file")
+        # ICP starts at the odometry's transform, 8 m along x
+        icp_moves.append(float(np.abs(d["gt_trans"][:3, 3] - [-8.0, 0, 0]).max()))
+        line.setdefault("keypoints", []).append([len(d["xyz0"]), len(d["xyz1"])])
+    line["icp_move_from_odometry_m"] = icp_moves
+    check(max(icp_moves) < 0.2, f"ICP moved {max(icp_moves):.3f} m from the odometry")
+
+    work = os.path.join(tmp, "work_kitti")
+    write_snapshot(work, "smoke_kitti", SNAPSHOT_KITTI, root=out, descriptor="fpfh")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with recorded_cli_evaluators() as made, counted(torch, kernels) as run:
+            stats, agg = test_KITTI.main(["--chosen_snapshot", "smoke_kitti", "--num_node",
+                                          str(KITTI_NODE), "--device", DEVICE])
+        rec = made[-1]
+        details = []
+        errs = dense_errors(torch, dev, rec, details)
+        names = eval_kernels(KITTI_NODE, rec.ev.flipped)
+        line.update(cli_s=run["s"], recall=agg["pair_recall"], flipped=rec.ev.flipped,
+                    last_slack=rec.ev.last_slack, max_err_vs_dense=errs, vs_dense=details,
+                    launches={k: run["counts"][k] for k in names},
+                    model_time_ms=agg["model_time"] * 1e3)
+        check(stats.shape == (n_pairs, 12) and np.isfinite(stats).all(), "KITTI CLI: bad stats")
+        check(all(s["corr_pos"].shape[0] == KITTI_NODE for s, *_ in rec.pairs),
+              "KITTI CLI: not --num_node correspondences")
+        check(os.path.exists("logs/smoke_kitti-SVD-fpfh-KITTI.log"), "no KITTI log written")
+        for i, (err, d) in enumerate(zip(errs, details)):
+            # within 5e-3, or else the same registration: these pairs' refinement
+            # has two inlier sets ~2 cm apart, and which one a path lands on
+            # turns on rounding, for the dense path on the CPU and on the card
+            # too (PERF.md, section 6)
+            verdicts = [r < 5.0 and t < 60.0 for r, t in (d["vs_gt_fused"], d["vs_gt_dense"])]
+            check(err <= 5e-3 or (d["re_deg"] <= 0.25 and d["te_cm"] <= 5.0
+                                  and d["labels"] >= 0.98 and verdicts[0] == verdicts[1]),
+                  f"KITTI CLI pair {i}: fused against dense {err:.3e}, {d}")
+        check_launched(run["counts"], names, "KITTI CLI")
+    finally:
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return out
+
+
+def training_clis(torch, pt, kernels, dev, tmp, card, kitti_pairs) -> dict:
+    """Phase 26: ``train_3DMatch.main`` on a fake training root
+    (``write_train_root``: 12 fragments of 3000 points, 66 pairs under a
+    packaged train and val scene) at the reference training shape (bs 16,
+    num_node 1000, 12 layers, C = 128, k = 40), ``--fused_attention true
+    --fused_sm_loss true --max_epoch 1``: 4 steps, every loss finite, the
+    five training kernels launched, ``config.json`` and
+    ``models/model_best.pkl`` written and the checkpoint through
+    ``load_pretrained`` and ``register`` on a validation sample. Then
+    ``train_KITTI.main`` for one epoch at bs 2 on phase 25's pairs (as its
+    train and val splits). Returns the launches of the 3DMatch run."""
+    import shutil
+
+    import numpy as np
+
+    from pointdsc_tpu_torch import train_3DMatch, train_KITTI
+    from pointdsc_tpu_torch.data.pipeline import pad_to_bucket
+    from pointdsc_tpu_torch.data.threedmatch import ThreeDMatchTrainVal
+    from pointdsc_tpu_torch.train.trainer import Trainer
+
+    start = time.perf_counter()
+    root = os.path.join(tmp, "train_3dmatch")
+    write_train_root(root, SPLIT_SCENES, n_frag=TRAIN_FRAGMENTS, n_pts=TRAIN_POINTS)
+    kroot = os.path.join(tmp, "train_kitti")
+    for split in ("train", "val"):
+        shutil.copytree(os.path.join(kitti_pairs, "fpfh_test"), os.path.join(kroot, f"fpfh_{split}"))
+    work = os.path.join(tmp, "work_train")
+    os.makedirs(work, exist_ok=True)
+    common = ["--fused_attention", "true", "--fused_sm_loss", "true", "--max_epoch", "1",
+              "--tboard_dir", "", "--num_workers", "4", "--val_max_iter", "2",
+              "--device", DEVICE]
+    steps, train_step = [], Trainer.train_step
+
+    def recording_step(self, state, batch, epoch):
+        state, metrics = train_step(self, state, batch, epoch)
+        steps.append({k: float(metrics[k]) for k in ("loss", "class_loss", "sm_loss",
+                                                     "grad_finite")})
+        return state, metrics
+
+    line = {"phase": "train_clis", "card": card}
+    cwd = os.getcwd()
+    os.chdir(work)
+    Trainer.train_step = recording_step
+    try:
+        snap = os.path.join(work, "snapshot", "smoke_train")
+        with counted(torch, kernels) as run:
+            state = train_3DMatch.main(["--root", root, "--snapshot_dir", snap,
+                                        "--batch_size", str(TRAIN_BS),
+                                        "--num_node", str(TRAIN_NODE)] + common)
+        n_pairs = TRAIN_FRAGMENTS * (TRAIN_FRAGMENTS - 1) // 2
+        want = n_pairs // TRAIN_BS
+        line.update(train_3dmatch_s=run["s"], steps=len(steps), losses=[s["loss"] for s in steps],
+                    launches={k: run["counts"][k] for k in TRAIN_KERNELS})
+        check(len(steps) == want and state.step == want, f"{len(steps)} steps, expected {want}")
+        check(all(np.isfinite(list(s.values())).all() and s["grad_finite"] == 1.0 for s in steps),
+              f"non-finite losses or gradients: {steps}")
+        check_launched(run["counts"], TRAIN_KERNELS, "train_3DMatch")
+        for rel in ("config.json", os.path.join("models", "model_best.pkl"), "trainer.py"):
+            check(os.path.exists(os.path.join(snap, rel)), f"train_3DMatch wrote no {rel}")
+        model = pt.load_pretrained(snap, device=DEVICE)
+        # register takes the kernels' shapes: the sample padded to its bucket
+        sample = pad_to_bucket(ThreeDMatchTrainVal(root, "val", num_node=TRAIN_NODE,
+                                                   device=DEVICE)[0])
+        out = pt.register(sample["corr_pos"], sample["src_keypts"], sample["tgt_keypts"],
+                          sample["mask"], model=model, device=DEVICE)
+        check(bool(torch.isfinite(out.final_trans).all()), "the trained snapshot: bad transform")
+
+        steps.clear()
+        ksnap = os.path.join(work, "snapshot", "smoke_train_kitti")
+        with counted(torch, kernels) as run:
+            state = train_KITTI.main(["--root", kroot, "--descriptor", "fpfh", "--batch_size", "2",
+                                      "--snapshot_dir", ksnap] + common)
+        line.update(train_kitti_s=run["s"], kitti_steps=len(steps),
+                    kitti_losses=[s["loss"] for s in steps])
+        want = len(os.listdir(os.path.join(kroot, "fpfh_train"))) // 2
+        check(len(steps) == want and all(np.isfinite(list(s.values())).all() for s in steps),
+              f"train_KITTI: steps {steps}, expected {want}")
+        check(os.path.exists(os.path.join(ksnap, "models", "model_best.pkl")),
+              "train_KITTI wrote no checkpoint")
+    finally:
+        Trainer.train_step = train_step
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2309,6 +2958,14 @@ def main() -> int:
     evaluator_with_icp(torch, pt, kernels, dev)
     icp_crossover(torch, dev)
     launches["compat_cache_int8_sym"] = symcache_experiment(kernels)
+
+    # 24-26. the dataset CLIs on fake roots in the reference's layouts
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset_eval_3dmatch(torch, kernels, dev, tmp, card)
+        kitti_pairs = kitti_prep_and_eval(torch, kernels, dev, tmp, card)
+        torch.set_grad_enabled(True)
+        training_clis(torch, pt, kernels, dev, tmp, card, kitti_pairs)
 
     for row in rows:
         row["launches"] = launches[row["name"]]
