@@ -130,6 +130,23 @@ limit):
      (66 pairs of 12 fragments), its checkpoint through ``load_pretrained``
      and ``register``; ``train_KITTI`` for one epoch at bs 2 on phase 25's
      pairs.
+Then the classical baselines (``baselines/classical.py``, ``native/``,
+``baseline_scripts/``) in the same directory (each line with the card and
+its seconds):
+ 27a. ``baseline_3DMatch`` at ``--num_node 2048`` on phase 24's 6 pairs with
+     SM, RANSAC, GCRANSAC (ICM and the exact native mincut), LS and PMC (the
+     native max clique), each on the CPU and then on the card: the card's
+     transform within 1e-4 of the CPU's (both draw one CPU generator's
+     sets), labels on >= 0.99 of the points (PMC's clique the same), recall
+     at least the CPU-set floor; the native libraries are built with g++
+     into ``_build/`` at their first use here;
+ 27b. ``baseline_KITTI`` on the card on phase 25's 2 pairs at ``--num_node
+     15000`` (SM, RANSAC, GCRANSAC, LS) and 2048 (PMC): recall, seconds a
+     pair, peak memory;
+ 27c. ``Evaluator(solver="RANSAC")``, without and with ICP, on phase 8's 3
+     pairs beside ``solver="SVD"`` (the default forward's kernels launched
+     every forward), and the 3DMatch evaluation CLI with ``--solver RANSAC``
+     on phase 24's scene.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -218,6 +235,18 @@ CLI_FRAGMENTS, CLI_POINTS, PREDATOR_POINTS = 4, 5000, 6000
 DRIVE_FRAMES, DRIVE_POINTS, KITTI_NODE = 4, 60_000, 12000
 PREP_ICP_ITERS = 200  # data/kitti_prep.py::process_kitti's ICP
 TRAIN_FRAGMENTS, TRAIN_POINTS = 12, 3000
+
+# phase 27, the classical baselines (baseline_scripts/): the 3DMatch CLI at
+# its default --num_node 2048 on phase 24's scene, on the card and on the CPU;
+# the KITTI CLI at its default 15000 on phase 25's pairs, PMC at 2048 (its
+# numpy step forms [N, N, 3] differences in float64: 5.4 GB at 15000)
+BASELINE_METHODS = (("SM", ()), ("RANSAC", ()), ("GCRANSAC", ("--gc_minimizer", "icm")),
+                    ("GCRANSAC", ("--gc_minimizer", "exact")), ("LS", ()), ("PMC", ()))
+BASELINE_NODE, BASELINE_KITTI_NODE, PMC_KITTI_NODE = 2048, 15000, 2048
+# 27a's recall floors (%), set from the port's CPU run of the same root
+# before the first card run (PERF.md, section 6)
+BASELINE_RECALL_FLOORS = {"SM": 100.0, "RANSAC": 100.0, "GCRANSAC icm": 100.0,
+                          "GCRANSAC exact": 100.0, "LS": 100.0, "PMC": 100.0}
 
 
 def _rot(axis, angle):
@@ -2810,6 +2839,209 @@ def training_clis(torch, pt, kernels, dev, tmp, card, kitti_pairs) -> dict:
     return line["launches"]
 
 
+@contextlib.contextmanager
+def recorded_pair_stats():
+    """Every (transform, labels) the baseline CLIs hand to
+    ``eval/protocol.py::pair_stats``, in order (the yielded list)."""
+    from pointdsc_tpu_torch.eval import protocol
+
+    seen, pair_stats = [], protocol.pair_stats
+
+    def recording(pred_trans, pred_labels, *args, **kwargs):
+        seen.append((pred_trans, pred_labels))
+        return pair_stats(pred_trans, pred_labels, *args, **kwargs)
+
+    protocol.pair_stats = recording
+    try:
+        yield seen
+    finally:
+        protocol.pair_stats = pair_stats
+
+
+def baseline_run(torch, kernels, main, argv, device):
+    """One baseline CLI run on ``device`` through ``main(argv)``: its stats,
+    aggregate, every pair's (transform, labels), the counts and seconds of
+    ``counted`` and the peak device memory (GiB, 0 on the CPU)."""
+    import numpy as np
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with recorded_pair_stats() as pairs, counted(torch, kernels) as run:
+        stats, agg = main(list(argv) + ["--device", device])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0
+    check(np.isfinite(stats).all() and len(pairs) == len(stats), f"{argv}: bad stats")
+    return dict(stats=stats, agg=agg, pairs=pairs, s=run["s"], counts=run["counts"], peak=peak)
+
+
+def baselines_3dmatch(torch, kernels, tmp, card) -> dict:
+    """Phase 27a: ``baseline_3DMatch.main`` at ``--num_node 2048`` on phase
+    24's scene (6 pairs), each method (SM, RANSAC, GCRANSAC with ICM and
+    with the exact mincut, LS, PMC) first with ``--device cpu`` and then on
+    the card: both draw RANSAC's sets from one CPU generator, so each pair's
+    transform on the card is the CPU's within 1e-4 and its labels agree on
+    >= 0.99 of the points (PMC: the same clique); recall at least the floor
+    the CPU run of this root set (BASELINE_RECALL_FLOORS); no kernel
+    launched. Prints each method's recall, seconds a pair (the CLI's
+    model_time) on both, and the card's peak memory."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.baseline_scripts import baseline_3DMatch
+
+    start = time.perf_counter()
+    work = os.path.join(tmp, "work_baselines")
+    os.makedirs(work, exist_ok=True)
+    root = os.path.join(tmp, "3dmatch")
+    cwd = os.getcwd()
+    os.chdir(work)
+    from pointdsc_tpu_torch import native
+
+    line = {"phase": "baselines_3dmatch", "card": card, "n": BASELINE_NODE, "methods": {},
+            "native_flags": " ".join(native.build_flags())}
+    try:
+        for method, extra in BASELINE_METHODS:
+            tag = " ".join([method] + list(extra[1:]))
+            argv = ["--method", method, "--root", root, "--num_node", str(BASELINE_NODE),
+                    *extra]
+            cpu = baseline_run(torch, kernels, baseline_3DMatch.main, argv, "cpu")
+            gpu = baseline_run(torch, kernels, baseline_3DMatch.main, argv, DEVICE)
+            terr = [float(np.abs(a[0] - b[0]).max()) for a, b in zip(gpu["pairs"], cpu["pairs"])]
+            agree = [float((a[1] == b[1]).mean()) for a, b in zip(gpu["pairs"], cpu["pairs"])]
+            launched = {k: v for k, v in gpu["counts"].items() if v}
+            res = dict(recall=gpu["agg"]["pair_recall"], cpu_recall=cpu["agg"]["pair_recall"],
+                       s_per_pair=float(gpu["stats"][:, 9].mean()),
+                       cpu_s_per_pair=float(cpu["stats"][:, 9].mean()),
+                       max_trans_err_vs_cpu=max(terr), min_label_agreement_vs_cpu=min(agree),
+                       peak_gib=gpu["peak"], run_s=gpu["s"], cpu_run_s=cpu["s"])
+            line["methods"][tag] = res
+            print(json.dumps({"phase": "baselines_3dmatch", "card": card, "method": tag, **res}),
+                  flush=True)
+            check(len(gpu["stats"]) == CLI_FRAGMENTS * (CLI_FRAGMENTS - 1) // 2,
+                  f"{tag}: {len(gpu['stats'])} pairs")
+            check(not launched, f"{tag}: launched kernels {launched}")
+            check(max(terr) <= 1e-4, f"{tag}: card against CPU {max(terr):.3e} > 1e-4")
+            check(min(agree) >= (1.0 if method == "PMC" else 0.99),
+                  f"{tag}: labels agree on {min(agree):.4f} of the points with the CPU's")
+            check(res["recall"] >= BASELINE_RECALL_FLOORS[tag] - 1e-9,
+                  f"{tag}: recall {res['recall']:.2f}% below {BASELINE_RECALL_FLOORS[tag]}%")
+    finally:
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def baselines_kitti(torch, kernels, tmp, card) -> dict:
+    """Phase 27b: ``baseline_KITTI.main`` on the card on phase 25's 2 FPFH
+    pairs (~27k keypoints a cloud), at its default ``--num_node 15000`` with
+    SM, RANSAC (4096 hypotheses), GCRANSAC (ICM) and LS, and PMC at 2048:
+    recall, seconds a pair and peak memory of each. Finite stats and no
+    kernel launched are required; recall is printed (FPFH pairs)."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.baseline_scripts import baseline_KITTI
+
+    start = time.perf_counter()
+    work = os.path.join(tmp, "work_baselines_kitti")
+    os.makedirs(work, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    line = {"phase": "baselines_kitti", "card": card, "methods": {}}
+    try:
+        for method in ("SM", "RANSAC", "GCRANSAC", "LS", "PMC"):
+            node = PMC_KITTI_NODE if method == "PMC" else BASELINE_KITTI_NODE
+            argv = ["--method", method, "--root", os.path.join(tmp, "kitti"), "--descriptor",
+                    "fpfh", "--num_node", str(node), "--save_npy", "true"]
+            run = baseline_run(torch, kernels, baseline_KITTI.main, argv, DEVICE)
+            launched = {k: v for k, v in run["counts"].items() if v}
+            n = [len(labels) for _, labels in run["pairs"]]
+            res = dict(n=node, correspondences=n, recall=run["agg"]["pair_recall"],
+                       s_per_pair=float(run["stats"][:, 9].mean()), peak_gib=run["peak"],
+                       run_s=run["s"], re=run["stats"][:, 1].tolist(),
+                       te_cm=run["stats"][:, 2].tolist())
+            line["methods"][method] = res
+            print(json.dumps({"phase": "baselines_kitti", "card": card, "method": method, **res}),
+                  flush=True)
+            check(len(run["stats"]) == DRIVE_FRAMES // 2 and np.isfinite(run["stats"]).all(),
+                  f"KITTI {method}: bad stats")
+            check(all(k == node for k in n), f"KITTI {method}: {n} correspondences, not {node}")
+            check(not launched, f"KITTI {method}: launched kernels {launched}")
+            check(os.path.exists(f"logs/baseline-kitti-{method}-fpfh.npy"), "no .npy written")
+    finally:
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def ransac_solver(torch, pt, kernels, dev, tmp, card) -> dict:
+    """Phase 27c: ``Evaluator(solver="RANSAC")``, without and with ICP, in the
+    default configuration on the three Synthetic pairs of phase 8 (N = 5120),
+    beside ``solver="SVD"``: recall, model_time, and the default forward's
+    kernels launched at least once a forward (the pairs and the bucket's
+    warm-up; with ICP the nn search 20 times a forward); each pair's RANSAC
+    transform against the SVD one. Then the 3DMatch evaluation CLI with
+    ``--solver RANSAC`` on phase 24's scene and snapshot: finite stats, the
+    log, the kernels launched, recall >= 5/6."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+    from pointdsc_tpu_torch.evaluation import test_3DMatch
+
+    start = time.perf_counter()
+    model = pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    ds = SyntheticPairDataset(num_pairs=PAIRS, num_corr=N, **DEFAULT_DATA)
+    line = {"phase": "ransac_solver", "card": card, "n": N, "pairs": PAIRS}
+    trans = {}
+    for solver, icp in (("SVD", False), ("RANSAC", False), ("RANSAC", True)):
+        tag = solver + (" + ICP" if icp else "")
+        rec = Recorded(pt.Evaluator(model, fused_attention=True, solver=solver, use_icp=icp,
+                                    icp_threshold=0.1, device=DEVICE))
+        with counted(torch, kernels) as run:
+            stats, agg = rec.ev.run_dataset(ds, verbose=False)
+        forwards = len(rec.calls)
+        names = eval_kernels(N, rec.ev.flipped) + (("nearest_neighbors",) if icp else ())
+        trans[tag] = [t[0].cpu().numpy() for t, _ in rec.calls[-PAIRS:]]
+        line[tag] = dict(recall=agg["pair_recall"], re=agg["re"], te=agg["te"],
+                         model_time_ms=agg["model_time"] * 1e3, forwards=forwards,
+                         flipped=rec.ev.flipped,
+                         launches={k: run["counts"][k] for k in names})
+        check(stats.shape == (PAIRS, 12) and np.isfinite(stats).all(), f"{tag}: bad stats")
+        short = [k for k in names if run["counts"][k] < forwards]
+        check(not short, f"{tag}: launched less than once a forward: {short}")
+        if icp:
+            nn = run["counts"]["nearest_neighbors"]
+            check(nn == 20 * forwards, f"{tag}: {nn} nn-search launches for {forwards} forwards")
+    for tag in ("RANSAC", "RANSAC + ICP"):
+        line[tag]["max_diff_vs_svd"] = [float(np.abs(a - b).max())
+                                        for a, b in zip(trans[tag], trans["SVD"])]
+        check(line[tag]["recall"] >= line["SVD"]["recall"],
+              f"{tag}: recall {line[tag]['recall']} below SVD's {line['SVD']['recall']}")
+
+    work = os.path.join(tmp, "work_3dmatch")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        n_pairs = CLI_FRAGMENTS * (CLI_FRAGMENTS - 1) // 2
+        with recorded_cli_evaluators() as made, counted(torch, kernels) as run:
+            stats, agg = test_3DMatch.main(["--chosen_snapshot", "smoke_3dmatch", "--device",
+                                            DEVICE, "--solver", "RANSAC"])
+        rec = made[-1]
+        names = eval_kernels(CLI_POINTS, rec.ev.flipped)
+        line["cli"] = dict(s=run["s"], recall=agg["pair_recall"], flipped=rec.ev.flipped,
+                           model_time_ms=agg["model_time"] * 1e3,
+                           launches={k: run["counts"][k] for k in names})
+        check(stats.shape == (n_pairs, 12) and np.isfinite(stats).all(), "RANSAC CLI: bad stats")
+        check(os.path.exists("logs/smoke_3dmatch-RANSAC-fcgf.log"), "no RANSAC log written")
+        check_launched(run["counts"], names, "RANSAC CLI")
+        check(agg["pair_recall"] >= 100.0 * (n_pairs - 1) / n_pairs - 1e-9,
+              f"RANSAC CLI: recall {agg['pair_recall']:.1f}%")
+    finally:
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -2966,6 +3198,12 @@ def main() -> int:
         kitti_pairs = kitti_prep_and_eval(torch, kernels, dev, tmp, card)
         torch.set_grad_enabled(True)
         training_clis(torch, pt, kernels, dev, tmp, card, kitti_pairs)
+
+        # 27. the classical baselines and the RANSAC solver
+        torch.set_grad_enabled(False)
+        baselines_3dmatch(torch, kernels, tmp, card)
+        baselines_kitti(torch, kernels, tmp, card)
+        ransac_solver(torch, pt, kernels, dev, tmp, card)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

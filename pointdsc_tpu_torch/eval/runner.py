@@ -10,10 +10,12 @@ With ``fused_attention`` and a model that runs the offset softmax, the
 Evaluator guards its validity regime (models/regime.py): it probes the first
 three pairs and the first pair of every bucket, and switches to the
 running-max kernel before any timed forward once a probe leaves the regime.
-With ``use_icp`` the model's transform is polished by point-to-point ICP on
-the correspondence keypoint clouds (ops/icp.py, the nearest-neighbour kernel
-once per iteration for the whole batch), inside ``model_time`` as it is
-inside the JAX package's jitted forward.
+With ``solver="RANSAC"`` the transform is re-solved by the RANSAC baseline
+(baselines/classical.py) on the inliers the model labelled, and with
+``use_icp`` it is then polished by point-to-point ICP on the correspondence
+keypoint clouds (ops/icp.py, the nearest-neighbour kernel once per iteration
+for the whole batch); both inside ``model_time``, as they are inside the JAX
+package's jitted forward.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from pointdsc_tpu_torch._device import resolve_device
+from pointdsc_tpu_torch.baselines.classical import ransac_registration
 from pointdsc_tpu_torch.data.pipeline import pad_to_bucket
 from pointdsc_tpu_torch.eval.protocol import aggregate_stats, pair_stats
 from pointdsc_tpu_torch.models.pointdsc import PointDSC
@@ -34,16 +37,16 @@ class Evaluator:
     def __init__(self, model: PointDSC, re_thre=15.0, te_thre=30.0, use_icp: bool = False,
                  icp_threshold: float = 0.10, fused_attention: bool = False,
                  solver: str = "SVD", sp_mesh=None, device: str | torch.device = "cuda"):
-        """solver='SVD' uses the model's transform; ``use_icp`` polishes it
-        by ICP with ``icp_threshold`` as the correspondence distance. The
-        model carries its weights and must live on ``device``. Not ported
-        yet, and refused: solver='RANSAC' (needs baselines/classical.py),
-        sp_mesh (parallel/seq_parallel.py)."""
-        if solver == "RANSAC":
-            raise NotImplementedError(
-                "solver='RANSAC' needs baselines/classical.py::ransac_registration, "
-                "which is not ported")
-        if solver != "SVD":
+        """solver='SVD' uses the model's transform; solver='RANSAC' re-solves
+        it by ``ransac_registration`` on the points the model labelled
+        inliers (4096 hypotheses from a generator seeded 51 afresh on every
+        forward, ``icp_threshold`` as the inlier threshold; the reference's
+        test_3DMatch.py:59-77 runs Open3D's RANSAC there). ``use_icp`` then
+        polishes the transform by ICP with ``icp_threshold`` as the
+        correspondence distance. The model carries its weights and must live
+        on ``device``. Not ported yet, and refused: sp_mesh
+        (parallel/seq_parallel.py)."""
+        if solver not in ("SVD", "RANSAC"):
             raise ValueError(f"unknown solver {solver!r}")
         if sp_mesh is not None:
             raise NotImplementedError(
@@ -54,6 +57,7 @@ class Evaluator:
         self.re_thre = re_thre
         self.te_thre = te_thre
         self._fused_attention = fused_attention
+        self._solver = solver
         self._use_icp = use_icp
         self._icp_threshold = icp_threshold
         # the bound's slack depends on the pair, so the guard probes the first
@@ -68,6 +72,11 @@ class Evaluator:
         out = self.model(corr_pos, src_keypts, tgt_keypts, mask=mask, testing=True,
                          fused=self._fused_attention)
         trans = out.final_trans
+        if self._solver == "RANSAC":
+            trans, _ = ransac_registration(
+                src_keypts, tgt_keypts, torch.Generator().manual_seed(51),
+                inlier_threshold=self._icp_threshold, num_hypotheses=4096,
+                mask=(out.final_labels > 0) & mask)
         if self._use_icp:
             # ICP polish on the correspondence keypoint clouds (reference
             # icp_refine, benchmark_utils.py:40-56), every batch row at once

@@ -23,7 +23,9 @@ def parser(description: str, solver: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--chosen_snapshot", default="", type=str)
     if solver:
-        p.add_argument("--solver", default="SVD", type=str, choices=["SVD", "RANSAC"])
+        p.add_argument("--solver", default="SVD", type=str, choices=["SVD", "RANSAC"],
+                       help="SVD: the model's transform; RANSAC: re-solved by the RANSAC "
+                            "baseline on the model's inliers (4096 hypotheses)")
         p.add_argument("--use_icp", default=False, type=str2bool)
     p.add_argument("--save_npy", default=False, type=str2bool)
     p.add_argument("--fused_attention", default="auto", choices=["auto", "true", "false"],

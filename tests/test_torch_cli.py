@@ -15,8 +15,9 @@ Held:
     the rotation's trace into ~0.03 deg: both packages' transforms are
     float32);
   * the log and ``.npy`` names are the JAX CLI's;
-  * ``--solver RANSAC``, ``--sharded`` and ``--sp`` raise NotImplementedError,
-    and a CLI left at ``--device cuda`` raises without a card;
+  * ``--solver RANSAC`` runs, its stats the Evaluator's with the RANSAC
+    solver; ``--sharded`` and ``--sp`` raise NotImplementedError, and a CLI
+    left at ``--device cuda`` raises without a card;
   * the train CLIs write a ``config.json`` that both packages' ``Config.load``
     read to the same fields, the source copies, and a checkpoint that
     ``load_model_weights`` reads; their train Loader batches equal the JAX
@@ -198,6 +199,17 @@ def test_3dmatch_cli_fused_on_cpu(data, monkeypatch, capsys):
     np.testing.assert_allclose(fused[:, 2], dense[:, 2], atol=1e-2)
 
 
+def kitti_reference(data):
+    """The KITTI CLI's model config (the snapshot's with the outdoor
+    thresholds), snapshot and dataset at --num_node 400."""
+    cfg = t_config.Config.load("snapshot/ktest/config.json")
+    cfg.inlier_threshold, cfg.sigma_d, cfg.re_thre, cfg.te_thre = 0.6, 1.2, 5.0, 60.0
+    ds = t_kitti.KITTIDataset(data["kitti"], split="test", num_node=400,
+                              use_mutual=cfg.use_mutual, inlier_threshold=0.6, augment_axis=0,
+                              augment_rotation=0.0, augment_translation=0.0, device="cpu")
+    return cfg, "snapshot/ktest", ds
+
+
 def test_kitti_cli(data, monkeypatch):
     wd = workdir(data, "kitti", {"ktest": ("KITTI", data["kitti"])})
     monkeypatch.chdir(wd)
@@ -207,12 +219,7 @@ def test_kitti_cli(data, monkeypatch):
     name = "ktest-SVD-fcgf-KITTI"
     assert sorted(os.listdir("logs")) == [f"{name}.log", f"{name}.npy"]
 
-    cfg = t_config.Config.load("snapshot/ktest/config.json")
-    cfg.inlier_threshold, cfg.sigma_d, cfg.re_thre, cfg.te_thre = 0.6, 1.2, 5.0, 60.0
-    ds = t_kitti.KITTIDataset(data["kitti"], split="test", num_node=400,
-                              use_mutual=cfg.use_mutual, inlier_threshold=0.6, augment_axis=0,
-                              augment_rotation=0.0, augment_translation=0.0, device="cpu")
-    assert_same_as_evaluator(stats, cfg, "snapshot/ktest", ds)
+    assert_same_as_evaluator(stats, *kitti_reference(data))
 
     from evaluation.test_KITTI import main as jax_main
 
@@ -262,17 +269,33 @@ def refusal_dir(data):
 
 
 @pytest.mark.parametrize("cli,flag", REFUSED)
-def test_cli_refuses_unported(refusal_dir, monkeypatch, cli, flag):
-    """The Evaluator's NotImplementedErrors reach the user: RANSAC needs the
-    classical baselines, --sharded several cards, --sp the sequence-parallel
-    encoder (ROADMAP Queue A)."""
+def test_cli_refuses_unported(data, refusal_dir, monkeypatch, cli, flag):
+    """The Evaluator's NotImplementedErrors reach the user: --sharded needs
+    several cards, --sp the sequence-parallel encoder (ROADMAP Queue A).
+    ``--solver RANSAC``, refused until the classical baselines were ported,
+    now runs: its stats are the Evaluator's with the RANSAC solver, written
+    under the JAX CLI's log name."""
     monkeypatch.chdir(refusal_dir)
     main, snap, extra = CLIS[cli]
     argv = ["--chosen_snapshot", snap, "--device", "cpu"] + extra
     argv += {"RANSAC": ["--solver", "RANSAC"], "sharded": ["--sharded", "true"],
              "sp": ["--sp", "true"]}[flag]
-    with pytest.raises(NotImplementedError):
-        main(argv)
+    if flag != "RANSAC":
+        with pytest.raises(NotImplementedError):
+            main(argv)
+        return
+    stats, agg = main(argv)
+    if cli == "3DMatch":
+        log = "logs/itest-RANSAC-fcgf.log"
+        cfg = t_config.Config.load("snapshot/itest/config.json")
+        ds = t_3dm.ThreeDMatchTest(data["3dmatch"], device="cpu")
+        assert_same_as_evaluator(stats, cfg, "snapshot/itest", ds, scene_of=ds.scene_of,
+                                 solver="RANSAC")
+    else:
+        log = "logs/ktest-RANSAC-fcgf-KITTI.log"
+        assert_same_as_evaluator(stats, *kitti_reference(data), solver="RANSAC")
+    assert os.path.exists(log) and stats.shape == (3, 12) and np.isfinite(stats).all()
+    assert agg["pair_recall"] >= 200 / 3
 
 
 @pytest.mark.parametrize("cli", list(CLIS) + ["train_3DMatch", "train_KITTI"])

@@ -277,13 +277,28 @@ def test_evaluator_second_pair_violation_flips(small):
 
 @pytest.mark.parametrize("kw", [{"solver": "RANSAC"}, {"solver": "RANSAC", "use_icp": True},
                                 {"sp_mesh": object()}])
-def test_evaluator_refuses_what_is_not_ported(kw):
-    """RANSAC and the sequence-parallel mesh raise, naming the module they
-    need, with or without ICP (which is ported)."""
-    model = PointDSC(num_layers=1, num_channels=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="classical|seq_parallel"):
-        Evaluator(model, device="cpu", **kw)
-    Evaluator(model, device="cpu", use_icp=True, icp_threshold=0.2)
+def test_evaluator_refuses_what_is_not_ported(small, kw):
+    """The sequence-parallel mesh raises, naming the module it needs.
+    solver='RANSAC', refused until the classical baselines were ported, now
+    runs, with or without ICP: it registers the pair and re-solves the
+    model's transform by RANSAC on the model's inliers (4096 hypotheses from
+    a generator seeded 51 on every forward, so a second run is the same)."""
+    if "sp_mesh" in kw:
+        model = PointDSC(num_layers=1, num_channels=16, device="cpu")
+        with pytest.raises(NotImplementedError, match="seq_parallel"):
+            Evaluator(model, device="cpu", **kw)
+        Evaluator(model, device="cpu", use_icp=True, icp_threshold=0.2)
+        return
+    _, sv, s = small
+    model = to_torch_model(sv, num_layers=3, k=20)
+    ev = Evaluator(model, device="cpu", icp_threshold=0.1, **kw)
+    row, trans = ev.run_pair(dict(s))
+    again, trans2 = ev.run_pair(dict(s))
+    assert row[0] == 1.0 and np.array_equal(trans, trans2)
+    assert np.array_equal(row[:9], again[:9])
+    _, svd = Evaluator(model, device="cpu", icp_threshold=0.1,
+                       use_icp=kw.get("use_icp", False)).run_pair(dict(s))
+    assert np.abs(trans - svd).max() < 0.05 and trans.shape == (4, 4)
 
 
 def test_evaluator_refuses_sharded_and_unknown_solver():

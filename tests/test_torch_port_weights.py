@@ -156,7 +156,9 @@ def test_port_imports_no_jax():
         "             'tools.train_synthetic', 'tools.profile_train_step',\n"
         "             'kernels.nn_search', 'kernels.symcache', 'ops.icp', 'ops.matching',\n"
         "             'descriptors.fpfh', 'data.ply', 'tools.demo_registration',\n"
-        "             'tools.exp_symcache'):\n"
+        "             'tools.exp_symcache', 'native', 'baselines.classical',\n"
+        "             'baseline_scripts._runner', 'baseline_scripts.baseline_3DMatch',\n"
+        "             'baseline_scripts.baseline_KITTI'):\n"
         "    assert 'pointdsc_tpu_torch.' + name in names, name\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
@@ -186,7 +188,9 @@ def test_port_sources_name_no_jax():
                  "utils/logging.py", "utils/seed.py", "tools/train_synthetic.py",
                  "tools/profile_train_step.py", "kernels/nn_search.py", "kernels/symcache.py",
                  "ops/icp.py", "ops/matching.py", "descriptors/fpfh.py", "data/ply.py",
-                 "tools/demo_registration.py", "tools/exp_symcache.py"):
+                 "tools/demo_registration.py", "tools/exp_symcache.py", "native/__init__.py",
+                 "baselines/classical.py", "baseline_scripts/_runner.py",
+                 "baseline_scripts/baseline_3DMatch.py", "baseline_scripts/baseline_KITTI.py"):
         assert name in rel, name
     bad = []
     for path in files:
