@@ -147,6 +147,22 @@ its seconds):
      pairs beside ``solver="SVD"`` (the default forward's kernels launched
      every forward), and the 3DMatch evaluation CLI with ``--solver RANSAC``
      on phase 24's scene.
+Then multiway registration and RGB-D fusion (``fusion/``, ``multiway/``,
+``data/redwood.py``, ``data/png.py``) in the same directory:
+ 28. ``multiway/make_fragments`` on a 640 x 480 RGB-D sequence the script
+     renders and writes as PNGs with zlib alone (a textured box room, a
+     smooth handheld path, 30 frames, 10 a fragment: the reference's 100
+     cut), hybrid RGB-D odometry, the TSDF at 256^3 x 8 mm, FPFH on the
+     card: the layout, the odometry against the truth, the surface points'
+     distance to the true surfaces, both odometries and one TSDF
+     integration on the card against the CPU, the stages timed;
+ 29. ``multiway/test_multi_ate`` with ICP at --num_node 20000 on 5 fake
+     Redwood fragments (bucket 20480: 7b / 7c, the symmetric cache, then
+     multi-scale ICP and the pose graph with the nn-search kernel): the ATE,
+     the kept edges, the nn-search launches, pair 0 against the dense path,
+     the forward at 20480 timed; ``test_multi`` at 5000 (bucket 5120, 7a):
+     recall, every pair against the dense path; ``test_multi_ate`` on phase
+     28's fragments with the true poses.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -247,6 +263,27 @@ BASELINE_NODE, BASELINE_KITTI_NODE, PMC_KITTI_NODE = 2048, 15000, 2048
 # before the first card run (PERF.md, section 6)
 BASELINE_RECALL_FLOORS = {"SM": 100.0, "RANSAC": 100.0, "GCRANSAC icm": 100.0,
                           "GCRANSAC exact": 100.0, "LS": 100.0, "PMC": 100.0}
+
+# phase 28, RGB-D fusion: a 640 x 480 sequence rendered by the script
+# (PrimeSense intrinsics), fragments of RGBD_PER_FRAGMENT frames (the
+# reference's 100 cut to 10); the TSDF at its default 256^3 x 8 mm
+RGBD_FRAMES, RGBD_PER_FRAGMENT = 30, 10
+RGBD_SIZE = (640, 480)
+RGBD_SCENE = "office2-simulated"
+# phase 29, the multiway CLIs on fake Redwood scenes of shared-latent
+# fragments: REDWOOD_POINTS of a REDWOOD_WORLD-point world, so that
+# test_multi_ate's default --num_node 20000 gives ~18.2k mutual matches
+# (bucket 20480); test_multi's default 5000 on MULTI_POINTS of MULTI_WORLD
+# (~4.5k, bucket 5120)
+REDWOOD_SCENE, MULTI_SCENE = "livingroom1-simulated", "office1-simulated"
+REDWOOD_FRAGMENTS, REDWOOD_POINTS, REDWOOD_WORLD = 5, 20500, 22000
+MULTI_POINTS, MULTI_WORLD = 5100, 5500
+ATE_NODE, MULTI_NODE = 20000, 5000
+# floors set from the port's CPU rehearsal of the same functions at reduced
+# size before the first card run (PERF.md, section 6)
+ODOMETRY_CEIL_DEG, ODOMETRY_CEIL_CM = 1.0, 2.0
+SURFACE_MEDIAN_CEIL_MM, SURFACE_P95_CEIL_MM = 5.0, 20.0
+REDWOOD_ATE_CEIL_CM, RGBD_ATE_CEIL_CM, MULTI_RECALL_FLOOR = 2.0, 5.0, 90.0
 
 
 def _rot(axis, angle):
@@ -530,6 +567,172 @@ def write_fake_drive(root, drive=8, n_frames=4, n_points=60_000, spacing=8.0, no
         scan = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1).astype(np.float32)
         scan.tofile(os.path.join(velo_dir, f"{i:06d}.bin"))
     np.savetxt(os.path.join(root, "poses", f"{drive:02d}.txt"), np.array(rows))
+
+
+# phase 28's room, (lo, hi) corners in metres (x right, y down, z forward from
+# the first camera): its walls seen from the inside, and solid boxes in it
+RGBD_ROOM = ((-1.6, -1.2, -0.2), (1.6, 1.3, 3.4))
+RGBD_BOXES = (((-0.9, 0.6, 1.6), (-0.3, 1.3, 2.2)), ((0.2, 0.9, 2.2), (0.8, 1.3, 2.8)),
+              ((0.6, -0.2, 2.6), (1.2, 0.5, 3.4)), ((-1.6, 0.2, 2.4), (-1.1, 1.3, 3.0)))
+
+
+def rgbd_path(n_frames):
+    """Camera -> world poses of a smooth handheld path through the room:
+    ~1.3 cm and ~0.45 deg a frame, looking 10-13 deg down."""
+    import numpy as np
+
+    poses = []
+    for k in range(n_frames):
+        s = k / max(n_frames - 1, 1)
+        pose = np.eye(4)
+        pose[:3, :3] = (_rot([0, 1, 0], np.deg2rad(12.0 * s))
+                        @ _rot([1, 0, 0], np.deg2rad(-10.0 - 3.0 * np.sin(np.pi * s))))
+        pose[:3, 3] = [-0.2 + 0.35 * s, -0.05 * s, 0.3 + 0.15 * s]
+        poses.append(pose)
+    return poses
+
+
+def _slabs(o, d, lo, hi):
+    """Entry and exit ray parameters of the axis-aligned box (lo, hi)."""
+    import numpy as np
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (np.asarray(lo) - o) / d
+        t2 = (np.asarray(hi) - o) / d
+    return np.minimum(t1, t2).max(-1), np.maximum(t1, t2).min(-1)
+
+
+def render_rgbd(pose, width, height, fx, fy, cx, cy):
+    """Depth (metres along the optical axis) [H, W] and RGB uint8 [H, W, 3] of
+    the room seen from ``pose`` (camera -> world), ray cast against its
+    boxes; the intensity a smooth texture of the world point each pixel
+    sees."""
+    import numpy as np
+
+    uu, vv = np.meshgrid(np.arange(width), np.arange(height))
+    d_cam = np.stack([(uu - cx) / fx, (vv - cy) / fy, np.ones(uu.shape)], -1).reshape(-1, 3)
+    d = d_cam @ pose[:3, :3].T  # unit optical-axis component: t is the depth
+    o = pose[:3, 3]
+    t = _slabs(o, d, *RGBD_ROOM)[1]
+    for lo, hi in RGBD_BOXES:
+        t_in, t_out = _slabs(o, d, lo, hi)
+        t = np.where((t_in <= t_out) & (t_in > 1e-6) & (t_in < t), t_in, t)
+    x, y, z = (o + d * t[:, None]).T
+    inten = np.clip(0.5 + 0.18 * np.sin(9.0 * x + 3.1 * z) + 0.15 * np.cos(11.0 * y - 2.3 * x)
+                    + 0.1 * np.sin(17.0 * z + 5.0 * y) + 0.06 * np.sin(31 * x + 29 * y + 23 * z),
+                    0.02, 0.98)
+    rgb = np.stack([inten, 0.8 * inten + 0.1, 1.0 - 0.7 * inten], -1)
+    return (t.reshape(height, width),
+            (rgb.reshape(height, width, 3) * 255.0 + 0.5).astype(np.uint8))
+
+
+def room_distance(p):
+    """Distance of world points [N, 3] to the nearest true surface of the room."""
+    import numpy as np
+
+    lo, hi = (np.asarray(c) for c in RGBD_ROOM)
+    dist = np.minimum(np.abs(p - lo), np.abs(hi - p)).min(-1)
+    for lo, hi in RGBD_BOXES:
+        lo, hi = np.asarray(lo), np.asarray(hi)
+        q = np.abs(p - (lo + hi) / 2) - (hi - lo) / 2
+        sdf = np.linalg.norm(np.maximum(q, 0.0), axis=-1) + np.minimum(q.max(-1), 0.0)
+        dist = np.minimum(dist, np.abs(sdf))
+    return dist
+
+
+def png_bytes(img, paeth=False):
+    """A PNG of uint8 / uint16 [H, W] or [H, W, 3], written with zlib alone
+    (the card's machine has no PIL): every row Up-filtered, or Paeth."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    raw = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">"))).view(np.uint8)
+    raw = raw.reshape(h, -1).astype(np.int16)
+    bpp = ch * img.dtype.itemsize
+    b = np.vstack([np.zeros_like(raw[:1]), raw[:-1]])  # the row above
+    pred, ftype = b, 2
+    if paeth:
+        a = np.hstack([np.zeros_like(raw[:, :bpp]), raw[:, :-bpp]])  # the pixel to the left
+        c = np.hstack([np.zeros_like(b[:, :bpp]), b[:, :-bpp]])
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        ftype = 4
+    rows = np.hstack([np.full((h, 1), ftype), (raw - pred) & 0xFF]).astype(np.uint8)
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    color = {1: 0, 3: 2}[ch]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8 * img.dtype.itemsize, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_rgbd_sequence(scene_dir, n_frames, width, height):
+    """``depth/%06d.png`` (16-bit millimetres) and ``image/%06d.png`` (RGB) of
+    ``render_rgbd`` along ``rgbd_path``, PrimeSense intrinsics scaled to the
+    size. Returns the camera -> world poses."""
+    import numpy as np
+
+    fx = 525.0 * width / 640.0
+    cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
+    poses = rgbd_path(n_frames)
+    for sub in ("depth", "image"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    for k, pose in enumerate(poses):
+        depth, rgb = render_rgbd(pose, width, height, fx, fx, cx, cy)
+        mm = np.clip(np.round(depth * 1000.0), 0, 65535).astype(np.uint16)
+        with open(os.path.join(scene_dir, "depth", f"{k:06d}.png"), "wb") as f:
+            f.write(png_bytes(mm))
+        with open(os.path.join(scene_dir, "image", f"{k:06d}.png"), "wb") as f:
+            f.write(png_bytes(rgb, paeth=True))
+    return poses
+
+
+def write_redwood_scene(root, scene, n_frag, n_pts, n_world, seed, feat_noise=0.05,
+                        moved=0.4):
+    """A Redwood scene of ``scene_fragments``-like fragments in the reference
+    layout (``<scene>/fragments/fragment_%03d_fpfh.npz`` with xyz and 32-d
+    features from shared latents, ``fragment_%03d.npy`` poses fragment ->
+    world): each fragment ``n_pts`` of one ``n_world``-point 3 m cube, seen
+    from a chain of random 10-25 deg turns and 0.3 m steps, 2 mm noise. A
+    ``moved`` share of each fragment's points sits at a random place of the
+    cube: its descriptor still matches its twin's, mutually, so a pair holds
+    ~(1 - moved)^2 inliers (36%) among nearly as many mutual matches as
+    points. (With every point in place, 99% inliers, the Synthetic snapshot
+    leaves the offset softmax's regime by thousands of nats; at 36% its
+    slack measured 19-27 nats at N = 5120 and 12288 on the CPU.) Returns the
+    poses."""
+    import numpy as np
+
+    gen = np.random.default_rng(seed)
+    world = gen.uniform(0, 3.0, (n_world, 3))
+    latents = _unit_rows(gen.normal(size=(n_world, 32)))
+    poses = [np.eye(4)]
+    for _ in range(n_frag - 1):
+        step = np.eye(4)
+        step[:3, :3] = _rot(gen.normal(size=3), np.deg2rad(gen.uniform(10, 25)))
+        step[:3, 3] = 0.3 * _unit_rows(gen.normal(size=(1, 3)))[0]
+        poses.append(poses[-1] @ step)
+    frag_dir = os.path.join(root, scene, "fragments")
+    os.makedirs(frag_dir, exist_ok=True)
+    for i, pose in enumerate(poses):
+        sel = gen.choice(n_world, n_pts, replace=False)
+        inv = np.linalg.inv(pose)
+        pts = world[sel].copy()
+        away = gen.random(n_pts) < moved
+        pts[away] = gen.uniform(0, 3.0, (int(away.sum()), 3))
+        local = pts @ inv[:3, :3].T + inv[:3, 3] + gen.normal(scale=0.002, size=(n_pts, 3))
+        feat = _unit_rows(latents[sel] + feat_noise * gen.normal(size=(n_pts, 32)))
+        np.savez(os.path.join(frag_dir, f"fragment_{i:03d}_fpfh.npz"),
+                 xyz=local.astype(np.float32), feature=feat.astype(np.float32))
+        np.save(os.path.join(frag_dir, f"fragment_{i:03d}.npy"), pose)
+    return poses
 
 
 def check(ok, message: str) -> None:
@@ -3042,6 +3245,366 @@ def ransac_solver(torch, pt, kernels, dev, tmp, card) -> dict:
     return line
 
 
+@contextlib.contextmanager
+def timed_calls(owner, name, sink):
+    """Seconds of every call of ``owner.<name>`` appended to ``sink`` (host
+    clock, closed by a synchronise on the card)."""
+    import torch
+
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        sink.append(time.perf_counter() - start)
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield sink
+    finally:
+        setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def patched(owner, name, replacement):
+    fn = getattr(owner, name)
+    setattr(owner, name, replacement)
+    try:
+        yield fn
+    finally:
+        setattr(owner, name, fn)
+
+
+def rgbd_fusion(torch, kernels, dev, tmp, card) -> str:
+    """Phase 28: ``multiway/make_fragments.main`` on an RGB-D sequence the
+    script renders (``write_rgbd_sequence``: RGBD_FRAMES frames of 640 x 480,
+    PrimeSense intrinsics, a textured box room with boxes in it, a smooth
+    handheld path; 16-bit depth PNGs, Paeth-filtered RGB PNGs, written with
+    zlib alone), RGBD_PER_FRAGMENT frames a fragment (the reference's 100,
+    cut), hybrid RGB-D tracking, the TSDF at its default 256^3 x 8 mm, FPFH on
+    the card: the written layout; each fragment's chained and pose-graph
+    optimized odometry against the rendered truth (deg, cm); the surface
+    points' distance to the true surfaces; ``depth_odometry`` and
+    ``rgbd_odometry`` on the card within 1e-6 of the same calls on the CPU,
+    one ``TSDFVolume.integrate`` at 256^3 equal to the CPU's on >= 99.99% of
+    the voxels (bit for bit in the first card run). The stages are timed. The fragments' ``.npy``
+    poses are then replaced by the true fragment -> world poses (phase 29
+    runs ``test_multi_ate`` on them). Returns the Redwood root."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.descriptors import fpfh
+    from pointdsc_tpu_torch.fusion import camera, fragments, odometry, tsdf
+    from pointdsc_tpu_torch.multiway import make_fragments
+
+    start = time.perf_counter()
+    width, height = RGBD_SIZE
+    root = os.path.join(tmp, "redwood_rgbd")
+    scene_dir = os.path.join(root, RGBD_SCENE)
+    truth = write_rgbd_sequence(scene_dir, RGBD_FRAMES, width, height)
+    line = {"phase": "rgbd_fusion", "card": card, "frames": RGBD_FRAMES, "size": [width, height],
+            "per_fragment": RGBD_PER_FRAGMENT, "cut": "n_frames_per_fragment 100 -> "
+            f"{RGBD_PER_FRAGMENT}", "render_s": time.perf_counter() - start}
+    built, times = [], {k: [] for k in ("odometry", "pose_graph", "integrate", "surface", "fpfh",
+                                        "read_depth", "read_color")}
+
+    def recording_build(*args, **kwargs):
+        out = build(*args, **kwargs)
+        built.append(out)
+        return out
+
+    with contextlib.ExitStack() as stack:
+        build = stack.enter_context(patched(fragments, "build_fragment", recording_build))
+        for owner, name, key in ((fragments, "rgbd_odometry", "odometry"),
+                                 (fragments, "optimize_pose_graph", "pose_graph"),
+                                 (tsdf.TSDFVolume, "integrate", "integrate"),
+                                 (fragments, "extract_surface_points", "surface"),
+                                 (fpfh, "extract_fpfh", "fpfh"),
+                                 (fragments, "read_depth_png", "read_depth"),
+                                 (fragments, "read_intensity_png", "read_color")):
+            stack.enter_context(timed_calls(owner, name, times[key]))
+        with counted(torch, kernels) as run:
+            out_dir = make_fragments.main(["--path_dataset", scene_dir, "--n_frames_per_fragment",
+                                           str(RGBD_PER_FRAGMENT), "--device", DEVICE])
+    n_frag = -(-RGBD_FRAMES // RGBD_PER_FRAGMENT)
+    line.update(make_fragments_s=run["s"], fusion_fps=RGBD_FRAMES / run["s"],
+                odometry_ms_per_pair=1e3 * float(np.median(times["odometry"])),
+                odometry_pairs=len(times["odometry"]), pose_graph_s=times["pose_graph"],
+                integrate_ms_per_frame=1e3 * float(np.median(times["integrate"])),
+                surface_s=times["surface"], fpfh_s=times["fpfh"],
+                png_ms_per_frame=[1e3 * float(np.median(times[k]))
+                                  for k in ("read_depth", "read_color")])
+    check(len(built) == n_frag, f"make_fragments built {len(built)} fragments, not {n_frag}")
+    check(out_dir == os.path.join(scene_dir, "fragments"), f"fragments written to {out_dir}")
+
+    # the layout the Redwood loader reads
+    names = sorted(os.listdir(out_dir))
+    want = sorted(f"fragment_{f:03d}{ext}" for f in range(n_frag)
+                  for ext in (".ply", ".npy", "_fpfh.npz"))
+    check(names == want, f"make_fragments wrote {names}")
+    keypoints = []
+    for f in range(n_frag):
+        d = np.load(os.path.join(out_dir, f"fragment_{f:03d}_fpfh.npz"))
+        keypoints.append(len(d["xyz"]))
+        check(d["feature"].shape == (len(d["xyz"]), 33) and np.isfinite(d["feature"]).all()
+              and len(d["xyz"]) > 1000, f"fragment {f}: bad FPFH file")
+        pose = np.load(os.path.join(out_dir, f"fragment_{f:03d}.npy"))
+        check(pose.shape == (4, 4) and np.isfinite(pose).all(), f"fragment {f}: bad pose")
+
+    # odometry and surfaces against the rendered truth
+    worst_deg = worst_cm = 0.0
+    dists = []
+    for f, (points, poses) in enumerate(built):
+        first = truth[f * RGBD_PER_FRAGMENT]
+        for k, est in enumerate(poses):
+            ref = np.linalg.inv(first) @ truth[f * RGBD_PER_FRAGMENT + k]
+            worst_deg = max(worst_deg, rot_error_deg(est, ref))
+            worst_cm = max(worst_cm, 100.0 * float(np.linalg.norm(est[:3, 3] - ref[:3, 3])))
+        dists.append(room_distance(points @ first[:3, :3].T + first[:3, 3]))
+    dist = np.concatenate(dists) * 1e3
+    line.update(surface_points=[len(p) for p, _ in built], keypoints=keypoints,
+                odometry_max_deg=worst_deg, odometry_max_cm=worst_cm,
+                surface_median_mm=float(np.median(dist)),
+                surface_p95_mm=float(np.percentile(dist, 95)))
+    check(worst_deg <= ODOMETRY_CEIL_DEG and worst_cm <= ODOMETRY_CEIL_CM,
+          f"odometry against the truth: {worst_deg:.3f} deg, {worst_cm:.3f} cm")
+    check(line["surface_median_mm"] <= SURFACE_MEDIAN_CEIL_MM
+          and line["surface_p95_mm"] <= SURFACE_P95_CEIL_MM,
+          f"surface points: median {line['surface_median_mm']:.2f} mm, 95% "
+          f"{line['surface_p95_mm']:.2f} mm from the true surfaces")
+
+    # the card against the CPU on frames 0 and 1
+    intr = camera.PinholeIntrinsics.primesense_default()
+    frames = [(fragments.read_intensity_png(os.path.join(scene_dir, "image", f"{k:06d}.png")),
+               fragments.read_depth_png(os.path.join(scene_dir, "depth", f"{k:06d}.png")))
+              for k in (0, 1)]
+    (i0, d0), (i1, d1) = frames
+    vs_cpu = {}
+    for name, call in (("depth_odometry", lambda device: odometry.depth_odometry(
+                            d0, d1, intr, device=device)),
+                       ("rgbd_odometry", lambda device: odometry.rgbd_odometry(
+                            i0, d0, i1, d1, intr, device=device))):
+        (t_card, f_card), (t_cpu, f_cpu) = call(DEVICE), call("cpu")
+        vs_cpu[name] = {"max_abs": float((t_card.cpu() - t_cpu).abs().max()),
+                        "frac": [float(f_card), float(f_cpu)]}
+        # the pixel associations round alike (fusion/camera.py); the 6x6
+        # sums and the solve do not, so the transforms agree to ~1e-8, not bitwise
+        check(vs_cpu[name]["max_abs"] <= 1e-6 and abs(float(f_card) - float(f_cpu)) <= 1e-3,
+              f"{name}: card against CPU {vs_cpu[name]}")
+    pts0, valid0 = camera.backproject_depth(torch.as_tensor(d0), intr)
+    pts0 = pts0[valid0].numpy()
+    origin = 0.5 * (pts0.min(0) + pts0.max(0)) - 0.5 * 256 * 0.008
+    pose1 = built[0][1][1]
+    vols = {}
+    for device in (DEVICE, "cpu"):
+        vols[device] = tsdf.TSDFVolume(origin=origin, device=device)
+        vols[device].integrate(d1, intr, pose1)
+    diff = (vols[DEVICE].tsdf.cpu() - vols["cpu"].tsdf).abs()
+    vs_cpu["tsdf_integrate"] = {
+        "voxels": diff.numel(), "bitwise_share": float((diff == 0).float().mean()),
+        "share_within_1e-6": float((diff <= 1e-6).float().mean()), "max_abs": float(diff.max()),
+        "weight_equal_share": float((vols[DEVICE].weight.cpu() == vols["cpu"].weight)
+                                    .float().mean()),
+        "updated_voxels": int((vols["cpu"].weight > 0).sum())}
+    line["card_vs_cpu"] = vs_cpu
+    check(vs_cpu["tsdf_integrate"]["share_within_1e-6"] >= 0.9999
+          and vs_cpu["tsdf_integrate"]["weight_equal_share"] >= 0.9999,
+          f"TSDF integrate: card against CPU {vs_cpu['tsdf_integrate']}")
+    del vols
+
+    for f in range(n_frag):  # the true fragment -> world poses, for phase 29
+        np.save(os.path.join(out_dir, f"fragment_{f:03d}.npy"), truth[f * RGBD_PER_FRAGMENT])
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return root
+
+
+def multiway_clis(torch, kernels, dev, tmp, card, rgbd_root) -> dict:
+    """Phase 29: the multiway CLIs through ``main(argv)`` on fake Redwood
+    scenes (``write_redwood_scene``) with a snapshot of the Synthetic
+    release. ``test_multi_ate --use_icp true --save_traj true`` at its default
+    --num_node 20000 on REDWOOD_FRAGMENTS fragments of REDWOOD_POINTS: every
+    pair's correspondences pad to 20480 (the split layer kernels 7b / 7c, the
+    symmetric cache), then multi-scale ICP (the nn-search kernel 94 times an
+    edge, once more for its information matrix, once a loop closure's
+    overlap gate) and the pose graph on the card; the ATE against its
+    ceiling, the kept and pruned edges, the trajectory file, one pair held
+    to the dense path (5e-3, or phase 25's rule for a bistable refinement)
+    and the first whole forward at 20480 timed. ``test_multi`` at its default
+    5000 on fragments of MULTI_POINTS (bucket 5120: the whole-layer kernel
+    7a): recall against its floor, each pair held to the dense path. Then
+    ``test_multi_ate`` on phase 28's fragments with the renderer's true
+    poses: the chain from RGB-D frames to an ATE."""
+    import io
+    import re
+
+    import numpy as np
+
+    from pointdsc_tpu_torch.data import pipeline
+    from pointdsc_tpu_torch.data.pipeline import bucket_size
+    from pointdsc_tpu_torch.eval.redwood_protocol import read_trajectory
+    from pointdsc_tpu_torch.kernels.sc_attention import use_symmetric_cache
+    from pointdsc_tpu_torch.multiway import registration, test_multi, test_multi_ate
+
+    start = time.perf_counter()
+    root = os.path.join(tmp, "redwood")
+    write_redwood_scene(root, REDWOOD_SCENE, REDWOOD_FRAGMENTS, REDWOOD_POINTS, REDWOOD_WORLD,
+                        seed=0)
+    write_redwood_scene(root, MULTI_SCENE, REDWOOD_FRAGMENTS, MULTI_POINTS, MULTI_WORLD, seed=1)
+    work = os.path.join(tmp, "work_redwood")
+    write_snapshot(work, "smoke_redwood", SNAPSHOT)
+    argv = ["--chosen_snapshot", "smoke_redwood", "--root", root, "--device", DEVICE]
+    n_pairs = REDWOOD_FRAGMENTS * (REDWOOD_FRAGMENTS - 1) // 2
+    line = {"phase": "multiway_clis", "card": card, "fragments": REDWOOD_FRAGMENTS,
+            "points": REDWOOD_POINTS, "num_node": ATE_NODE}
+    captured, samples, icp_s, graphs = {}, [], [], []
+
+    def capturing(model, dataset, fused, device):
+        t0 = time.perf_counter()
+        pairwise, model = register(model, dataset, fused, device)
+        captured.update(model=model, pairwise=pairwise, fused=fused,
+                        register_s=time.perf_counter() - t0)
+        return pairwise, model
+
+    def padding(sample, n_pad=None):
+        samples.append(sample)
+        return pad(sample, n_pad)
+
+    def optimizing(graph, **kw):
+        out = optimize(graph, **kw)
+        graphs.append([len(graph.edges), len(out.edges)])
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        buf = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            register = stack.enter_context(patched(test_multi_ate, "register_pairs", capturing))
+            pad = stack.enter_context(patched(pipeline, "pad_to_bucket", padding))
+            optimize = stack.enter_context(patched(registration, "optimize_pose_graph",
+                                                   optimizing))
+            stack.enter_context(timed_calls(registration, "multi_scale_icp", icp_s))
+            run = stack.enter_context(counted(torch, kernels))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            ates = test_multi_ate.main(argv + ["--scenes", REDWOOD_SCENE, "--num_node",
+                                               str(ATE_NODE), "--use_icp", "true",
+                                               "--save_traj", "true"])
+        print(buf.getvalue(), end="", flush=True)
+        model = captured["model"]
+        flipped = not model.offset_softmax
+        n_corr = [s["corr_pos"].shape[0] for s in samples]
+        buckets = sorted({bucket_size(n) for n in n_corr})
+        kept = int(re.search(r"\((\d+) edges kept\)", buf.getvalue()).group(1))
+        nn = run["counts"]["nearest_neighbors"]
+        loops = n_pairs - (REDWOOD_FRAGMENTS - 1)
+        line.update(ate_cm=ates[0], s=run["s"], n_corr=n_corr, buckets=buckets,
+                    symmetric_cache=use_symmetric_cache(buckets[-1]), flipped=flipped,
+                    edges_in_out=graphs, kept=kept, nn_launches=nn,
+                    icp_s_per_edge=icp_s, register_s=captured["register_s"],
+                    launches={k: run["counts"][k] for k in eval_kernels(buckets[-1], flipped)
+                              + ("nearest_neighbors",)})
+        print(f"test_multi_ate: correspondences {n_corr}, buckets {buckets}", flush=True)
+        check(len(ates) == 1 and np.isfinite(ates[0]) and ates[0] <= REDWOOD_ATE_CEIL_CM,
+              f"test_multi_ate: ATE {ates} cm")
+        check(buckets == [20480] and len(n_corr) == n_pairs, f"buckets {buckets} of {n_corr}")
+        check(kept >= REDWOOD_FRAGMENTS - 1 and len(graphs) == 2 and graphs[1][1] == kept,
+              f"kept edges {kept}, the pose graphs' edges in and out {graphs}")
+        check(nn == 95 * len(icp_s) + loops,
+              f"{nn} nn-search launches for {len(icp_s)} multi-scale ICP runs and {loops} loops")
+        check_launched(run["counts"], eval_kernels(buckets[-1], flipped) + ("nearest_neighbors",),
+                       "test_multi_ate")
+        check(flipped or line["symmetric_cache"], "20480 did not take the symmetric cache")
+        keys, traj = read_trajectory(os.path.join("logs", f"{REDWOOD_SCENE}_traj.log"))
+        check(traj.shape == (REDWOOD_FRAGMENTS, 4, 4) and np.isfinite(traj).all(),
+              "bad trajectory file")
+
+        # pair 0 against the dense path, and the forward at 20480 timed
+        padded = pipeline.pad_to_bucket(samples[0])
+        cp, src, tgt, mask = (torch.as_tensor(padded[k])[None].to(dev)
+                              for k in ("corr_pos", "src_keypts", "tgt_keypts", "mask"))
+        fused_out = model(cp, src, tgt, mask=mask, fused=True)
+        dense_out = model(cp, src, tgt, mask=mask, fused=False)
+        ft, dt = (o.final_trans[0].cpu().numpy() for o in (fused_out, dense_out))
+        n0 = n_corr[0]
+        gt = samples[0]["gt_trans"]
+        d = {"err": float(np.abs(ft - dt).max()), "re_deg": rot_error_deg(ft, dt),
+             "te_cm": 100 * float(np.linalg.norm(ft[:3, 3] - dt[:3, 3])),
+             "labels": float((fused_out.final_labels[0, :n0] == dense_out.final_labels[0, :n0])
+                             .float().mean()),
+             "same_as_cli": float(np.abs(ft - captured["pairwise"][(0, 1)]).max()),
+             "vs_gt": [rot_error_deg(ft, gt), rot_error_deg(dt, gt)]}
+        line["vs_dense"] = d
+        check(d["err"] <= 5e-3 or (d["re_deg"] <= 0.25 and d["te_cm"] <= 5.0
+                                   and d["labels"] >= 0.98),
+              f"test_multi_ate pair 0: fused against dense {d}")
+        line["forward_ms_20480"] = time_ms(lambda: model(cp, src, tgt, mask=mask, fused=True),
+                                           reps=5, warmup=1) if DEVICE == "cuda" else None
+        line["pose_graph_build"] = graphs
+
+        # test_multi at its default 5000
+        made = []
+
+        def recording_evaluator(*args, **kwargs):
+            ev = evaluator(*args, **kwargs)
+            rec = Recorded(ev)
+            rec.pairs = []
+            run_pair = ev.run_pair
+
+            def run_one(sample, scene_ind=0, data_time=0.0):
+                row, trans = run_pair(sample, scene_ind=scene_ind, data_time=data_time)
+                rec.pairs.append((sample, trans, rec.calls[-1][1]))
+                return row, trans
+
+            ev.run_pair = run_one
+            made.append(rec)
+            return ev
+
+        with patched(test_multi, "Evaluator", recording_evaluator) as evaluator, \
+                counted(torch, kernels) as run:
+            stats, agg = test_multi.main(argv + ["--scenes", MULTI_SCENE, "--num_node",
+                                                 str(MULTI_NODE)])
+        rec = made[-1]
+        details = []
+        errs = dense_errors(torch, dev, rec, details)
+        m_buckets = sorted({bucket_size(s["corr_pos"].shape[0]) for s, *_ in rec.pairs})
+        names = eval_kernels(m_buckets[-1], rec.ev.flipped)
+        line.update(multi_s=run["s"], multi_recall=agg["pair_recall"], multi_buckets=m_buckets,
+                    multi_flipped=rec.ev.flipped, multi_last_slack=rec.ev.last_slack,
+                    multi_max_err_vs_dense=max(errs),
+                    multi_model_time_ms=agg["model_time"] * 1e3,
+                    multi_data_time_ms=agg["data_time"] * 1e3,
+                    multi_launches={k: run["counts"][k] for k in names})
+        print(f"test_multi: buckets {m_buckets}", flush=True)
+        check(stats.shape == (n_pairs, 12) and np.isfinite(stats).all(), "test_multi: bad stats")
+        check(m_buckets == [5120], f"test_multi buckets {m_buckets}")
+        check(agg["pair_recall"] >= MULTI_RECALL_FLOOR, f"test_multi recall {agg['pair_recall']}")
+        for err, dd in zip(errs, details):
+            check(err <= 5e-3 or (dd["re_deg"] <= 0.25 and dd["te_cm"] <= 5.0
+                                  and dd["labels"] >= 0.98),
+                  f"test_multi: fused against dense {err:.3e}, {dd}")
+        check_launched(run["counts"], names, "test_multi")
+
+        # phase 28's fragments, with the renderer's true poses
+        with counted(torch, kernels) as run:
+            rgbd_ates = test_multi_ate.main(["--chosen_snapshot", "smoke_redwood", "--root",
+                                             rgbd_root, "--scenes", RGBD_SCENE, "--num_node",
+                                             str(MULTI_NODE), "--device", DEVICE])
+        line.update(rgbd_ate_cm=rgbd_ates[0], rgbd_s=run["s"],
+                    rgbd_nn_launches=run["counts"]["nearest_neighbors"])
+        check(np.isfinite(rgbd_ates[0]) and rgbd_ates[0] <= RGBD_ATE_CEIL_CM,
+              f"the RGB-D fragments' ATE {rgbd_ates[0]} cm")
+    finally:
+        os.chdir(cwd)
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -3204,6 +3767,10 @@ def main() -> int:
         baselines_3dmatch(torch, kernels, tmp, card)
         baselines_kitti(torch, kernels, tmp, card)
         ransac_solver(torch, pt, kernels, dev, tmp, card)
+
+        # 28-29. RGB-D fusion and the multiway CLIs
+        rgbd_root = rgbd_fusion(torch, kernels, dev, tmp, card)
+        multiway_clis(torch, kernels, dev, tmp, card, rgbd_root)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

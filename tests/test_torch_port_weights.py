@@ -142,7 +142,8 @@ def test_from_torch_reference_state_dict_matches_jax_importer(rng):
 
 def test_port_imports_no_jax():
     """Importing the port (every module of it) and chip_smoke.py pulls in
-    nothing of pointdsc_tpu, jax or flax."""
+    nothing of pointdsc_tpu, jax or flax, nor PIL (the card's machine has
+    no PIL: the RGB-D fragments' PNG frames go through data/png.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pointdsc_tpu_torch as pkg\n"
@@ -158,11 +159,16 @@ def test_port_imports_no_jax():
         "             'descriptors.fpfh', 'data.ply', 'tools.demo_registration',\n"
         "             'tools.exp_symcache', 'native', 'baselines.classical',\n"
         "             'baseline_scripts._runner', 'baseline_scripts.baseline_3DMatch',\n"
-        "             'baseline_scripts.baseline_KITTI'):\n"
+        "             'baseline_scripts.baseline_KITTI', 'ops.lie', 'multiway',\n"
+        "             'multiway.pose_graph', 'multiway.ate', 'multiway.registration',\n"
+        "             'multiway._cli', 'multiway.make_fragments', 'multiway.test_multi',\n"
+        "             'multiway.test_multi_ate', 'data.redwood', 'data.png',\n"
+        "             'eval.redwood_protocol', 'fusion', 'fusion.camera', 'fusion.odometry',\n"
+        "             'fusion.tsdf', 'fusion.fragments'):\n"
         "    assert 'pointdsc_tpu_torch.' + name in names, name\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('pointdsc_tpu', 'jax', 'jaxlib', 'flax'))\n"
+        "             if n.split('.')[0] in ('pointdsc_tpu', 'jax', 'jaxlib', 'flax', 'PIL'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
@@ -175,7 +181,8 @@ def test_port_imports_no_jax():
 def test_port_sources_name_no_jax():
     """No file of the package (tools included) nor chip_smoke.py names
     pointdsc_tpu, jax or flax in an import statement, even one that the
-    import test above never executes (inside a function, behind a flag)."""
+    import test above never executes (inside a function, behind a flag); PIL
+    only inside a function (``fusion/fragments.py``'s JPEG reader)."""
     forbidden = {"pointdsc_tpu", "jax", "jaxlib", "flax", "optax"}
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "pointdsc_tpu_torch")):
@@ -190,9 +197,15 @@ def test_port_sources_name_no_jax():
                  "ops/icp.py", "ops/matching.py", "descriptors/fpfh.py", "data/ply.py",
                  "tools/demo_registration.py", "tools/exp_symcache.py", "native/__init__.py",
                  "baselines/classical.py", "baseline_scripts/_runner.py",
-                 "baseline_scripts/baseline_3DMatch.py", "baseline_scripts/baseline_KITTI.py"):
+                 "baseline_scripts/baseline_3DMatch.py", "baseline_scripts/baseline_KITTI.py",
+                 "ops/lie.py", "multiway/pose_graph.py", "multiway/ate.py",
+                 "multiway/registration.py", "multiway/_cli.py", "multiway/make_fragments.py",
+                 "multiway/test_multi.py", "multiway/test_multi_ate.py", "data/redwood.py",
+                 "data/png.py", "eval/redwood_protocol.py", "fusion/camera.py",
+                 "fusion/odometry.py", "fusion/tsdf.py", "fusion/fragments.py"):
         assert name in rel, name
     bad = []
+    pil = []
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -205,7 +218,17 @@ def test_port_sources_name_no_jax():
                 continue
             bad += [(os.path.relpath(path, ROOT), n) for n in names
                     if n.split(".")[0] in forbidden]
+            if any(n.split(".")[0] == "PIL" for n in names):
+                pil.append((os.path.relpath(path, ROOT), node.lineno))
+        # PIL only inside a function: fusion/fragments.py's JPEG frames
+        for func in ast.walk(tree):
+            if isinstance(func, ast.FunctionDef):
+                lines = {n.lineno for n in ast.walk(func) if isinstance(n, (ast.Import,
+                                                                            ast.ImportFrom))}
+                pil = [(f, ln) for f, ln in pil
+                       if not (f == os.path.relpath(path, ROOT) and ln in lines)]
     assert not bad, bad
+    assert not pil, pil
 
 
 def test_full_f32_matmul_scopes_the_tf32_flags():
