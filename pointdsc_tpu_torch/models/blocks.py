@@ -77,6 +77,36 @@ class MaskedBatchNorm(nn.Module):
         return self.weight, self.bias, self.running_mean, self.running_var
 
 
+class ContextNorm(nn.Module):
+    """Per-set (instance) normalisation over the correspondence axis of
+    [B, N, C], parameter-free: (x - mean) / sqrt(var + epsilon) over the
+    valid entries of ``mask`` [B, N].
+
+    The reference has two variance conventions: its ``ContextNormalization``
+    takes ``torch.var``, unbiased (N - 1), and the ``InstanceNorm1d(eps=1e-3)``
+    of the OANet pool and filter blocks the biased one (N); ``unbiased``
+    selects."""
+
+    def __init__(self, epsilon: float = 1e-3, unbiased: bool = False):
+        super().__init__()
+        self.epsilon = epsilon
+        self.unbiased = unbiased
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if mask is None:
+            count = torch.tensor(float(x.shape[-2]), dtype=x.dtype, device=x.device)
+            mean = torch.mean(x, dim=-2, keepdim=True)
+            var = torch.mean((x - mean) ** 2, dim=-2, keepdim=True)
+        else:
+            m = mask[..., None].to(x.dtype)
+            count = torch.clamp(torch.sum(m, dim=-2, keepdim=True), min=1.0)
+            mean = torch.sum(x * m, dim=-2, keepdim=True) / count
+            var = torch.sum(((x - mean) ** 2) * m, dim=-2, keepdim=True) / count
+        if self.unbiased:
+            var = var * (count / torch.clamp(count - 1.0, min=1.0))
+        return (x - mean) / torch.sqrt(var + self.epsilon)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """``layer(x)``; with ``compute_dtype`` the product and the bias add run
     and round in that type (two roundings, as flax's Dense with a dtype)."""

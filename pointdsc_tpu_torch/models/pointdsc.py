@@ -133,7 +133,9 @@ class PointDSC(nn.Module):
     """Spatial-consistency outlier rejection + SE(3) estimation network.
     Random weights come from ``generator`` (a torch.Generator); trained ones
     from compat/weights.py or ``load_pretrained``. A new model is in eval
-    mode; the Trainer switches modes explicitly."""
+    mode; the Trainer switches modes explicitly. ``approx_knn`` is accepted
+    for the reference's signature and selects exactly either way: exact
+    selection meets any recall target."""
 
     def __init__(self, in_dim: int = 6, num_layers: int = 12, num_channels: int = 128,
                  num_iterations: int = 10, ratio: float = 0.1,
@@ -141,7 +143,7 @@ class PointDSC(nn.Module):
                  nms_radius: float = 0.10, refine_iters: int = 20,
                  offset_softmax: bool = True, half_precision: bool = False,
                  remat: bool = False, fused_cache_compat: bool = True,
-                 device: str | torch.device = "cuda",
+                 approx_knn: bool = False, device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         dev = resolve_device(device)
@@ -157,6 +159,11 @@ class PointDSC(nn.Module):
         self.half_precision = half_precision
         self.remat = remat  # checkpoint each encoder layer (training memory)
         self.fused_cache_compat = fused_cache_compat
+        # the reference's approximate top-k of the seed k-NN (recall target
+        # 0.95) has no counterpart on the card: both values take the exact
+        # selection (the seed k-NN kernel inside its gate), which meets any
+        # recall target, so the outputs do not depend on the flag
+        self.approx_knn = approx_knn
         # folded BatchNorms of the whole-layer kernels and the confidence head's
         # packed weights, reused across forwards (kernels/encoder_layer.py::
         # folded_weights says what invalidates them)

@@ -1857,3 +1857,27 @@ def test_fused_forward_at_c256_matches_dense(dev, offset_softmax):
     assert counts["confidence_head"] == 0
     torch.testing.assert_close(out.final_trans, ref.final_trans, atol=1e-3, rtol=0)
     assert float((out.final_labels == ref.final_labels).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("size", [8, 9, 24])
+def test_fcgf_conv_traps_on_card(dev, size):
+    """VoxelFCGF's two convolutions that differ from ``torch.nn.functional``'s
+    defaults (``descriptors/fcgf.py``): the stride-2 ``SAME`` convolution
+    (pad (0, 1) on an even size, (1, 1) on an odd one) and the flipped-kernel
+    transposed convolution cropped to twice its input, on the card in full
+    float32 against the same calls on the CPU (atol 1e-5; TF32 would miss by
+    ~1e-3), 3 -> 4 channels."""
+    from pointdsc_tpu_torch._device import full_f32_matmul
+    from pointdsc_tpu_torch.descriptors import fcgf
+
+    gen = torch.Generator().manual_seed(size)
+    x = torch.randn((2, 3, size, size, size), generator=gen)
+    down = torch.nn.Conv3d(3, 4, 3, stride=2)
+    up = torch.nn.ConvTranspose3d(3, 4, 3, stride=2)
+    with full_f32_matmul():
+        for fn, mod, shape in ((fcgf.conv_same, down, -(-size // 2)),
+                               (fcgf.conv_transpose_same, up, 2 * size)):
+            ref = fn(mod, x)
+            out = fn(mod.to(dev), x.to(dev))
+            assert out.shape == (2, 4, shape, shape, shape)
+            torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
