@@ -178,6 +178,27 @@ and OANet:
  31. three FCGF train steps at 64^3 (the first against the CPU), the
      held-out evaluation against the CPU, an OANet forward at N = 5120
      against the CPU.
+Then the multi-device layer (``parallel/``), on meshes that name the one card
+D times (what a second card would add is printed in phase 34):
+ 32. the rectangular cache and cached attentions (a row shard: N / D query
+     rows over all N keys, the last 5% of the keys masked) against their
+     plain versions at N = 5120, 12288 and 20480 and D = 2 and 4, C = 128,
+     and C = 256 at one shape; each timed beside its bound;
+ 33. ``sp_testing_forward`` with the fused encoder at full width (12 layers,
+     C = 128, k = 40) on the Synthetic snapshot at N = 20480, on a pair
+     inside the offset regime, on meshes of 1, 2 and 4 entries: against the
+     single-card forward, the dense-semantics ``sp_encode`` forward and each
+     other; the counts set to 0 before each run and read after (one
+     rectangular cache launch a shard, 12 attention launches a shard, no
+     whole-layer kernel in their place); again with ``offset_softmax=False``;
+     the forward timed per D; one SyntheticKITTI pair at N = 12288 through
+     ``Evaluator(sp_mesh=[card] * 2)`` with the guard live;
+ 34. ``run_dataset_sharded`` on phase 24's scene on meshes of 1 and 2 entries
+     against ``run_dataset``; the 3DMatch CLI with ``--sp true`` and with
+     ``--sharded true``; ``torch.distributed`` over NCCL at world size 1 on
+     127.0.0.1 (``initialize``, ``process_shard``, ``all_gather_rows``) and
+     three fused DDP Trainer steps at bs 16 / 1024 against three steps of
+     the plain Trainer from the same weights and batches.
 Prints a JSON line per kernel, one {"kernels": [...]} line, and as the last
 line {"ok": true, "device": {...}}. Needs a CUDA card; exits non-zero
 without one or outside a checkout of the repository.
@@ -265,6 +286,13 @@ SPLIT_SCENES = ("sun3d-brown_bm_1-brown_bm_1", "sun3d-brown_bm_4-brown_bm_4")  #
 CLI_FRAGMENTS, CLI_POINTS, PREDATOR_POINTS = 4, 5000, 6000
 DRIVE_FRAMES, DRIVE_POINTS, KITTI_NODE = 4, 60_000, 12000
 PREP_ICP_ITERS = 200  # data/kitti_prep.py::process_kitti's ICP
+# phases 32-34, the multi-device layer: the rectangular kernels' shapes, the
+# sequence-parallel forward's size (the Redwood scale, as N_LARGE) and meshes
+RECT_SIZES, RECT_SHARDS, RECT_WIDE = (5120, 12288, 20480), (2, 4), (5120, 2)
+SP_N, SP_SHARDS = 20480, (1, 2, 4)
+# the DDP steps' depth: the train-mode forward at 12 layers is too
+# ill-conditioned for two orders of the same sums to stay together (phase 14)
+DDP_LAYERS, DDP_STEPS = 2, 3
 # ``same_registration``'s rule (atol, deg, cm, label floor) for a fused
 # transform against the dense one where a pair's refinement is bistable
 # (phase 25's KITTI pairs, phase 29's Redwood pairs)
@@ -4093,6 +4121,350 @@ def fcgf_training_oanet(torch, dev, card) -> dict:
     return line
 
 
+def rect_inputs(torch, dev, n, d, c):
+    """Phase 32's inputs: one synthetic pair of n points (the last 5% of the
+    keys masked), the last of d row shards (n / d rows, the masked ones among
+    them), and q [1, n / d, c], k, v [1, n, c] in bf16, the types the
+    sequence-parallel encoder gives the kernels on the card."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1)[0]
+    src, tgt = (torch.as_tensor(ex[key])[None].to(dev) for key in ("src_keypts", "tgt_keypts"))
+    mask = (torch.arange(n) < n - int(n * PAD_FRACTION))[None].to(dev)
+    nq = n // d
+    rows = src[:, n - nq:].contiguous(), tgt[:, n - nq:].contiguous()
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((1, nq, c), generator=gen).to(dev).bfloat16()
+    k, v = (torch.randn((1, n, c), generator=gen).to(dev).bfloat16() for _ in range(2))
+    return src, tgt, mask, rows, q, k, v
+
+
+def check_rect_kernels(torch, dev) -> list[dict]:
+    """Phase 32: the rectangular forms of rows 1, 3 and 4 (a row shard's
+    int8 cache slice and its two cached attentions) against their plain
+    versions on the card at N in RECT_SIZES and D in RECT_SHARDS, C = 128,
+    and at RECT_WIDE with C = 256. The cache within one count on at most
+    0.1% of the entries, the attentions at atol = rtol = 2e-3 (phase 3's
+    rules). Each case timed, kernel and plain version, beside its bound: the
+    slice's bytes (its n / d rows' and the n keys' coordinates read, the
+    [n / d, n] bytes written) and 28 operations an entry; an attention's
+    bytes (q, k, v in bf16, the slice, the key bias, the f32 output) and its
+    two [n / d, n] x C products at the bf16 tensor-core rate. The row of
+    the {"kernels": ...} line is the case N = 20480, D = 2 (the first sp
+    shard count, at the size phase 33 runs); every case is under "cases".
+    No single PyTorch call computes any of them (phase 3 says why)."""
+    from pointdsc_tpu_torch.kernels import sc_attention as katt
+
+    coef = katt.cache_coef(0.1)
+    main_case = (RECT_SIZES[-1], RECT_SHARDS[0], C)
+    cases = [(n, d, C) for n in RECT_SIZES for d in RECT_SHARDS] + [(*RECT_WIDE, 256)]
+    found = {"compat_cache_int8_rect": [], "sc_attention_cached_rect": [],
+             "sc_attention_cached_offset_rect": []}
+    for n, d, c in cases:
+        src, tgt, mask, (sr, tr), q, k, v = rect_inputs(torch, dev, n, d, c)
+        nq = n // d
+        reps = 10 if n * nq <= 12288 * 6144 else 5
+
+        def plain_cache():
+            return katt.compat_cache_plain(katt.pack_geometry(sr, tr), coef,
+                                           katt.pack_geometry(src, tgt, mask))
+
+        def build():
+            return katt.build_compat_cache_int8(sr, tr, 0.1, mask=mask, src_cols=src,
+                                                tgt_cols=tgt)
+
+        cache = build()
+        check(cache.shape == (1, nq, n), f"rect cache shape {tuple(cache.shape)}")
+        diff = (cache.int() - plain_cache().int()).abs()
+        off1 = int((diff == 1).sum())
+        tag = f"N={n} D={d} C={c}"
+        check(int(diff.max()) <= 1, f"rect cache {tag} differs by {int(diff.max())}")
+        check(off1 <= 1e-3 * nq * n, f"rect cache {tag}: {off1} entries off by 1")
+        del diff
+        case = dict(n=n, d=d, c=c, rows=nq)
+        if c == C:  # the cache does not depend on C: its row once a size
+            found["compat_cache_int8_rect"].append(kernel_row(
+                "compat_cache_int8_rect", "compat_cache.cu", "sc_attention.py:285",
+                float(off1 > 0), build, plain_cache,
+                float(2 * (nq + n) * 3 * 4 + nq * n),
+                float(nq * n * katt.OPS_PER_CACHE_ENTRY), reps=reps, off_by_one=off1, **case))
+        bias = katt.key_bias(mask, 1, n, dev)
+        attn_bytes = float((nq + 2 * n) * c * 2 + nq * n + n * 4 + nq * c * 4)
+        attn_ops = 4.0 * nq * n * c + OPS_PER_ATTN_PAIR_EXTRA * nq * n
+        for name, offset, plain in (
+                ("sc_attention_cached_rect", False, katt.sc_attention_cached_plain),
+                ("sc_attention_cached_offset_rect", True, katt.sc_attention_cached_offset_plain)):
+            def fused(offset=offset):
+                return katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                                      offset_softmax=offset)
+
+            def ref(plain=plain):
+                return plain(q, k, v, cache, bias, c=c)
+
+            out = fused()
+            want = ref()
+            err = float((out - want).abs().max())
+            check(torch.allclose(out, want, atol=2e-3, rtol=2e-3),
+                  f"{name} {tag}: max err {err}")
+            del out, want
+            found[name].append(kernel_row(
+                name, "sc_attention.cu", "sc_attention.py:582" if offset else
+                "sc_attention.py:590", err, fused, ref, attn_bytes, attn_ops,
+                tensor_ops=4.0 * nq * n * c, reps=reps, **case))
+        del cache
+        torch.cuda.empty_cache()
+    rows = []
+    for name, per_case in found.items():
+        keep = ("n", "d", "c", "rows", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        main = next(r for r in per_case if (r["n"], r["d"], r["c"]) == main_case)
+        rows.append({**main, "cases": [{k: r[k] for k in keep} for r in per_case]})
+        for r in per_case:
+            print(json.dumps({"phase": "rect_kernels", "name": name,
+                              **{k: r[k] for k in keep}}), flush=True)
+    return rows
+
+
+def sp_forward(torch, pt, kernels, dev, card) -> dict:
+    """Phase 33. Returns the launches of the three rectangular kernels over
+    the sequence-parallel forwards on meshes of more than one entry (on one
+    entry the shard is the whole cloud and the attention the square kernel)."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+    from pointdsc_tpu_torch.models.regime import OFFSET_REGIME_MAX_SLACK, offset_regime_slack
+    from pointdsc_tpu_torch.parallel import sp_testing_forward
+
+    start = time.perf_counter()
+    model = pt.load_pretrained(SNAPSHOT, device=DEVICE)
+    running = pt.load_pretrained(SNAPSHOT, device=DEVICE, offset_softmax=False)
+    # the first seeded pair of SP_N points inside the offset regime (the
+    # slack depends on the pair; phase 8 says why)
+    for seed in range(1, 9):
+        ex = SyntheticPairDataset(num_pairs=1, num_corr=SP_N, inlier_ratio=0.4, seed=seed)[0]
+        cp, src, tgt = (torch.as_tensor(ex[key])[None].to(dev)
+                        for key in ("corr_pos", "src_keypts", "tgt_keypts"))
+        slack = offset_regime_slack(model, cp, src, tgt)
+        if slack < OFFSET_REGIME_MAX_SLACK:
+            break
+    check(slack < OFFSET_REGIME_MAX_SLACK, f"no pair of {SP_N} points inside the offset regime")
+    line = {"phase": "sp_forward", "card": card, "n": SP_N, "seed": seed, "slack": slack,
+            "layers": model.encoder.num_layers, "c": model.num_channels, "k": model.k}
+    launches = {"compat_cache_int8_rect": 0, "sc_attention_cached_rect": 0,
+                "sc_attention_cached_offset_rect": 0}
+    tail = ("confidence_head", "nms_local_max", "nms_select", "seed_knn_exact",
+            "seed_hypotheses", "seed_inlier_counts", "select_hypothesis",
+            "fused_post_refinement")
+    for tag, m, attn in (("offset", model, "sc_attention_cached_offset"),
+                         ("running_max", running, "sc_attention_cached")):
+        single = m(cp, src, tgt, testing=True, fused=True)
+        dense = sp_testing_forward(m, cp, src, tgt, [dev] * SP_SHARDS[-1], fused_encoder=False)
+        line[f"{tag}_single_ms"] = time_ms(lambda: m(cp, src, tgt, testing=True, fused=True),
+                                           reps=5, warmup=1)
+        outs = {}
+        for d in SP_SHARDS:
+            mesh = [dev] * d
+            with counted(torch, kernels) as run:
+                out = sp_testing_forward(m, cp, src, tgt, mesh, fused_encoder=True)
+            counts = run["counts"]
+            print(f"sp forward {tag} D={d}: launches {json.dumps(counts)}", flush=True)
+            check(counts["compat_cache_int8"] == d,
+                  f"{tag} D={d}: {counts['compat_cache_int8']} cache launches, expected {d}")
+            check(counts[attn] == 12 * d,
+                  f"{tag} D={d}: {counts[attn]} {attn} launches, expected {12 * d}")
+            stray = [name for name in ("fused_encoder_layer", "pcn_qkv", "attn_mlp_residual",
+                                       "fused_sc_attention", "compat_cache_int8_sym",
+                                       "sc_attention_cached" if attn != "sc_attention_cached"
+                                       else "sc_attention_cached_offset") if counts[name]]
+            check(not stray, f"{tag} D={d}: launched {stray} in the sp encoder's place")
+            missing = [name for name in tail if counts[name] <= 0]
+            check(not missing, f"{tag} D={d}: tail kernels not launched: {missing}")
+            if d > 1:
+                launches["compat_cache_int8_rect"] += counts["compat_cache_int8"]
+                launches[f"{attn}_rect"] += counts[attn]
+            outs[d] = out
+            for ref_tag, ref in (("single", single), ("dense_sp", dense)):
+                terr = float((out.final_trans - ref.final_trans).abs().max())
+                agree = float((out.final_labels == ref.final_labels).float().mean())
+                line[f"{tag}_d{d}_vs_{ref_tag}"] = [terr, agree]
+                check(terr <= 1e-3 and agree > 0.99,
+                      f"{tag} D={d}: disagrees with the {ref_tag} forward ({terr}, {agree})")
+            if d > 1:
+                ferr = float((out.normed_features - outs[1].normed_features).abs().max())
+                terr = float((out.final_trans - outs[1].final_trans).abs().max())
+                agree = float((out.final_labels == outs[1].final_labels).float().mean())
+                line[f"{tag}_d{d}_vs_d1"] = [ferr, terr, agree]
+                check(terr <= 1e-3 and agree > 0.99, f"{tag} D={d}: disagrees with D=1")
+            line[f"{tag}_ms_d{d}"] = time_ms(
+                lambda: sp_testing_forward(m, cp, src, tgt, mesh, fused_encoder=True),
+                reps=5, warmup=1)
+        del single, dense, outs
+        torch.cuda.empty_cache()
+
+    # one SyntheticKITTI pair through the Evaluator on a mesh of two entries,
+    # the guard live, against the single-card Evaluator (phase 8b's rule)
+    kitti = pt.load_pretrained(SNAPSHOT_KITTI, device=DEVICE)
+    ds_k = SyntheticPairDataset(num_pairs=1, num_corr=N_KITTI, **DEFAULT_DATA_KITTI, **KITTI_DATA)
+    ev = pt.Evaluator(kitti, fused_attention=True, sp_mesh=[dev] * 2, device=DEVICE)
+    with counted(torch, kernels) as run:
+        stats, agg = ev.run_dataset(ds_k, verbose=False)
+    counts = run["counts"]
+    attn = "sc_attention_cached" if ev.flipped else "sc_attention_cached_offset"
+    check(counts["compat_cache_int8"] == 2 * 2 and counts[attn] == 12 * 2 * 2,
+          f"Evaluator(sp_mesh): launches {json.dumps(counts)}")
+    launches["compat_cache_int8_rect"] += counts["compat_cache_int8"]
+    launches[f"{attn}_rect"] += counts[attn]
+    row_single, trans_single = pt.Evaluator(kitti, fused_attention=True,
+                                            device=DEVICE).run_pair(ds_k[0])
+    _, trans_sp = ev.run_pair(ds_k[0])
+    terr = float(np.abs(trans_sp - trans_single).max())
+    check(np.isfinite(stats).all() and stats[0, 0] == row_single[0] and terr <= 5e-3,
+          f"Evaluator(sp_mesh) disagrees with the single card ({terr})")
+    line.update(kitti_sp_flipped=ev.flipped, kitti_sp_slack=ev.last_slack,
+                kitti_sp_vs_single=terr, kitti_sp_success=float(stats[0, 0]),
+                kitti_sp_model_time_ms=float(stats[0, 9]) * 1e3,
+                phase_s=time.perf_counter() - start)
+    print(json.dumps(line), flush=True)
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multi_device(torch, pt, kernels, dev, tmp, card) -> dict:
+    """Phase 34: sharded evaluation, the 3DMatch CLI's --sp and --sharded,
+    and torch.distributed over NCCL at world size 1. Returns the summary
+    line."""
+    import numpy as np
+
+    from pointdsc_tpu_torch.data.threedmatch import ThreeDMatchTest
+    from pointdsc_tpu_torch.evaluation import test_3DMatch
+    from pointdsc_tpu_torch.parallel import distributed as dist_mod
+    from pointdsc_tpu_torch.train.config import Config
+
+    start = time.perf_counter()
+    line = {"phase": "multi_device", "card": card}
+    # 34a. phase 24's scene: sharded over meshes of 1 and 2 entries against
+    # the sequential run of the same Evaluator (two entries run two pairs as
+    # one batch): success flags equal, TE within 1e-2 cm, cos(RE) within 1e-6
+    # (near 0, arccos magnifies the trace's rounding). Not bit for bit even
+    # at one entry: the first pass over a scene's first pairs already
+    # differs from a second pass at that level on the CPU rehearsal
+    cfg = Config.load(os.path.join(SNAPSHOT, "config.json"))
+    ds = ThreeDMatchTest(root=os.path.join(tmp, "3dmatch"), descriptor=cfg.descriptor,
+                         in_dim=cfg.in_dim, inlier_threshold=cfg.inlier_threshold,
+                         num_node="all", use_mutual=cfg.use_mutual, device=DEVICE)
+    ev = pt.Evaluator(pt.load_pretrained(SNAPSHOT, device=DEVICE), fused_attention=True,
+                      device=DEVICE)
+    seq, agg_seq = ev.run_dataset(ds, scene_of=ds.scene_of, verbose=False)
+    for d in (1, 2):
+        with counted(torch, kernels) as run:
+            sh, agg = ev.run_dataset_sharded(ds, mesh=[dev] * d, scene_of=ds.scene_of,
+                                             verbose=False)
+        check(sh.shape == seq.shape and np.isfinite(sh).all(), f"sharded D={d}: bad stats")
+        check(np.array_equal(sh[:, 0], seq[:, 0]), f"sharded D={d}: success flags differ")
+        check(np.abs(sh[:, 2] - seq[:, 2]).max() <= 1e-2
+              and np.abs(np.cos(np.radians(sh[:, 1])) - np.cos(np.radians(seq[:, 1]))).max()
+              <= 1e-6, f"sharded D={d}: RE/TE differ")
+        check(run["counts"]["confidence_head"] > 0, f"sharded D={d}: no kernel launched")
+        line[f"sharded_d{d}"] = dict(recall=agg["pair_recall"], s=run["s"],
+                                     model_time_ms=agg["model_time"] * 1e3,
+                                     semantics=agg["model_time_semantics"])
+    line["sequential"] = dict(recall=agg_seq["pair_recall"],
+                              model_time_ms=agg_seq["model_time"] * 1e3, flipped=ev.flipped)
+
+    # 34b. the 3DMatch CLI with --sp true (a mesh of every visible card) and
+    # --sharded true on phase 24's root and snapshot
+    cwd = os.getcwd()
+    os.chdir(os.path.join(tmp, "work_3dmatch"))
+    try:
+        for flag in ("--sp", "--sharded"):
+            with counted(torch, kernels) as run:
+                stats, agg = test_3DMatch.main(["--chosen_snapshot", "smoke_3dmatch", "--device",
+                                                DEVICE, flag, "true"])
+            check(stats.shape == seq.shape and np.isfinite(stats).all(), f"CLI {flag}: bad stats")
+            check(agg["pair_recall"] >= 100.0 * 5 / 6, f"CLI {flag}: recall {agg['pair_recall']}")
+            counts = run["counts"]
+            if flag == "--sp":  # one rectangular cache launch a forward on a one-card mesh
+                check(counts["compat_cache_int8"] == len(ds) + 1
+                      and counts["fused_encoder_layer"] == 0,
+                      f"CLI --sp: launches {json.dumps(counts)}")
+            line[f"cli{flag[1:]}"] = dict(recall=agg["pair_recall"], s=run["s"],
+                                           launches={k: v for k, v in counts.items() if v})
+    finally:
+        os.chdir(cwd)
+
+    # 34c. torch.distributed over NCCL at world size 1 on the loopback, and
+    # DDP Trainer steps against the plain Trainer's from the same weights and
+    # batches (fused, bs 16 / 1024, depth DDP_LAYERS at full width). The
+    # plain Trainer is made before the process group exists, so it takes no
+    # group. Rule: loss terms within 1e-5 relative, BatchNorm statistics
+    # within 1e-5 + 1e-4 relative, parameters within 2 lr a step everywhere
+    # and 99% of the entries within 1e-6 (Adam steps a rounding-noise gradient
+    # by up to lr either way)
+    batches = [train_batch(TRAIN_BS, TRAIN_NODE, seed=s) for s in range(3, 3 + DDP_STEPS)]
+    with torch.enable_grad():
+        plain_tr, plain_state = make_trainer(torch, pt, True, num_layers=DDP_LAYERS)
+        check(plain_tr.group is None, "the plain Trainer took a process group")
+        weights = {k: v.clone() for k, v in plain_state.model.state_dict().items()}
+        plain_steps = []
+        for b in batches:
+            plain_state, m = plain_tr.train_step(plain_state, plain_tr.to_device(b), 1)
+            plain_steps.append(({k: float(v) for k, v in m.items()},
+                                {k: v.clone() for k, v in plain_state.model.state_dict().items()}))
+        dist_mod.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=DEVICE)
+        try:
+            check(np.array_equal(dist_mod.process_shard(10), np.arange(10)), "process_shard")
+            gathered = dist_mod.all_gather_rows(np.array([1.0, 2.0], np.float32))
+            check(gathered.shape == (1, 2) and gathered.tolist() == [[1.0, 2.0]],
+                  f"all_gather_rows gave {gathered}")
+            ddp_tr, ddp_state = make_trainer(torch, pt, True, num_layers=DDP_LAYERS)
+            check(ddp_tr._ddp is not None and ddp_tr.replicas == 1, "the Trainer took no DDP")
+            ddp_state.model.load_state_dict(weights)
+            lr = ddp_tr.cfg.lr
+            worst = {"loss": 0.0, "stats": 0.0, "params": 0.0}
+            with counted(torch, kernels) as run:
+                for i, b in enumerate(batches):
+                    ddp_state, m = ddp_tr.train_step(ddp_state, ddp_tr.to_device(b), 1)
+                    pm, psd = plain_steps[i]
+                    check(float(m["grad_finite"]) == 1.0, f"DDP step {i}: gradient not finite")
+                    for key in ("class_loss", "sm_loss", "trans_loss", "loss"):
+                        rel = abs(float(m[key]) - pm[key]) / max(abs(pm[key]), 1e-12)
+                        worst["loss"] = max(worst["loss"], rel)
+                        check(rel <= 1e-5, f"DDP step {i}: {key} differs by {rel:.3e}")
+                    for name, ref in psd.items():
+                        got = ddp_state.model.state_dict()[name]
+                        diff = (got - ref).abs()
+                        if "running_" in name:
+                            worst["stats"] = max(worst["stats"], float(diff.max()))
+                            check(bool(torch.allclose(got, ref, atol=1e-5, rtol=1e-4)),
+                                  f"DDP step {i}: {name} differs")
+                        elif "num_batches" not in name:
+                            worst["params"] = max(worst["params"], float(diff.max()))
+                            check(float(diff.max()) <= 2 * lr * (i + 1) + 1e-6
+                                  and float((diff <= 1e-6).float().mean()) >= 0.99,
+                                  f"DDP step {i}: {name} differs by {float(diff.max()):.3e}")
+            for name in TRAIN_KERNELS:
+                check(run["counts"][name] > 0, f"DDP steps launched no {name}")
+            line["ddp"] = dict(world=1, backend=torch.distributed.get_backend(),
+                               steps=DDP_STEPS, layers=DDP_LAYERS, worst=worst, s=run["s"])
+        finally:
+            torch.distributed.destroy_process_group()
+    # what one card cannot show
+    line["needs_a_second_card"] = [
+        "NCCL collectives between devices (all_reduce, all_gather) and their time",
+        "peer copies of k, v and the coordinates in the sp gather",
+        "shards and sharded-eval replicas running at the same time on their own cards",
+        "DDP's gradient all-reduce across ranks and its overlap with the backward pass"]
+    line["phase_s"] = time.perf_counter() - start
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -4263,6 +4635,14 @@ def main() -> int:
         # 30-31. FCGF features through the 3DMatch CLI; FCGF training, OANet
         fcgf_3dmatch(torch, kernels, dev, tmp, card)
         fcgf_training_oanet(torch, dev, card)
+
+        # 32-34. the multi-device layer on meshes that name the one card
+        torch.set_grad_enabled(False)
+        with full_f32_matmul():
+            rows += check_rect_kernels(torch, dev)
+        print("rect_kernels_vs_plain: ok", flush=True)
+        launches.update(sp_forward(torch, pt, kernels, dev, card))
+        multi_device(torch, pt, kernels, dev, tmp, card)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -189,3 +189,14 @@ def from_torch_oanet_state_dict(sd: dict, num_layers: int, dtype=np.float32) -> 
             stats[f"oa_{i}"][f"MaskedBatchNorm_{j}"] = bn_stats(f"l2.{i}.{conv}.{bn_at}")
     params["output"] = dense("output")
     return {"params": params, "batch_stats": stats}
+
+
+def load_torch_checkpoint(path: str, num_layers: int) -> dict:
+    """A reference ``model_best.pkl`` (``torch.save`` of the reference
+    PointDSC's state dict) as the flax-layout variables tree of
+    ``from_torch_reference_state_dict`` (the JAX package's
+    ``compat/torch_weights.py::load_torch_checkpoint``); ``from_flax_variables``
+    of it is the port's state dict. Read with ``weights_only=True``: tensors
+    and containers only, no pickled code runs."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return from_torch_reference_state_dict({k: v.numpy() for k, v in raw.items()}, num_layers)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from pointdsc_tpu_torch._device import full_f32_matmul, resolve_device
-from pointdsc_tpu_torch.ops.linalg import symeig3x3
+from pointdsc_tpu_torch.ops.linalg import fma_chain, symeig3x3
 from pointdsc_tpu_torch.ops.nms import top_k_like_jax
 
 _BIG = 1e9
@@ -46,8 +46,8 @@ def _chunked_radius_knn(points: torch.Tensor, k: int, radius: float, chunk: int 
     d2 = |q|² + |p|² − 2 q·p as the JAX package forms it, with every operation
     written out so that the CPU and the card round it alike: |p|² as
     ((x² + y²) + z²) and q·p as the CPU's matrix product of depth 3 rounds it
-    (x-product, then a fused multiply-add for y and for z, emulated in
-    float64, where the product of two float32 values is exact). The form
+    (``fma_chain``: the x-product, then a fused multiply-add for y and for
+    z). The form
     cancels ~ulp(|p|²) (~5e-7 m² at 2.5 m from the origin), so a product that
     rounds otherwise (cuBLAS) moves neighbours of voxel-mean keypoints across
     the radius, and through the normals changes whole histograms."""
@@ -56,15 +56,11 @@ def _chunked_radius_knn(points: torch.Tensor, k: int, radius: float, chunk: int 
         raise ValueError(f"{n} points, fewer than the {k} neighbours asked for")
     x, y, z = points.unbind(-1)
     sq_all = (x * x + y * y) + z * z
-    wide = points.double()
     cols = torch.arange(n, device=points.device)
     idxs, valids = [], []
     for start in range(0, n, chunk):
         q = points[start:start + chunk]
-        dot = q[:, 0, None] * points[None, :, 0]
-        for axis in (1, 2):
-            prod = wide[start:start + chunk, axis, None] * wide[None, :, axis]  # exact
-            dot = (prod + dot.double()).float()
+        dot = fma_chain((q[:, a, None], points[None, :, a]) for a in range(3))
         d2 = sq_all[start:start + chunk, None] + sq_all[None, :] - 2.0 * dot
         d2 = torch.clamp(d2, min=0.0)
         rows = cols[start:start + chunk]
@@ -79,17 +75,36 @@ def _chunked_radius_knn(points: torch.Tensor, k: int, radius: float, chunk: int 
 def estimate_normals(points: torch.Tensor, radius: float, max_nn: int = 30) -> torch.Tensor:
     """Normals [N, 3] of points [N, 3]: the smallest eigenvector of the
     radius-masked k-NN covariance, oriented towards the origin (the camera
-    of a depth-sensor fragment)."""
+    of a depth-sensor fragment). The Jacobi solve rounds as ops/linalg.py
+    says; a point with two neighbours has a rank-1 covariance, whose null
+    plane holds any normal, and rounding picks the one that comes out."""
+    cov = neighbourhood_covariance(points, radius, max_nn)
+    normal = symeig3x3(cov)[1][..., :, 0]  # smallest eigenvalue: the surface normal
+    flip = (normal[:, 0] * points[:, 0] + normal[:, 1] * points[:, 1]) \
+        + normal[:, 2] * points[:, 2] > 0
+    return torch.where(flip[:, None], -normal, normal)
+
+
+def neighbourhood_covariance(points: torch.Tensor, radius: float,
+                             max_nn: int = 30) -> torch.Tensor:
+    """[N, 3, 3]: the covariance of each point's radius-masked k nearest
+    neighbours about their mean, each sum rounded as the JAX package's CPU
+    run rounds it: the masked mean as a sum over the neighbours in order,
+    the covariance as an ``fma_chain`` over them."""
     idx, valid = _chunked_radius_knn(points, max_nn, radius)
     neigh = points[idx]  # [N, k, 3]
     w = valid.to(points.dtype)[..., None]
     count = torch.clamp(torch.sum(w, dim=1), min=1.0)
-    mean = torch.sum(neigh * w, dim=1) / count
+    weighted = neigh * w
+    total = weighted[:, 0]
+    for j in range(1, weighted.shape[1]):
+        total = total + weighted[:, j]
+    mean = total / count
     centered = (neigh - mean[:, None]) * w
-    cov = torch.einsum("nki,nkj->nij", centered, centered) / count[..., None]
-    normal = symeig3x3(cov)[1][..., :, 0]  # smallest eigenvalue: the surface normal
-    flip = torch.sum(normal * points, dim=-1) > 0
-    return torch.where(flip[:, None], -normal, normal)
+    return torch.stack([
+        torch.stack([fma_chain((centered[:, j, a], centered[:, j, b])
+                               for j in range(centered.shape[1])) for b in range(3)], dim=-1)
+        for a in range(3)], dim=-2) / count[..., None]
 
 
 def _angle_histograms(alpha, phi, theta, wmask, bins: int = 11):

@@ -32,9 +32,11 @@ def parser(description: str, solver: bool = True) -> argparse.ArgumentParser:
                    help="the fused CUDA kernels (auto: on when the device is CUDA)")
     p.add_argument("--root", default="", type=str, help="override the data root")
     p.add_argument("--sharded", default=False, type=str2bool,
-                   help="fan pairs across all local devices (not ported: raises)")
+                   help="fan pairs across every visible card, one pair a card at a time "
+                        "(with --device cpu: a mesh of the one CPU device)")
     p.add_argument("--sp", default=False, type=str2bool,
-                   help="sequence-parallel eval over all local devices (not ported: raises); "
+                   help="sequence-parallel eval: every pair's encoder row-sharded over every "
+                        "visible card (with --device cpu: a mesh of the one CPU device); "
                         "mutually exclusive with --sharded")
     p.add_argument("--device", default="cuda", type=str)
     return p
@@ -62,13 +64,12 @@ def load_config(args):
 def make_evaluator(args, cfg, use_icp: bool = False, solver: str = "SVD"):
     """PointDSC of the config on ``--device`` (the reference passes the inlier
     threshold as the NMS radius) with the snapshot's best weights, inside the
-    Evaluator. ``--sp`` hands the Evaluator the local devices, which it
-    refuses."""
-    import torch
-
+    Evaluator. ``--sp`` hands the Evaluator a mesh of every visible card (on
+    the CPU, of the CPU device)."""
     from pointdsc_tpu_torch._device import resolve_device
     from pointdsc_tpu_torch.eval.runner import Evaluator
     from pointdsc_tpu_torch.models import PointDSC
+    from pointdsc_tpu_torch.parallel.mesh import make_mesh
     from pointdsc_tpu_torch.train.trainer import load_model_weights
 
     dev = resolve_device(args.device)
@@ -82,7 +83,7 @@ def make_evaluator(args, cfg, use_icp: bool = False, solver: str = "SVD"):
                                                and dev.type == "cuda")
     sp_mesh = None
     if args.sp:
-        sp_mesh = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        sp_mesh = make_mesh() if dev.type == "cuda" else [dev]
     return Evaluator(model, re_thre=cfg.re_thre, te_thre=cfg.te_thre, use_icp=use_icp,
                      icp_threshold=cfg.inlier_threshold, solver=solver,
                      fused_attention=fused, sp_mesh=sp_mesh, device=dev)
@@ -95,7 +96,7 @@ def evaluate(args, evaluator, dataset, log_path: str, scene_of=None):
     ``--save_npy``. Returns ([pairs, 12] stats, aggregate dict)."""
     from pointdsc_tpu_torch.eval.protocol import format_scene_report
 
-    if args.sharded:
+    if args.sharded:  # every visible card, or the CPU device
         stats, agg = evaluator.run_dataset_sharded(dataset, scene_of=scene_of)
     else:
         stats, agg = evaluator.run_dataset(dataset, scene_of=scene_of)

@@ -37,9 +37,11 @@ NVCC_FLAGS = (*COMPILE_FLAGS, "-shared", "-Xcompiler", "-fPIC")
 # C signatures: (argtypes, restype) per entry point
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "compat_cache": {"compat_cache_int8": [P, P, P, I, I, F, P]},
+    "compat_cache": {"compat_cache_int8": [P, P, P, I, I, F, P],
+                     "compat_cache_int8_rect": [P] * 5 + [I, I, I, F, P]},
     "sc_attention": {"sc_attention_cached": [P] * 6 + [I, I, I, F, P],
                      "sc_attention_cached_offset": [P] * 7 + [I, I, I, F, P],
+                     "sc_attention_cached_rect": [P] * 7 + [I, I, I, I, F, I, P],
                      "sc_attention_nocache": [P] * 5 + [I, I, I, F, F, P]},
     "sc_attention_train": {"sc_attention_train_fwd": [P] * 6 + [I, I, I, F, F, P],
                            "sc_attention_train_bwd_dq": [P] * 8 + [I, I, I, F, F, P],

@@ -97,9 +97,48 @@ compat_cache_kernel(const float* __restrict__ src, const float* __restrict__ tgt
   }
 }
 
+// The rectangular form: rows from one pair of clouds, the nq points of a
+// row shard (src_rows, tgt_rows [B, nq, 3]), columns from another, all nk
+// keys (src_cols, tgt_cols [B, nk, 3]), out [B, nq, nk]. Replaces the TPU
+// kernel's rectangular build, _build_compat_cache_single(..., geom_cols=...)
+// (pointdsc_tpu/kernels/sc_attention.py:262-298, pallas_call at :285): each
+// device of the sequence-parallel encoder builds only its [N/D, N] slice.
+// The layout, the entry and the stores are the square kernel's, so a row
+// holds the same bytes as that row of the square cache of the whole cloud.
+template <bool kVector>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+compat_cache_rect_kernel(const float* __restrict__ src_rows, const float* __restrict__ tgt_rows,
+                         const float* __restrict__ src_cols, const float* __restrict__ tgt_cols,
+                         int8_t* __restrict__ out, int nq, int nk, float coef) {
+  const int b = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = static_cast<int>(blockIdx.x) * BLOCK_COLS + lane * COLS;  // first column
+  if (j0 >= nk) return;
+  const float* sr = src_rows + static_cast<size_t>(b) * nq * 3;
+  const float* tr = tgt_rows + static_cast<size_t>(b) * nq * 3;
+
+  float k[COLS][8];
+  compat::load_keys<COLS>(src_cols + static_cast<size_t>(b) * nk * 3,
+                          tgt_cols + static_cast<size_t>(b) * nk * 3, j0, nk, k);
+  for (int row = static_cast<int>(blockIdx.y) * WARPS + warp; row < nq;
+       row += static_cast<int>(gridDim.y) * WARPS) {
+    float q[8];
+    compat::load_query(sr, tr, row, q);
+    uint32_t w[COLS / 4];
+    compat::row_bytes<COLS>(q, k, coef, w);
+    int8_t* dst = out + (static_cast<size_t>(b) * nq + row) * nk + j0;
+    if (kVector) {
+      store_row(dst, w);
+    } else {
+      for (int c = 0; c < COLS && j0 + c < nk; ++c)
+        dst[c] = static_cast<int8_t>((w[c / 4] >> (8 * (c % 4))) & 0xFFu);
+    }
+  }
+}
+
 // blocks a column strip gets: the card's resident blocks shared out over
-// the strips and samples (per device, computed once), at most one band each
-int grid_rows(int strips, int batch, int n) {
+// the strips and samples (per device, computed once), at most one band of
+// the `rows` rows each
+int grid_rows(int strips, int batch, int rows) {
   static int resident[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
@@ -110,7 +149,7 @@ int grid_rows(int strips, int batch, int n) {
                                                   32 * WARPS, 0);
     resident[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
   }
-  const int bands = (n + WARPS - 1) / WARPS;
+  const int bands = (rows + WARPS - 1) / WARPS;
   return std::max(1, std::min(bands, resident[dev] / (strips * batch)));
 }
 
@@ -129,5 +168,24 @@ extern "C" int compat_cache_int8(const void* src, const void* tgt, void* out, in
     compat_cache_kernel<true><<<grid, 32 * WARPS, 0, st>>>(s, t, o, n, coef);
   else
     compat_cache_kernel<false><<<grid, 32 * WARPS, 0, st>>>(s, t, o, n, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int compat_cache_int8_rect(const void* src_rows, const void* tgt_rows,
+                                      const void* src_cols, const void* tgt_cols, void* out,
+                                      int batch, int nq, int nk, float coef, void* stream) {
+  if (nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int strips = (nk + BLOCK_COLS - 1) / BLOCK_COLS;
+  const dim3 grid(strips, grid_rows(strips, batch, nq), batch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sr = static_cast<const float*>(src_rows);
+  const float* tr = static_cast<const float*>(tgt_rows);
+  const float* sc = static_cast<const float*>(src_cols);
+  const float* tc = static_cast<const float*>(tgt_cols);
+  int8_t* o = static_cast<int8_t*>(out);
+  if (nk % COLS == 0)
+    compat_cache_rect_kernel<true><<<grid, 32 * WARPS, 0, st>>>(sr, tr, sc, tc, o, nq, nk, coef);
+  else
+    compat_cache_rect_kernel<false><<<grid, 32 * WARPS, 0, st>>>(sr, tr, sc, tc, o, nq, nk, coef);
   return static_cast<int>(cudaGetLastError());
 }

@@ -219,13 +219,20 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t 
 // regions.
 // kWide: q, k, v are [n, ld] (ld a multiple of C) and acc holds output chunk
 // oc, channels C oc + (tid & 31) + 32 j (see the notes above).
-template <bool kRunningMax = false, CompatSource kSrc = kCacheInt8, bool kWide = false>
+// kRect: q holds nq_arg query rows (a row shard of the sequence-parallel
+// encoder) over the n keys of k and v; compat is then [nq_arg, n], its row
+// stride n. Without it the query rows are the n keys' own (nq = n, the
+// square calls, whose code the flag leaves as it was).
+template <bool kRunningMax = false, CompatSource kSrc = kCacheInt8, bool kWide = false,
+          bool kRect = false>
 __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, const int8_t* compat, const float* bias,
                                float kscale, int n, int q0, float qk_scale, float* smem,
                                float (&acc)[4][4], const float* geom = nullptr,
-                               float sig2 = 0.f, int ld = C, int oc = 0) {
+                               float sig2 = 0.f, int ld = C, int oc = 0, int nq_arg = 0) {
   static_assert(kRunningMax || kSrc == kCacheInt8, "the offset form reads the int8 cache");
+  static_assert(!kRect || kSrc == kCacheInt8, "a row shard streams its cache slice");
+  const int nq = kRect ? nq_arg : n;  // query rows
   __nv_bfloat16* Vb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
   __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
   __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smem + OFF_Q);
@@ -248,13 +255,14 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const int r0 = 16 * mi + g;
   const bool has_bias = bias != nullptr;
 
-  // rows [row0, row0 + rows) of chunk ch of a [n, ld] array into a bf16 tile (wide form)
+  // rows [row0, row0 + rows) of chunk ch of a [bound, ld] array into a bf16
+  // tile (wide form)
   auto stage_chunk = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int rows,
-                         int ch) {
+                         int ch, int bound) {
     for (int i = tid; i < rows * C / 8; i += THREADS) {
       const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < n)
+      if (row0 + r < bound)
         x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * ld + C * ch +
                                             c8);
       *reinterpret_cast<uint4*>(dst + r * RB + c8) = x;
@@ -267,7 +275,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
     for (int i = tid; i < BQ * C / 8; i += THREADS) {
       const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < n)
+      if (q0 + r < nq)
         x = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * C + c8);
       *reinterpret_cast<uint4*>(Qb + r * RB + c8) = x;
     }
@@ -275,7 +283,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if constexpr (kSrc == kGeometry) {
     for (int i = tid; i < GEOM_ROWS * BQ; i += THREADS) {
       const int r = i / BQ, c = i % BQ;
-      gq_s[i] = (q0 + c < n) ? geom[static_cast<size_t>(r) * n + q0 + c] : 0.f;
+      gq_s[i] = (q0 + c < nq) ? geom[static_cast<size_t>(r) * n + q0 + c] : 0.f;
     }
   }
   __syncthreads();
@@ -287,7 +295,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
       const int row = 4 * warp + r;
       float sq = 0.f;
       if constexpr (kWide) {
-        if (q0 + row < n)
+        if (q0 + row < nq)
           for (int j = 0; j < ld / 32; ++j) {
             const float x = __bfloat162float(q[static_cast<size_t>(q0 + row) * ld + lane + 32 * j]);
             sq = fmaf(x, x, sq);
@@ -341,7 +349,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + 8 * (e >> 1), col = 16 * nj + 8 * t + 2 * tq + (e & 1);
-          creg[t][e] = (q0 + row < n && k0 + col < n)
+          creg[t][e] = (q0 + row < nq && k0 + col < n)
                            ? compat[static_cast<size_t>(q0 + row) * n + k0 + col] : int8_t(0);
         }
     }
@@ -354,7 +362,7 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = r0 + 8 * (e >> 1), col = 16 * nj + 8 * t + 2 * tq + (e & 1);
-        creg[t][e] = (q0 + row < n && k0 + col < n)
+        creg[t][e] = (q0 + row < nq && k0 + col < n)
                          ? compat[static_cast<size_t>(q0 + row) * n + k0 + col] : int8_t(0);
       }
   };
@@ -380,9 +388,9 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
     __syncthreads();  // the previous tile's P V is done; offs_s is visible
     if constexpr (kWide) {
       // chunk 0 of Q and K, V's chunk oc, the bias and the key strip, direct
-      stage_chunk(Qb, q, q0, BQ, 0);
-      stage_chunk(Kb, k, k0, BK, 0);
-      stage_chunk(Vb, v, k0, BK, oc);
+      stage_chunk(Qb, q, q0, BQ, 0, nq);
+      stage_chunk(Kb, k, k0, BK, 0, n);
+      stage_chunk(Vb, v, k0, BK, oc, n);
       if (tid < BK) bias_s[tid] = (has_bias && k0 + tid < n) ? bias[k0 + tid] : 0.f;
       if constexpr (kSrc == kGeometry) {
         for (int i = tid; i < GEOM_ROWS * BK; i += THREADS) {
@@ -432,8 +440,8 @@ __device__ void attention_rows(const __nv_bfloat16* q, const __nv_bfloat16* k,
       if constexpr (kWide) {
         if (ch > 0) {  // the next chunk of Q and K, once every warp is done with this one
           __syncthreads();
-          stage_chunk(Qb, q, q0, BQ, ch);
-          stage_chunk(Kb, k, k0, BK, ch);
+          stage_chunk(Qb, q, q0, BQ, ch, nq);
+          stage_chunk(Kb, k, k0, BK, ch, n);
           __syncthreads();
         }
       }

@@ -286,3 +286,96 @@ extern "C" int sc_attention_nocache(const void* q, const void* k, const void* v,
       static_cast<float*>(out), n, sig2, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// Both cached attentions on a row shard: nq query rows over all nk keys.
+//
+// Replaces the rectangular form of the same TPU kernels (sc_attention.py:417
+// and :472 through _fused_sc_attention_cached_single, pallas_call at :590
+// and :582, whose q "may hold a row shard (nq rows) attending over all nk
+// keys"), the sequence-parallel encoder's per-shard attention
+// (pointdsc_tpu/parallel/seq_parallel.py::sp_encode_fused):
+//
+//   q [B, nq, ld], k, v [B, nk, ld] bf16, compat [B, nq, nk] int8 (the
+//   shard's slice of the cache, row stride nk), bias [B, nk], out [B, nq, ld]
+//   f32; the offset form's kscale [B] = max over all nk keys of ||k_j|| /
+//   sqrt(C), as on the TPU, where it is reduced over the gathered keys.
+//
+// The math and the loop are the square kernels' (attention_rows with kRect:
+// only the query rows' bound and the strides differ), so a shard's rows equal
+// the square kernel's rows of the whole cloud when nq = nk. ld = 128 runs the
+// one-pass loop, a wider model the wide loop, one pass per 128-wide output
+// chunk. Bound on the H100, per shard and layer: the shard's nq nk cache bytes
+// and 4 nq nk C products on bf16 operands, 1/D of the square kernel's.
+
+namespace {
+
+template <bool kRunningMax, bool kWide>
+__global__ void __launch_bounds__(oa::THREADS, 2)
+sc_attention_rect_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int8_t* __restrict__ compat, const float* __restrict__ bias,
+                         const float* __restrict__ kscale, float* __restrict__ out, int nq,
+                         int nk, int ld, float qk_scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * oa::BQ;
+  const size_t qbase = static_cast<size_t>(b) * nq, kbase = static_cast<size_t>(b) * nk;
+  const float ks = kRunningMax ? 0.f : kscale[b];
+  const int ry = threadIdx.x >> 5, cx = threadIdx.x & 31;
+  for (int oc = 0; oc < ld / oa::C; ++oc) {
+    float acc[4][4];
+    oa::attention_rows<kRunningMax, oa::kCacheInt8, kWide, true>(
+        q + qbase * ld, k + kbase * ld, v + kbase * ld, compat + qbase * nk, bias + kbase, ks,
+        nk, q0, qk_scale, smem, acc, nullptr, 0.f, ld, oc, nq);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * ry + r;
+      if (q0 + row >= nq) continue;
+      const float l = smem[oa::OFF_L + row] + 1e-30f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[(qbase + q0 + row) * ld + oa::C * oc + cx + 32 * j] = acc[r][j] / l;
+    }
+  }
+}
+
+template <bool kRunningMax, bool kWide>
+int launch_rect(const void* q, const void* k, const void* v, const void* compat,
+                const void* bias, const void* kscale, void* out, int batch, int nq, int nk,
+                int ld, float qk_scale, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(sc_attention_rect_kernel<kRunningMax, kWide>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(oa::SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nq + oa::BQ - 1) / oa::BQ, batch);
+  sc_attention_rect_kernel<kRunningMax, kWide>
+      <<<grid, oa::THREADS, oa::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(compat),
+          static_cast<const float*>(bias), static_cast<const float*>(kscale),
+          static_cast<float*>(out), nq, nk, ld, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// running_max: 1 the running-max form (kscale unused), 0 the offset form
+extern "C" int sc_attention_cached_rect(const void* q, const void* k, const void* v,
+                                        const void* compat, const void* bias,
+                                        const void* kscale, void* out, int batch, int nq, int nk,
+                                        int ld, float qk_scale, int running_max, void* stream) {
+  if (nq < 1 || nk < 1 || ld < oa::C || ld % oa::C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = ld != oa::C;
+  if (running_max)
+    return wide ? launch_rect<true, true>(q, k, v, compat, bias, kscale, out, batch, nq, nk, ld,
+                                          qk_scale, stream)
+                : launch_rect<true, false>(q, k, v, compat, bias, kscale, out, batch, nq, nk, ld,
+                                           qk_scale, stream);
+  return wide ? launch_rect<false, true>(q, k, v, compat, bias, kscale, out, batch, nq, nk, ld,
+                                         qk_scale, stream)
+              : launch_rect<false, false>(q, k, v, compat, bias, kscale, out, batch, nq, nk, ld,
+                                          qk_scale, stream);
+}

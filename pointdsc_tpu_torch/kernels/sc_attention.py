@@ -65,17 +65,38 @@ def cache_coef(sigma_d: float) -> float:
     return float(np.float32(127.0) / (sig * sig))
 
 
-def compat_cache_plain(geom: torch.Tensor, coef: float) -> torch.Tensor:
+def compat_cache_plain(geom: torch.Tensor, coef: float,
+                       geom_cols: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the cache kernel: gram-form distances, one-sqrt
-    difference, round(max(127 - coef * diff2, 0)) clamped at 127."""
+    difference, round(max(127 - coef * diff2, 0)) clamped at 127. With
+    ``geom_cols`` (JAX's argument of that name) the rows come from ``geom``
+    [B, 16, Nq] and the columns from ``geom_cols`` [B, 16, Nk]: the
+    rectangular [B, Nq, Nk] slice."""
+    cols = geom if geom_cols is None else geom_cols
     gs, gt = geom[:, 0:3], geom[:, 4:7]
-    inner_s = gs.transpose(1, 2) @ gs
-    inner_t = gt.transpose(1, 2) @ gt
-    s2 = torch.clamp(geom[:, 3, :, None] + geom[:, 3, None, :] - 2.0 * inner_s, min=0.0)
-    t2 = torch.clamp(geom[:, 7, :, None] + geom[:, 7, None, :] - 2.0 * inner_t, min=0.0)
+    # the square product takes one operand twice, as it always has (the
+    # CPU's product rounds it as a symmetric one)
+    ks, kt = (gs, gt) if geom_cols is None else (cols[:, 0:3], cols[:, 4:7])
+    inner_s = gs.transpose(1, 2) @ ks
+    inner_t = gt.transpose(1, 2) @ kt
+    s2 = torch.clamp(geom[:, 3, :, None] + cols[:, 3, None, :] - 2.0 * inner_s, min=0.0)
+    t2 = torch.clamp(geom[:, 7, :, None] + cols[:, 7, None, :] - 2.0 * inner_t, min=0.0)
     diff2 = s2 + t2 - 2.0 * torch.sqrt(s2 * t2)
     scaled = 127.0 - diff2 * torch.tensor(coef, dtype=torch.float32, device=geom.device)
     return torch.clamp(torch.round(torch.clamp(scaled, min=0.0)), max=127.0).to(torch.int8)
+
+
+def _launch_compat_cache_rect(src: torch.Tensor, tgt: torch.Tensor, src_cols: torch.Tensor,
+                              tgt_cols: torch.Tensor, coef: float) -> torch.Tensor:
+    """Rows src, tgt f32 [B, Nq, 3], columns src_cols, tgt_cols f32
+    [B, Nk, 3], contiguous: the [B, Nq, Nk] slice in one launch."""
+    b, nq, _ = src.shape
+    nk = src_cols.shape[1]
+    out = torch.empty((b, nq, nk), dtype=torch.int8, device=src.device)
+    _build.launch("compat_cache", "compat_cache_int8_rect", src.device, src.data_ptr(),
+                  tgt.data_ptr(), src_cols.data_ptr(), tgt_cols.data_ptr(), out.data_ptr(), b,
+                  nq, nk, coef)
+    return out
 
 
 def _launch_compat_cache(src: torch.Tensor, tgt: torch.Tensor, coef: float) -> torch.Tensor:
@@ -201,20 +222,41 @@ def _launch_compat_cache_sym(src: torch.Tensor, tgt: torch.Tensor, coef: float) 
 
 
 def build_compat_cache_int8(src: torch.Tensor, tgt: torch.Tensor, sigma_d: float,
-                            mask: torch.Tensor | None = None) -> torch.Tensor:
+                            mask: torch.Tensor | None = None,
+                            src_cols: torch.Tensor | None = None,
+                            tgt_cols: torch.Tensor | None = None) -> torch.Tensor:
     """[B, N, N] int8 cache of round(127 * compat) from src/tgt [B, N, 3].
     Nothing is masked: the attention's key bias handles invalid keys (the
-    mask is checked and otherwise unused). On the card one launch reads src
-    and tgt in place: the symmetric kernel where ``use_symmetric_cache``,
-    else the full-grid one (the same bytes); either is one launch here."""
+    mask, [B, N] of the columns, is checked and otherwise unused). On the
+    card one launch reads src and tgt in place: the symmetric kernel where
+    ``use_symmetric_cache``, else the full-grid one (the same bytes); either
+    is one launch here.
+
+    With ``src_cols`` and ``tgt_cols`` [B, Nk, 3] (JAX's ``geom_cols``) the
+    rows are src/tgt [B, Nq, 3] and the result the rectangular [B, Nq, Nk]
+    slice, a row shard's of the sequence-parallel encoder: one launch of the
+    rectangular kernel, whose rows hold the square cache's bytes."""
     expect(src, "src", ndim=3, last=3)
     expect(tgt, "tgt", shape=src.shape, device=src.device)
+    rect = src_cols is not None or tgt_cols is not None
+    if rect:
+        expect(src_cols, "src_cols", ndim=3, last=3, device=src.device)
+        if src_cols.shape[0] != src.shape[0]:
+            raise ValueError(f"src_cols holds {src_cols.shape[0]} samples, src {src.shape[0]}")
+        expect(tgt_cols, "tgt_cols", shape=src_cols.shape, device=src.device)
+    keys = src_cols if rect else src
     if mask is not None:
-        expect(mask, "mask", dtype=torch.bool, shape=src.shape[:2], device=src.device)
+        expect(mask, "mask", dtype=torch.bool, shape=keys.shape[:2], device=src.device)
     coef = cache_coef(sigma_d)
     if not on_cuda(src):
+        if rect:
+            return compat_cache_plain(pack_geometry(src, tgt), coef,
+                                      pack_geometry(src_cols, tgt_cols, mask))
         return compat_cache_plain(pack_geometry(src, tgt, mask), coef)
     build_compat_cache_int8.launches += 1
+    if rect:
+        return _launch_compat_cache_rect(*(t.float() for t in (src, tgt, src_cols, tgt_cols)),
+                                         coef)
     launch = (_launch_compat_cache_sym if use_symmetric_cache(src.shape[1])
               else _launch_compat_cache)
     return launch(src.float(), tgt.float(), coef)
@@ -317,13 +359,15 @@ def _launch_sc_attention_offset(q, k, v, compat, key_bias, c):
     return out
 
 
-def _expect_qkv(q, k, v) -> None:
-    """q, k, v [B, N, C], all float32 or all bfloat16, on one device."""
+def _expect_qkv(q, k, v, rect: bool = False) -> None:
+    """q, k, v [B, N, C], all float32 or all bfloat16, on one device; with
+    ``rect``, q [B, Nq, C] and k, v [B, Nk, C]."""
     expect(q, "q", ndim=3)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    shape = (q.shape[0], k.shape[1], q.shape[2]) if rect else q.shape
     for name, t in (("k", k), ("v", v)):
-        expect(t, name, dtype=q.dtype, shape=q.shape, device=q.device)
+        expect(t, name, dtype=q.dtype, shape=shape, device=q.device)
 
 
 def _kernel_operands(q, k, v):
@@ -336,9 +380,31 @@ def _kernel_operands(q, k, v):
     return q, k, v
 
 
+def _launch_sc_attention_rect(q, k, v, compat, key_bias, c, offset_softmax):
+    """q bf16 [B, Nq, W], k, v bf16 [B, Nk, W] (W = ``padded_width(c)``),
+    compat int8 [B, Nq, Nk], contiguous; c the model's width."""
+    b, nq, w = q.shape
+    nk = k.shape[1]
+    out = torch.empty((b, nq, w), dtype=torch.float32, device=q.device)
+    # the offset's bound over all nk keys, alive until the launch is enqueued
+    # (the running max reads none: the bias row stands in for the pointer)
+    kscale = offset_kscale(k, c) if offset_softmax else key_bias
+    _build.launch("sc_attention", "sc_attention_cached_rect", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), compat.data_ptr(), key_bias.data_ptr(),
+                  kscale.data_ptr(), out.data_ptr(), b, nq, nk, w, qk_scale(c),
+                  0 if offset_softmax else 1)
+    return out
+
+
 def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softmax=True):
     """Attention over the int8 cache: q, k, v [B, N, C], compat [B, N, N]
     int8, src/tgt/mask only for the key-bias row. Returns [B, N, C] f32.
+
+    A row shard (the sequence-parallel encoder's, JAX's rectangular form):
+    q [B, Nq, C] over k, v [B, Nk, C] with Nq != Nk, compat the shard's
+    [B, Nq, Nk] slice, src/tgt [B, Nk, 3] and mask [B, Nk] those of the
+    keys; on the card the rectangular kernel of the same form, the offset's
+    bound taken over all Nk keys.
     ``offset_softmax=True`` (the JAX default) runs the offset kernel, exact
     while the bound's slack stays inside the regime of models/regime.py;
     ``False`` the running-max kernel, exact for any weights.
@@ -350,9 +416,11 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
     stay f32, there as here). The kernels take any C (zero-padded to a
     multiple of 128; above 128 one pass per 128-wide output chunk) and any
     N."""
-    _expect_qkv(q, k, v)
-    b, n, c = q.shape
-    expect(compat, "compat", dtype=torch.int8, shape=(b, n, n), device=q.device)
+    b, nq, c = q.shape
+    n = k.shape[1]
+    rect = n != nq
+    _expect_qkv(q, k, v, rect)
+    expect(compat, "compat", dtype=torch.int8, shape=(b, nq, n), device=q.device)
     expect(src, "src", shape=(b, n, 3), device=q.device)
     expect(tgt, "tgt", shape=(b, n, 3), device=q.device)
     if mask is not None:
@@ -363,6 +431,11 @@ def fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=None, offset_softm
             return sc_attention_cached_offset_plain(q, k, v, compat, bias)
         return sc_attention_cached_plain(q, k, v, compat, bias)
     q, k, v = _kernel_operands(q, k, v)
+    if rect:
+        counter = sc_attention_cached_offset if offset_softmax else fused_sc_attention_cached
+        counter.launches += 1
+        return unpad_channels(_launch_sc_attention_rect(q, k, v, compat, bias, c,
+                                                        offset_softmax), c)
     if offset_softmax:
         sc_attention_cached_offset.launches += 1
         return unpad_channels(_launch_sc_attention_offset(q, k, v, compat, bias, c), c)

@@ -34,6 +34,7 @@ from pointdsc_tpu_torch.kernels._check import (
     pad_channels,
     unpad_channels,
 )
+from pointdsc_tpu_torch.parallel.distributed import global_sum, group_size
 
 OWN = 64  # rows a block of either kernel owns (csrc/sm_loss.cu); the tile side above C = 128
 TILE = 32  # rows of the tiles a block walks at C = 128
@@ -121,11 +122,12 @@ def pack_labels(gt_labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return strips
 
 
-def balance_weights(strips: torch.Tensor, balanced: bool):
+def balance_weights(strips: torch.Tensor, balanced: bool, group=None):
     """Per-sample multipliers (wp, wn) on the raw sums, chosen so that the
     assembled scalar equals the dense loss. Pair counts in closed form:
     off-diagonal positive pairs, and valid negative pairs with the diagonal
-    included, as in the dense denominators."""
+    included, as in the dense denominators. Under ``group`` the batch size
+    and the pair total are the global batch's."""
     s_gt = torch.sum(strips[:, 0], dim=-1)
     s_m = torch.sum(strips[:, 1], dim=-1)
     npos = s_gt * s_gt - s_gt
@@ -133,9 +135,9 @@ def balance_weights(strips: torch.Tensor, balanced: bool):
     denom_p = torch.clamp(npos - 1.0, min=0.0) + 1.0
     denom_n = torch.clamp(nneg - 1.0, min=0.0) + 1.0
     if balanced:
-        batch = float(strips.shape[0])
+        batch = float(strips.shape[0] * group_size(group))
         return 0.5 / (batch * denom_p), 0.5 / (batch * denom_n)
-    total = torch.clamp(torch.sum(npos + nneg), min=1.0)
+    total = torch.clamp(global_sum(torch.sum(npos + nneg), group), min=1.0)
     wp = torch.ones_like(denom_p) / total
     return wp, wp
 
@@ -280,17 +282,18 @@ class _FusedSMLoss(torch.autograd.Function):
 
 
 def fused_spectral_matching_loss(normed_features, sigma, gt_labels, mask=None,
-                                 balanced: bool = True):
+                                 balanced: bool = True, group=None):
     """The spectral-matching loss of ``train/losses.py`` on
     ``feature_similarity(normed_features, sigma)`` without forming M.
 
     normed_features [B, N, C] L2-normalised, sigma a one-element tensor (the
     model's parameter), gt_labels [B, N] 0/1, mask [B, N] bool or None.
-    Labels and mask carry no gradient."""
+    Labels and mask carry no gradient. Under ``group`` the loss is the
+    global batch's: each process's share, summed over the group."""
     f = normed_features
     gt = gt_labels.to(f.dtype)
     if mask is None:
         mask = torch.ones(gt.shape, dtype=torch.bool, device=gt.device)
     strips = pack_labels(gt, mask)
-    wp, wn = balance_weights(strips, balanced)
-    return _FusedSMLoss.apply(f, sigma, strips, wp, wn)
+    wp, wn = balance_weights(strips, balanced, group)
+    return global_sum(_FusedSMLoss.apply(f, sigma, strips, wp, wn), group)

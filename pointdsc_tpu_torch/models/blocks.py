@@ -38,9 +38,16 @@ class MaskedBatchNorm(nn.Module):
     advances running = 0.9 * running + 0.1 * new with that same biased
     variance (``nn.BatchNorm1d`` would store the unbiased one).
     ``update_stats=False`` normalises without advancing them: the second run
-    of a checkpointed layer."""
+    of a checkpointed layer.
+
+    ``process_group`` (set by the data-parallel Trainer, ``set_process_group``)
+    makes the training statistics those of the global batch, as JAX's
+    sharded step computes them: the count, the sum and the centred sum of
+    squares are summed over the group (autograd-aware), mean first, then the
+    variance about it. Without a group nothing changes."""
 
     momentum = 0.9
+    process_group = None
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -52,7 +59,13 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 update_stats: bool = True) -> torch.Tensor:
-        if self.training:
+        if self.training and self.process_group is not None:
+            mean, var = self._global_stats(x.float(), mask)
+            if update_stats:
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                    self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        elif self.training:
             xs = x.float()
             if mask is None:
                 mean = torch.mean(xs, dim=(0, 1))
@@ -75,6 +88,27 @@ class MaskedBatchNorm(nn.Module):
     def raw(self):
         """(scale, bias, mean, var), the order of the JAX holder."""
         return self.weight, self.bias, self.running_mean, self.running_var
+
+    def _global_stats(self, xs: torch.Tensor, mask: torch.Tensor | None):
+        """(mean, biased variance) over the valid entries of every process's
+        batch (``mask`` None: all entries)."""
+        from pointdsc_tpu_torch.parallel.distributed import global_sum
+
+        group = self.process_group
+        m = (torch.ones(xs.shape[:2], dtype=xs.dtype, device=xs.device) if mask is None
+             else mask.to(xs.dtype))[..., None]
+        count = torch.clamp(global_sum(torch.sum(m).detach(), group), min=1.0)
+        mean = global_sum(torch.sum(xs * m, dim=(0, 1)), group) / count
+        var = global_sum(torch.sum(((xs - mean) ** 2) * m, dim=(0, 1)), group) / count
+        return mean, var
+
+
+def set_process_group(module: nn.Module, group) -> None:
+    """Give every MaskedBatchNorm under ``module`` the process group over
+    which its training statistics are summed (None: the local batch)."""
+    for mod in module.modules():
+        if isinstance(mod, MaskedBatchNorm):
+            mod.process_group = group
 
 
 class ContextNorm(nn.Module):

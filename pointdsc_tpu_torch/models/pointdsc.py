@@ -191,8 +191,15 @@ class PointDSC(nn.Module):
 
     @full_f32_matmul()
     def forward(self, corr_pos, src_keypts, tgt_keypts, mask=None, testing: bool = True,
-                fused: bool = True, skip_M: bool = False) -> PointDSCOutput:
-        """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool."""
+                fused: bool = True, skip_M: bool = False,
+                precomputed_features: torch.Tensor | None = None) -> PointDSCOutput:
+        """corr_pos [B, N, in_dim], src/tgt [B, N, 3], mask [B, N] bool.
+
+        ``precomputed_features`` [B, N, C] stands in for the encoder's output
+        (the sequence-parallel encoder of parallel/seq_parallel.py runs it
+        row-sharded over a mesh): no compat matrix or cache is built and the
+        seed NMS runs from the coordinates, as in JAX
+        (``pointdsc_tpu/models/pointdsc.py:119-124,209-210``)."""
         train = self.training
         corr_pos = corr_pos.float().contiguous()
         src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
@@ -206,7 +213,9 @@ class PointDSC(nn.Module):
         # ---- Step 1: spatial consistency, shared by all attention layers
         attention_fn, fused_layer_fn = None, None
         compat, src_dist = None, None
-        if fused and not train and self.fused_cache_compat:
+        if precomputed_features is not None:
+            pass  # the encoder ran outside: nothing [N, N] here, NMS from coordinates
+        elif fused and not train and self.fused_cache_compat:
             cache = build_compat_cache_int8(src_keypts, tgt_keypts, self.sigma_d, mask=mask_arg)
             offset = self.offset_softmax
 
@@ -238,11 +247,14 @@ class PointDSC(nn.Module):
             compat, src_dist = spatial_consistency(src_keypts, tgt_keypts, self.sigma_d,
                                                    mask=mask)
 
-        corr_features = self.encoder(
-            corr_pos, compat, mask=mask, attention_fn=attention_fn,
-            fused_layer_fn=fused_layer_fn,
-            compute_dtype=torch.bfloat16 if self.half_precision else None,
-            remat=self.remat)
+        if precomputed_features is not None:
+            corr_features = precomputed_features
+        else:
+            corr_features = self.encoder(
+                corr_pos, compat, mask=mask, attention_fn=attention_fn,
+                fused_layer_fn=fused_layer_fn,
+                compute_dtype=torch.bfloat16 if self.half_precision else None,
+                remat=self.remat)
         feat_sq = torch.sum(corr_features * corr_features, dim=-1, keepdim=True)
         normed_features = corr_features / torch.sqrt(feat_sq + 1e-12)
         # a half-precision encoder hands on bf16; everything after it is f32
@@ -264,7 +276,7 @@ class PointDSC(nn.Module):
 
         if not testing:
             seeds = pick_seeds_topk(confidence.detach(), num_seeds, mask=mask)
-        elif fused:
+        elif src_dist is None:  # the fused path, or an encoder run outside
             seeds = pick_seeds_nms_prefiltered(src_keypts, confidence, self.nms_radius,
                                                num_seeds, mask=mask)
         else:

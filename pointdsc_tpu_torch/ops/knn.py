@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from pointdsc_tpu_torch.ops.linalg import sqrt_rn
+
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
     """Squared Euclidean distances [..., N, M] between x [..., N, C] and y
@@ -19,20 +21,21 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.T
     return torch.clamp(xx[..., :, None] + yy[..., None, :] - 2.0 * inner, min=0.0)
 
 
-def pairwise_dists_exact(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean distances [..., N, N] in the difference form
-    sqrt(sum((x_i - x_j)^2)): exact for low-dimensional points, where the
-    gram expansion loses ~1e-4 to cancellation. The coordinates are summed
-    in order, one [..., N, N] term at a time (the order XLA uses, and no
-    [..., N, N, C] tensor)."""
+def pairwise_dists_exact(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """Euclidean distances [..., N, M] from x [..., N, C] to y [..., M, C]
+    (y = x when None) in the difference form sqrt(sum((x_i - y_j)^2)):
+    exact for low-dimensional points, where the gram expansion loses ~1e-4
+    to cancellation. The coordinates are summed in order, one [..., N, M]
+    term at a time (the order XLA uses, and no [..., N, M, C] tensor)."""
+    if y is None:
+        y = x
     sq = 0.0
     for c in range(x.shape[-1]):
-        d = x[..., :, None, c] - x[..., None, :, c]
+        d = x[..., :, None, c] - y[..., None, :, c]
         sq = sq + d * d
     # torch's vectorised CPU sqrt can be 1 ulp off, which 1/sigma_d^2 turns
-    # into ~5e-6 of compat; a float64 sqrt rounded to float32 is the
-    # correctly rounded float32 sqrt
-    return torch.sqrt(sq.double()).to(sq.dtype)
+    # into ~5e-6 of compat
+    return sqrt_rn(sq)
 
 
 

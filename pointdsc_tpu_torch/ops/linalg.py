@@ -6,11 +6,46 @@ closed-form dominant eigenpair of batched symmetric 4x4 matrices.
 Kept as the same algorithms, not ``torch.linalg.eigh``: the sweeps, the
 Newton steps, the adjugate column and the degenerate fallback to e0 decide
 the numbers that the JAX package gives, and the port is held to them.
+
+The Jacobi rotations are also rounded as the JAX package's CPU run rounds
+them, so that a rank-deficient matrix (a normal from two neighbours: which
+vector of the null plane comes out is decided by rounding) gives the same
+eigenvectors: each square root correctly rounded (``sqrt_rn``; PyTorch's CPU
+``sqrt`` of float32 is not, in ~0.6% of cases), and each 3-deep matrix
+product as XLA's CPU dot forms it (``fma_matmul``).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float32 ``x`` (through float64,
+    whose 53 bits make the second rounding exact), on the CPU as on the
+    card."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def fma_chain(terms) -> torch.Tensor:
+    """sum_k a_k b_k over float32 pairs (a_k, b_k) as XLA's CPU dot and
+    einsum form it: the first product rounded, then one fused multiply-add
+    per term, in order. The fused multiply-add is emulated in float64, where
+    the product of two float32 values is exact, and rounded once to float32."""
+    terms = iter(terms)
+    a, b = next(terms)
+    acc = a * b
+    for a, b in terms:
+        acc = (a.double() * b.double() + acc.double()).to(a.dtype)
+    return acc
+
+
+def fma_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Batched x @ y [..., n, m] @ [..., m, p], every entry an ``fma_chain``
+    over the inner dimension."""
+    cols = [[fma_chain((x[..., i, k], y[..., k, j]) for k in range(x.shape[-1]))
+             for j in range(y.shape[-1])] for i in range(x.shape[-2])]
+    return torch.stack([torch.stack(row, dim=-1) for row in cols], dim=-2)
 
 
 def _jacobi_rotation_pair(A: torch.Tensor, V: torch.Tensor, p: int, q: int):
@@ -23,9 +58,9 @@ def _jacobi_rotation_pair(A: torch.Tensor, V: torch.Tensor, p: int, q: int):
     app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
     d = aqq - app
     sgn_d = torch.where(d >= 0, 1.0, -1.0).to(A.dtype)
-    hyp = torch.sqrt(4.0 * apq * apq + d * d + 1e-36)
+    hyp = sqrt_rn(4.0 * apq * apq + d * d + 1e-36)
     t = 2.0 * apq * sgn_d / (torch.abs(d) + hyp)
-    c = 1.0 / torch.sqrt(1.0 + t * t)
+    c = 1.0 / sqrt_rn(1.0 + t * t)
     s = t * c
 
     G = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
@@ -33,8 +68,8 @@ def _jacobi_rotation_pair(A: torch.Tensor, V: torch.Tensor, p: int, q: int):
     G[..., q, q] = c
     G[..., p, q] = s
     G[..., q, p] = -s
-    A_new = G.transpose(-1, -2) @ A @ G
-    V_new = V @ G
+    A_new = fma_matmul(fma_matmul(G.transpose(-1, -2), A), G)
+    V_new = fma_matmul(V, G)
     A_new[..., p, q] = 0.0
     A_new[..., q, p] = 0.0
     return A_new, V_new

@@ -79,7 +79,8 @@ class Config:
     pretrain: str = ""
 
     # Execution (not in the reference)
-    num_devices: int = 0  # 0 or 1: one card (the Trainer refuses more)
+    # data-parallel processes (torch.distributed), 0 = the whole world (1 without one)
+    num_devices: int = 0
     half_precision: bool = False  # bf16 activations in the encoder
     fused_attention: bool = False  # attention kernels with backward kernels, no [B,N,N]
     fused_sm_loss: bool = False  # tile-wise SM-loss kernels (no [B,N,N])

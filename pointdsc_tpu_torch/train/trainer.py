@@ -14,6 +14,22 @@ Kept from the reference and the JAX package:
 
 The finite-gradient check costs one host read per step, the only one: the
 metrics stay on the device between log points.
+
+Data parallelism over ``torch.distributed`` (one process a card, the default
+group from parallel/distributed.py::initialize) keeps JAX's rule: a step is
+the single-device step on the global batch. The Trainer uses the largest
+count of processes, at most ``num_devices`` (0: the whole world), that
+divides ``batch_size``, and runs on the subgroup of the first that many
+ranks; a rank beyond them holds no samples and sits the steps out. Every
+rank of the subgroup loads the same global batch from the same seeded loader
+and keeps its own slice (``to_device``); the BatchNorm statistics and every
+loss and metric are sums over the subgroup (models/blocks.py,
+train/losses.py), so every rank computes the global loss, whose gradient
+reaches each rank's slice D times over (the all-reduce's backward is an
+all-reduce), and ``DistributedDataParallel``'s average over the D ranks
+gives back the global gradient. The non-finite guard is the subgroup's: one
+rank's non-finite gradient skips the step on all. Rank 0 alone prints, logs
+and saves checkpoints.
 """
 
 from __future__ import annotations
@@ -23,11 +39,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from pointdsc_tpu_torch._device import resolve_device
 from pointdsc_tpu_torch.compat import flax_msgpack
 from pointdsc_tpu_torch.compat.weights import from_flax_variables, to_flax_variables
 from pointdsc_tpu_torch.kernels.sm_loss import fused_spectral_matching_loss
+from pointdsc_tpu_torch.models.blocks import set_process_group
 from pointdsc_tpu_torch.models.pointdsc import PointDSC
 from pointdsc_tpu_torch.train.config import Config
 from pointdsc_tpu_torch.train.losses import (
@@ -71,14 +90,32 @@ def make_optimizer(cfg: Config, params, steps_per_epoch: int):
 class Trainer:
     def __init__(self, cfg: Config, model: PointDSC | None = None,
                  device: str | torch.device = "cuda"):
-        if cfg.num_devices > 1:
-            raise NotImplementedError(
-                "num_devices > 1: data-parallel training over several cards is not ported "
-                "(ROADMAP.md, Queue A 12)")
+        """Without an initialized ``torch.distributed`` the Trainer runs on
+        ``device`` alone; with one, on the subgroup of the first
+        ``replicas`` ranks (the module's notes), ``device`` being this
+        process's card."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model
-        self.logger = MetricsLogger(cfg.tboard_dir) if cfg.tboard_dir else None
+        distributed = dist.is_available() and dist.is_initialized()
+        world, self.rank = (dist.get_world_size(), dist.get_rank()) if distributed else (1, 0)
+        if cfg.num_devices > world:
+            raise ValueError(
+                f"num_devices={cfg.num_devices}: training on several cards needs as many "
+                f"torch.distributed processes (parallel/distributed.py::initialize); the world "
+                f"has {world}")
+        n_avail = cfg.num_devices or world
+        # JAX's rule: the largest process count that divides the batch
+        self.replicas = max(d for d in range(1, n_avail + 1) if cfg.batch_size % d == 0)
+        self.active = self.rank < self.replicas
+        self.is_main = self.rank == 0
+        self.group = None
+        if distributed:
+            group = dist.group.WORLD if self.replicas == world else dist.new_group(
+                list(range(self.replicas)))  # every rank takes part in new_group
+            self.group = group if self.active else None
+        self._ddp = None
+        self.logger = MetricsLogger(cfg.tboard_dir) if cfg.tboard_dir and self.is_main else None
 
     # ------------------------------------------------------------------
     def init_state(self, steps_per_epoch: int, seed: int = 0) -> TrainState:
@@ -99,39 +136,55 @@ class Trainer:
         state = TrainState(model, optimizer, scheduler, 0)
         if cfg.pretrain:
             state = self.load_checkpoint(cfg.pretrain, state)
+        if self.group is not None:
+            # the BatchNorms sum their statistics over the group, so DDP need
+            # not broadcast buffers; every parameter takes part in the loss
+            # (sigma through the SM loss, dense or fused)
+            set_process_group(model, self.group)
+            self._ddp = DistributedDataParallel(
+                model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                process_group=self.group, broadcast_buffers=False,
+                find_unused_parameters=False)
         return state
 
     def to_device(self, batch: dict) -> dict:
-        """A collated numpy batch as tensors on the Trainer's device."""
+        """A collated numpy batch as tensors on the Trainer's device: the
+        whole batch, or under data parallelism this rank's slice of it."""
+        if self.group is not None:
+            per = self.cfg.batch_size // self.replicas
+            lo = per * dist.get_rank(self.group)
+            batch = {k: np.asarray(v)[lo:lo + per] for k, v in batch.items()}
         return {k: torch.as_tensor(v).to(device=self.device,
                                          dtype=_BATCH_DTYPES.get(k, torch.float32))
                 for k, v in batch.items()}
 
     # ------------------------------------------------------------------
-    def _losses(self, model: PointDSC, batch: dict):
-        """Forward in the model's current mode and the three losses; returns
-        (output, class_loss, sm_loss, transformation-loss tuple)."""
-        cfg = self.cfg
+    def _losses(self, model, batch: dict):
+        """Forward in the model's current mode (``model``: the module, or its
+        DDP wrapper) and the three losses, of the global batch under data
+        parallelism; returns (output, class_loss, sm_loss,
+        transformation-loss tuple)."""
+        cfg, group = self.cfg, self.group
         out = model(batch["corr_pos"], batch["src_keypts"], batch["tgt_keypts"],
                     mask=batch["mask"], testing=False, fused=cfg.fused_attention,
                     skip_M=cfg.fused_sm_loss)
         gt_labels, mask = batch["gt_labels"], batch["mask"]
         class_loss = classification_loss(out.final_labels, gt_labels, mask,
-                                         balanced=cfg.balanced)
+                                         balanced=cfg.balanced, group=group)
         # the reference wires config.balanced into both losses
         if cfg.fused_sm_loss:
             sm_loss = fused_spectral_matching_loss(out.normed_features, out.sigma, gt_labels,
-                                                   mask, cfg.balanced)
+                                                   mask, cfg.balanced, group=group)
         else:
-            sm_loss = spectral_matching_loss(out.M, gt_labels, mask, balanced=cfg.balanced)
+            sm_loss = spectral_matching_loss(out.M, gt_labels, mask, balanced=cfg.balanced,
+                                             group=group)
         tl = transformation_loss(out.final_trans, batch["gt_trans"], batch["src_keypts"],
                                  batch["tgt_keypts"], out.final_labels, mask,
-                                 re_thre=cfg.re_thre, te_thre=cfg.te_thre)
+                                 re_thre=cfg.re_thre, te_thre=cfg.te_thre, group=group)
         return out, class_loss, sm_loss, tl
 
-    @staticmethod
-    def _metrics(out, gt_labels, mask, class_loss, sm_loss, tl) -> dict:
-        cm = classification_metrics(out.final_labels, gt_labels, mask)
+    def _metrics(self, out, gt_labels, mask, class_loss, sm_loss, tl) -> dict:
+        cm = classification_metrics(out.final_labels, gt_labels, mask, group=self.group)
         metrics = {"class_loss": class_loss, "sm_loss": sm_loss, "trans_loss": tl.loss,
                    "reg_recall": tl.recall, "re": tl.re, "te": tl.te, **cm}
         return {k: v.detach() for k, v in metrics.items()}
@@ -143,7 +196,8 @@ class Trainer:
         model, optimizer, scheduler, step = state
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out, class_loss, sm_loss, tl = self._losses(model, batch)
+        out, class_loss, sm_loss, tl = self._losses(
+            model if self._ddp is None else self._ddp, batch)
         loss = cfg.weight_classification * class_loss + cfg.weight_spectralmatching * sm_loss
         # static: without it the backward graph ends at the two losses above
         if cfg.weight_transformation > 0.0 and epoch > cfg.transformation_loss_start_epoch:
@@ -154,7 +208,7 @@ class Trainer:
         for p in params:  # a parameter off the graph still decays, as a zero gradient would
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
+        finite = self.grads_finite(params)
         if bool(finite):  # the step's one host read
             optimizer.step()
             scheduler.step()
@@ -163,6 +217,17 @@ class Trainer:
         metrics["loss"] = loss.detach()
         metrics["grad_finite"] = finite.float()
         return TrainState(model, optimizer, scheduler, step + 1), metrics
+
+    def grads_finite(self, params) -> torch.Tensor:
+        """0-d bool: every gradient of ``params`` finite, on every rank of
+        the data-parallel group (one rank's non-finite gradient skips the
+        step on all, or the replicas would part)."""
+        finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
+        if self.group is not None:
+            flag = finite.float()
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+            finite = flag > 0
+        return finite
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict) -> dict:
@@ -176,10 +241,16 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train(self, train_loader, val_loader, state: TrainState) -> TrainState:
+        """The epochs, evaluations and snapshots; a rank that holds no
+        samples (the module's notes) returns the state as it is."""
         cfg = self.cfg
         best_recall = -1.0
+        if not self.active:
+            return state
 
         def report(epoch, res):
+            if not self.is_main:
+                return
             print(f"Evaluation: Epoch {epoch}: SM Loss {res['sm_loss']:.2f} "
                   f"Class Loss {res['class_loss']:.2f} Trans Loss {res['trans_loss']:.2f} "
                   f"Recall {res['reg_recall']:.2f}")
@@ -194,14 +265,17 @@ class Trainer:
                     self.logger.log_dict("Val", res, epoch + 1)
                 if res["reg_recall"] > best_recall:
                     best_recall = res["reg_recall"]
-                    self.save_checkpoint(state, "best")
-            if (epoch + 1) % cfg.snapshot_interval == 0:
+                    if self.is_main:
+                        self.save_checkpoint(state, "best")
+            if (epoch + 1) % cfg.snapshot_interval == 0 and self.is_main:
                 self.save_checkpoint(state, epoch + 1)
         return state
 
     # ------------------------------------------------------------------
     def train_epoch(self, loader, state: TrainState, epoch: int) -> TrainState:
         cfg = self.cfg
+        if not self.active:
+            return state
         meters = {k: AverageMeter() for k in (
             "loss", "class_loss", "sm_loss", "trans_loss", "reg_recall",
             "re", "te", "precision", "recall", "f1", "grad_finite")}
@@ -239,7 +313,7 @@ class Trainer:
                 drain()  # waits until the device has caught up
             model_timer.toc()
 
-            if log_now and cfg.verbose:
+            if log_now and cfg.verbose and self.is_main:
                 if self.logger:
                     self.logger.log_dict("Train", {k: m.avg for k, m in meters.items()},
                                          (epoch - 1) * num_iter + i)
@@ -255,7 +329,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def evaluate(self, loader, state: TrainState) -> dict:
         """Mean of every finite metric over ``min(val_max_iter, len(loader))``
-        batches."""
+        batches (of the global batch under data parallelism; {} on a rank
+        that holds no samples)."""
+        if not self.active:
+            return {}
         it = iter(loader)
         num_iter = min(self.cfg.val_max_iter, len(loader))
         pending = [self.eval_step(state, self.to_device(next(it))) for _ in range(num_iter)]
@@ -301,7 +378,8 @@ class Trainer:
             saved = _unpack_tree(saved)
             state.optimizer.load_state_dict(saved["optimizer"])
             state.scheduler.load_state_dict(saved["scheduler"])
-        print(f"Load model from {path}")
+        if self.is_main:
+            print(f"Load model from {path}")
         return state._replace(step=int(raw.get("step", 0)))
 
 

@@ -16,8 +16,9 @@ Held:
     float32);
   * the log and ``.npy`` names are the JAX CLI's;
   * ``--solver RANSAC`` runs, its stats the Evaluator's with the RANSAC
-    solver; ``--sharded`` and ``--sp`` raise NotImplementedError, and a CLI
-    left at ``--device cuda`` raises without a card;
+    solver; ``--sharded`` and ``--sp`` run on a mesh of the CPU device, their
+    stats the Evaluator's sharded run and sp-mesh run; a CLI left at
+    ``--device cuda`` raises without a card;
   * the train CLIs write a ``config.json`` that both packages' ``Config.load``
     read to the same fields, the source copies, and a checkpoint that
     ``load_model_weights`` reads; their train Loader batches equal the JAX
@@ -138,8 +139,10 @@ def assert_stats_close(out, ref):
     np.testing.assert_allclose(out[:, 2], ref[:, 2], atol=1e-3)
 
 
-def assert_same_as_evaluator(stats, model_cfg, snapshot, dataset, scene_of=None, **ev_kw):
-    """The CLI's stats against the port's Evaluator on the port's dataset."""
+def assert_same_as_evaluator(stats, model_cfg, snapshot, dataset, scene_of=None,
+                             sharded=False, **ev_kw):
+    """The CLI's stats against the port's Evaluator on the port's dataset
+    (``run_dataset_sharded`` with ``sharded``)."""
     model = PointDSC(in_dim=model_cfg.in_dim, num_layers=model_cfg.num_layers,
                      num_channels=model_cfg.num_channels, num_iterations=model_cfg.num_iterations,
                      ratio=model_cfg.ratio, sigma_d=model_cfg.sigma_d, k=model_cfg.k,
@@ -148,7 +151,8 @@ def assert_same_as_evaluator(stats, model_cfg, snapshot, dataset, scene_of=None,
     load_model_weights(model, os.path.join(snapshot, "models", "model_best.pkl"))
     ev = Evaluator(model, re_thre=model_cfg.re_thre, te_thre=model_cfg.te_thre, device="cpu",
                    icp_threshold=model_cfg.inlier_threshold, **ev_kw)
-    ref, _ = ev.run_dataset(dataset, scene_of=scene_of, verbose=False)
+    run = ev.run_dataset_sharded if sharded else ev.run_dataset
+    ref, _ = run(dataset, scene_of=scene_of, verbose=False)
     keep = [c for c in range(12) if c not in TIME_COLUMNS]
     np.testing.assert_array_equal(stats[:, keep], ref[:, keep])
 
@@ -270,32 +274,40 @@ def refusal_dir(data):
 
 @pytest.mark.parametrize("cli,flag", REFUSED)
 def test_cli_refuses_unported(data, refusal_dir, monkeypatch, cli, flag):
-    """The Evaluator's NotImplementedErrors reach the user: --sharded needs
-    several cards, --sp the sequence-parallel encoder (ROADMAP Queue A).
-    ``--solver RANSAC``, refused until the classical baselines were ported,
-    now runs: its stats are the Evaluator's with the RANSAC solver, written
-    under the JAX CLI's log name."""
+    """The flags once refused now run. ``--solver RANSAC`` (refused until the
+    classical baselines were ported): its stats are the Evaluator's with the
+    RANSAC solver, written under the JAX CLI's log name. ``--sharded`` and
+    ``--sp`` (refused until the multi-device layer was ported) run on a mesh
+    of the one CPU device under ``--device cpu``: their stats equal, in every
+    column but the two times, the Evaluator's ``run_dataset_sharded`` and
+    the Evaluator with that ``sp_mesh``."""
     monkeypatch.chdir(refusal_dir)
     main, snap, extra = CLIS[cli]
     argv = ["--chosen_snapshot", snap, "--device", "cpu"] + extra
     argv += {"RANSAC": ["--solver", "RANSAC"], "sharded": ["--sharded", "true"],
              "sp": ["--sp", "true"]}[flag]
-    if flag != "RANSAC":
-        with pytest.raises(NotImplementedError):
-            main(argv)
-        return
     stats, agg = main(argv)
+    ev_kw = {"RANSAC": {"solver": "RANSAC"}, "sharded": {"sharded": True},
+             "sp": {"sp_mesh": [torch.device("cpu")]}}[flag]
     if cli == "3DMatch":
-        log = "logs/itest-RANSAC-fcgf.log"
         cfg = t_config.Config.load("snapshot/itest/config.json")
         ds = t_3dm.ThreeDMatchTest(data["3dmatch"], device="cpu")
         assert_same_as_evaluator(stats, cfg, "snapshot/itest", ds, scene_of=ds.scene_of,
-                                 solver="RANSAC")
+                                 **ev_kw)
+    elif cli == "KITTI":
+        assert_same_as_evaluator(stats, *kitti_reference(data), **ev_kw)
     else:
-        log = "logs/ktest-RANSAC-fcgf-KITTI.log"
-        assert_same_as_evaluator(stats, *kitti_reference(data), solver="RANSAC")
-    assert os.path.exists(log) and stats.shape == (3, 12) and np.isfinite(stats).all()
-    assert agg["pair_recall"] >= 200 / 3
+        cfg = t_config.Config.load("snapshot/itest/config.json")
+        ds = t_3dm.ThreeDLoMatchTest(data["3dmatch"], num_node=256, device="cpu")
+        assert_same_as_evaluator(stats, cfg, "snapshot/itest", ds, **ev_kw)
+    assert np.isfinite(stats).all() and stats.shape[0] in (2, 3)
+    if flag == "RANSAC":
+        log = {"3DMatch": "logs/itest-RANSAC-fcgf.log",
+               "KITTI": "logs/ktest-RANSAC-fcgf-KITTI.log"}[cli]
+        assert os.path.exists(log) and stats.shape == (3, 12)
+        assert agg["pair_recall"] >= 200 / 3
+    if flag == "sharded":
+        assert agg["model_time_semantics"].startswith("batch-amortized")
 
 
 @pytest.mark.parametrize("cli", list(CLIS) + ["train_3DMatch", "train_KITTI"])

@@ -276,18 +276,24 @@ def test_evaluator_second_pair_violation_flips(small):
 
 
 @pytest.mark.parametrize("kw", [{"solver": "RANSAC"}, {"solver": "RANSAC", "use_icp": True},
-                                {"sp_mesh": object()}])
+                                {"sp_mesh": ["cpu", "cpu"]}])
 def test_evaluator_refuses_what_is_not_ported(small, kw):
-    """The sequence-parallel mesh raises, naming the module it needs.
-    solver='RANSAC', refused until the classical baselines were ported, now
-    runs, with or without ICP: it registers the pair and re-solves the
-    model's transform by RANSAC on the model's inliers (4096 hypotheses from
-    a generator seeded 51 on every forward, so a second run is the same)."""
+    """What was refused until it was ported now runs. The sequence-parallel
+    mesh (refused until parallel/seq_parallel.py was ported): the pair's
+    encoder row-sharded over two entries of the CPU gives the transform and
+    labels of the Evaluator without a mesh (within 1e-4; the dense encoder's
+    semantics, f32 sums over the same rows). solver='RANSAC' (refused until
+    the classical baselines were ported), with or without ICP: it registers
+    the pair and re-solves the model's transform by RANSAC on the model's
+    inliers (4096 hypotheses from a generator seeded 51 on every forward, so
+    a second run is the same)."""
     if "sp_mesh" in kw:
-        model = PointDSC(num_layers=1, num_channels=16, device="cpu")
-        with pytest.raises(NotImplementedError, match="seq_parallel"):
-            Evaluator(model, device="cpu", **kw)
-        Evaluator(model, device="cpu", use_icp=True, icp_threshold=0.2)
+        _, sv, s = small
+        model = to_torch_model(sv, num_layers=3, k=20)
+        row, trans = Evaluator(model, device="cpu", **kw).run_pair(dict(s))
+        ref_row, ref = Evaluator(model, device="cpu").run_pair(dict(s))
+        assert row[0] == ref_row[0] == 1.0
+        assert np.abs(trans - ref).max() < 1e-4
         return
     _, sv, s = small
     model = to_torch_model(sv, num_layers=3, k=20)
@@ -302,9 +308,12 @@ def test_evaluator_refuses_what_is_not_ported(small, kw):
 
 
 def test_evaluator_refuses_sharded_and_unknown_solver():
+    """Sharded evaluation runs since parallel/ was ported (its tests:
+    test_torch_sharded_eval.py); what is refused is a mesh without a device,
+    and an unknown solver."""
     model = PointDSC(num_layers=1, num_channels=16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Evaluator(model, device="cpu").run_dataset_sharded([])
+    with pytest.raises(ValueError, match="at least one device"):
+        Evaluator(model, device="cpu").run_dataset_sharded([], mesh=[])
     with pytest.raises(ValueError):
         Evaluator(model, device="cpu", solver="LM")
 

@@ -1881,3 +1881,107 @@ def test_fcgf_conv_traps_on_card(dev, size):
             out = fn(mod.to(dev), x.to(dev))
             assert out.shape == (2, 4, shape, shape, shape)
             torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The rectangular forms of the int8 cache and the cached attentions: a row
+# shard of the sequence-parallel encoder (parallel/seq_parallel.py), nq query
+# rows over all nk keys.
+
+RECT_SHAPES = [(1, 31), (31, 513), (513, 5000), (5000, 1), (5000, 513)]
+
+
+def rect_clouds(nq, nk, b, dev, seed=3):
+    """Row clouds [b, nq, 3] and column clouds [b, nk, 3] of one synthetic
+    scene (the rows the columns' last nq points where nq <= nk, so that the
+    square cache of the columns holds them), and the columns' mask (the
+    second sample's last 5% padded, at least one key and never all)."""
+    m = max(nq, nk)
+    ex = [SyntheticPairDataset(num_pairs=b, num_corr=m, seed=seed)[i] for i in range(b)]
+    src = torch.as_tensor(np.stack([e["src_keypts"] for e in ex])).to(dev)
+    tgt = torch.as_tensor(np.stack([e["tgt_keypts"] for e in ex])).to(dev)
+    cols = src[:, :nk].contiguous(), tgt[:, :nk].contiguous()
+    rows = src[:, m - nq:].contiguous(), tgt[:, m - nq:].contiguous()
+    mask = torch.ones((b, nk), dtype=torch.bool, device=dev)
+    if b > 1 and nk > 1:
+        mask[1, nk - max(1, nk // 20):] = False
+    return rows, cols, mask
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("nq,nk", RECT_SHAPES)
+def test_rect_compat_cache(dev, nq, nk, b):
+    """The [b, nq, nk] slice in one launch of the rectangular kernel: within
+    one count of the plain version on at most 0.1% of entries (the square
+    rule), and where the rows are columns too, the square kernel's bytes on
+    those rows exactly (the same entry, compat_tile.cuh)."""
+    (sr, tr), (sc, tc), mask = rect_clouds(nq, nk, b, dev)
+    coef = katt.cache_coef(0.1)
+    before = katt.build_compat_cache_int8.launches
+    out = katt.build_compat_cache_int8(sr, tr, 0.1, mask=mask, src_cols=sc, tgt_cols=tc)
+    assert katt.build_compat_cache_int8.launches == before + 1
+    assert out.shape == (b, nq, nk) and out.dtype == torch.int8
+    plain = katt.compat_cache_plain(katt.pack_geometry(sr, tr), coef,
+                                    katt.pack_geometry(sc, tc, mask))
+    diff = (out.int() - plain.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 1).float().mean()) <= 1e-3
+    if nq <= nk:
+        square = katt._launch_compat_cache(sc, tc, coef)
+        assert torch.equal(out, square[:, nk - nq:])
+
+
+@pytest.mark.parametrize("offset", [True, False])
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("nq,nk", RECT_SHAPES)
+def test_rect_sc_attention(dev, nq, nk, b, c, offset):
+    """q [b, nq, c] over k, v [b, nk, c] and the [b, nq, nk] cache through
+    ``fused_sc_attention_cached``: one launch of the rectangular kernel
+    (counted as the square form's), held to the plain version of the bf16
+    inputs at the square kernels' atol = rtol = 2e-3, the offset's bound over
+    all nk keys; masked keys carry exactly zero weight. Over few keys a p on a
+    bf16 rounding boundary weighs more: at nk = 1 the output is one term,
+    which the two versions' roundings of p move by up to 2^-7 relative, so
+    rtol is the larger of 2e-3 and 2^-6 / nk."""
+    (sr, tr), (sc, tc), mask = rect_clouds(nq, nk, b, dev)
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((b, nq, c), generator=gen).to(dev).bfloat16()
+    k, v = (torch.randn((b, nk, c), generator=gen).to(dev).bfloat16() for _ in range(2))
+    cache = katt.compat_cache_plain(katt.pack_geometry(sr, tr), katt.cache_coef(0.1),
+                                    katt.pack_geometry(sc, tc, mask))
+    counter = katt.sc_attention_cached_offset if offset else katt.fused_sc_attention_cached
+    before = counter.launches
+    out = katt.fused_sc_attention_cached(q, k, v, cache, sc, tc, mask=mask,
+                                         offset_softmax=offset)
+    assert counter.launches == before + 1
+    bias = katt.key_bias(mask, b, nk, dev)
+    plain = katt.sc_attention_cached_offset_plain if offset else katt.sc_attention_cached_plain
+    ref = plain(q, k, v, cache, bias, c=c)
+    assert out.shape == (b, nq, c)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=max(2e-3, 2 ** -6 / nk))
+    if b > 1 and nk > 1:
+        v2 = v.clone()
+        v2[1, ~mask[1]] = 1e6
+        out2 = katt.fused_sc_attention_cached(q, k, v2, cache, sc, tc, mask=mask,
+                                              offset_softmax=offset)
+        assert torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("offset", [True, False])
+def test_rect_rows_are_square_rows(dev, offset):
+    """The square calls are unchanged: at nq = nk the wrapper launches the
+    square kernel; a row shard of the same inputs through the rectangular
+    kernel gives the square call's rows (within 1e-6: the same loop on the
+    same rows)."""
+    n, lo, nq = 2048, 640, 512
+    src, tgt, mask, _ = pair(n, dev)
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((B, n, 128), generator=gen).to(dev).bfloat16() for _ in range(3))
+    cache = katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
+    full = katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
+                                          offset_softmax=offset)
+    part = katt.fused_sc_attention_cached(q[:, lo:lo + nq].contiguous(), k, v,
+                                          cache[:, lo:lo + nq].contiguous(), src, tgt,
+                                          mask=mask, offset_softmax=offset)
+    torch.testing.assert_close(part, full[:, lo:lo + nq], atol=1e-6, rtol=1e-6)

@@ -244,7 +244,9 @@ def test_skipped_step_changes_only_the_running_statistics():
 
 
 def test_trainer_refuses_several_devices():
-    with pytest.raises(NotImplementedError, match="several cards"):
+    """More devices than torch.distributed processes (here none: a world of
+    one) is refused, not run on fewer."""
+    with pytest.raises(ValueError, match="several cards"):
         Trainer(small_config(Config, num_devices=4), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(small_config(Config))
