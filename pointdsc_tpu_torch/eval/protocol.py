@@ -163,9 +163,13 @@ def format_scene_report(agg: dict) -> str:
         f"recall={agg['output_recall']:.4f}, f1={agg['output_f1']:.4f}"
     )
     note = agg.get("model_time_semantics")
+    counters = agg.get("counters")  # the Evaluator's, where it ran the pairs
     lines.append(
         f"Avg model time: {agg['model_time']*1000:.2f}ms"
         + (f" [{note}]" if note else "")
         + f", data time: {agg['data_time']*1000:.2f}ms"
+        + (f" | regime guard: probes={counters['probes']}, flips={counters['flips']}, "
+           f"unprobed_offset_forwards={counters['unprobed_offset_forwards']}"
+           if counters else "")
     )
     return "\n".join(lines)

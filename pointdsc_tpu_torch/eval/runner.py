@@ -21,6 +21,16 @@ With ``sp_mesh`` (a list of devices, parallel/mesh.py) every pair's encoder
 runs row-sharded over the mesh (parallel/seq_parallel.py), and
 ``run_dataset_sharded`` fans the pairs out over a mesh, a batch of
 ``len(mesh)`` pairs at a time, one model replica on each distinct device.
+
+``Evaluator.counters`` counts, as plain host integers, the pairs run, the
+discarded warm-up forwards, the guard's probes and flips, and
+``unprobed_offset_forwards``: timed forwards run on the offset softmax after
+the guard stopped probing, on pairs nobody checked against its regime (a
+sharded batch counts once).
+``run_dataset`` and ``run_dataset_sharded`` put them in their aggregate. Under
+a running profiler each pair is one ``pointdsc.eval.pair`` span (utils/trace.py)
+over the stage spans of its padding, copies, probe, warm-up, drain, read-back
+and stats.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import torch
 
 from pointdsc_tpu_torch._device import resolve_device
 from pointdsc_tpu_torch.baselines.classical import ransac_registration
-from pointdsc_tpu_torch.data.pipeline import pad_to_bucket
+from pointdsc_tpu_torch.data.pipeline import bucket_size, pad_to_bucket
 from pointdsc_tpu_torch.eval.protocol import aggregate_stats, pair_stats
 from pointdsc_tpu_torch.models.pointdsc import PointDSC
 from pointdsc_tpu_torch.models.regime import select_attention_kernels
@@ -40,6 +50,7 @@ from pointdsc_tpu_torch.ops.icp import icp_point_to_point
 from pointdsc_tpu_torch.parallel.mesh import canonical, make_mesh, shard_batch
 from pointdsc_tpu_torch.parallel.seq_parallel import sp_encode, sp_encode_fused
 from pointdsc_tpu_torch.utils.timer import Timer
+from pointdsc_tpu_torch.utils.trace import span
 
 _INPUTS = (("corr_pos", torch.float32), ("src_keypts", torch.float32),
            ("tgt_keypts", torch.float32), ("mask", torch.bool))
@@ -82,6 +93,8 @@ class Evaluator:
         self._warmed_buckets: set[int] = set()
         self.last_slack: float | None = None  # of the latest probe, in nats
         self.flipped = False
+        self.counters = dict.fromkeys(
+            ("pairs", "warmups", "probes", "flips", "unprobed_offset_forwards"), 0)
 
     @torch.no_grad()
     def _forward(self, corr_pos, src_keypts, tgt_keypts, mask, model=None):
@@ -120,10 +133,13 @@ class Evaluator:
             return False
         self._regime_probes_left = max(self._regime_probes_left - 1, 0)
         corr_pos, src, tgt, mask = args
-        self.model, self.last_slack, flipped = select_attention_kernels(
-            self.model, corr_pos, src, tgt, mask=mask, context="eval")
+        self.counters["probes"] += 1
+        with span("pointdsc.eval.guard"):
+            self.model, self.last_slack, flipped = select_attention_kernels(
+                self.model, corr_pos, src, tgt, mask=mask, context="eval")
         if flipped:
             self.flipped = True
+            self.counters["flips"] += 1
             self._regime_probes_left = 0  # the running-max kernel is exact
             # buckets were warmed through the other kernels
             self._warmed_buckets.clear()
@@ -133,27 +149,40 @@ class Evaluator:
         """sample: un-padded dict from a dataset; returns (12-column stats
         row, [4, 4] transform)."""
         n = sample["corr_pos"].shape[0]
-        padded = pad_to_bucket(sample)
-        args = tuple(torch.as_tensor(padded[key])[None].to(device=self.device, dtype=dtype)
-                     for key, dtype in _INPUTS)
+        bucket = bucket_size(n)
+        seq = self.counters["pairs"]
+        self.counters["pairs"] += 1
+        with span("pointdsc.eval.pair", f"pair={seq} n={n} bucket={bucket}"):
+            with span("pointdsc.eval.pad"):
+                padded = pad_to_bucket(sample, bucket)
+            with span("pointdsc.eval.to_device"):
+                args = tuple(torch.as_tensor(padded[key])[None].to(device=self.device,
+                                                                    dtype=dtype)
+                             for key, dtype in _INPUTS)
 
-        bucket = padded["corr_pos"].shape[0]
-        if self._regime_probes_left > 0 or bucket not in self._warmed_buckets:
-            self._guard_offset_regime(args)
-        if bucket not in self._warmed_buckets:
-            self._forward(*args)  # discarded warm-up
-            self._warmed_buckets.add(bucket)
+            if self._regime_probes_left > 0 or bucket not in self._warmed_buckets:
+                self._guard_offset_regime(args)
+            elif self._fused_attention and self.model.offset_softmax:
+                self.counters["unprobed_offset_forwards"] += 1
+            if bucket not in self._warmed_buckets:
+                with span("pointdsc.eval.warmup"):
+                    self._forward(*args)  # discarded warm-up
+                self._warmed_buckets.add(bucket)
+                self.counters["warmups"] += 1
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = Timer()
-        t.tic()
-        trans, labels = self._forward(*args)
-        model_time = t.toc(average=False, block_on=trans)
-        trans = trans[0].cpu().numpy()
-        labels = labels[0, :n].cpu().numpy()
-        row = pair_stats(trans, labels, sample["gt_trans"], sample["gt_labels"], self.re_thre,
-                         self.te_thre, model_time, data_time, scene_ind)
+            with span("pointdsc.eval.drain"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            t = Timer()
+            t.tic()
+            trans, labels = self._forward(*args)
+            with span("pointdsc.eval.readback"):
+                model_time = t.toc(average=False, block_on=trans)
+                trans = trans[0].cpu().numpy()
+                labels = labels[0, :n].cpu().numpy()
+            with span("pointdsc.eval.stats"):
+                row = pair_stats(trans, labels, sample["gt_trans"], sample["gt_labels"],
+                                 self.re_thre, self.te_thre, model_time, data_time, scene_ind)
         return row, trans
 
     def run_dataset(self, dataset, scene_of=None, verbose=True):
@@ -171,7 +200,7 @@ class Evaluator:
             if verbose and (i + 1) % 100 == 0:
                 print(f"[{i + 1}/{len(dataset)}] pairs evaluated")
         stats = np.stack(rows, axis=0)
-        return stats, aggregate_stats(stats)
+        return stats, {**aggregate_stats(stats), "counters": dict(self.counters)}
 
     def run_dataset_sharded(self, dataset, mesh=None, scene_of=None, verbose=True):
         """Fan independent pairs over a mesh (a list of devices; by default
@@ -202,9 +231,12 @@ class Evaluator:
             if self._regime_probes_left > 0 or bucket not in warmed:
                 if self._guard_offset_regime(args):
                     warmed.clear()
+            elif self._fused_attention and self.model.offset_softmax:
+                self.counters["unprobed_offset_forwards"] += 1
             if bucket not in warmed:
                 self._forward_sharded(batch, mesh)  # discarded warm-up
                 warmed.add(bucket)
+                self.counters["warmups"] += 1
             for dev in set(mesh):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -215,6 +247,7 @@ class Evaluator:
             # the batch evaluates n_real pairs at once, so each gets wall /
             # n_real (the padding repeats are charged to the real pairs)
             model_time = t.toc(average=False) / n_real
+            self.counters["pairs"] += n_real
             for slot, (idx, padded, data_time) in enumerate(items[:n_dev]):
                 if rows[idx] is not None:
                     continue
@@ -238,7 +271,7 @@ class Evaluator:
             flush(bucket, items)
 
         stats = np.stack([r for r in rows if r is not None], axis=0)
-        agg = aggregate_stats(stats)
+        agg = {**aggregate_stats(stats), "counters": dict(self.counters)}
         # pairs run at once on different devices, so a pair's own device
         # latency is not defined here: the column is a throughput share
         agg["model_time_semantics"] = (

@@ -6,7 +6,10 @@ library with a plain C interface, at first use, into
 The file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
 library is never loaded. ``build_all`` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once. ``builds`` counts the nvcc runs and
+``loads`` the libraries loaded from disk in this process (which libraries a
+run's set-up built again); under a running profiler the builds are
+``pointdsc.kernels.build`` spans and the loads ``pointdsc.kernels.load``.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; ``launch`` raises when
@@ -25,6 +28,8 @@ import os
 import shutil
 import subprocess
 import time
+
+from pointdsc_tpu_torch.utils.trace import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -65,6 +70,8 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+builds = 0  # nvcc runs started
+loads = 0  # libraries loaded from disk
 
 
 def _nvcc() -> str:
@@ -86,6 +93,7 @@ def _lib_path(name: str) -> str:
 def _start_build(name: str):
     """Start nvcc for one source unless its library exists; returns
     (process or None, tmp path, final path)."""
+    global builds
     out = _lib_path(name)
     if os.path.exists(out):
         return None, None, out
@@ -93,6 +101,7 @@ def _start_build(name: str):
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    builds += 1
     return proc, tmp, out
 
 
@@ -109,28 +118,35 @@ def build_all() -> float:
     """Build every kernel library (one nvcc per source, all in parallel) and
     return the wall seconds it took."""
     t0 = time.perf_counter()
-    started = [(name, *_start_build(name)) for name in SOURCES]
-    try:
-        for name, proc, tmp, out in started:
-            _finish_build(name, proc, tmp, out)
-    finally:
-        for _, proc, _, _ in started:
-            if proc is not None and proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with span("pointdsc.kernels.build"):
+        started = [(name, *_start_build(name)) for name in SOURCES]
+        try:
+            for name, proc, tmp, out in started:
+                _finish_build(name, proc, tmp, out)
+        finally:
+            for _, proc, _, _ in started:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
+    global loads
     lib = _loaded.get(name)
     if lib is None:
-        _finish_build(name, *_start_build(name))
-        lib = ctypes.CDLL(_lib_path(name))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        started = _start_build(name)
+        if started[0] is not None:
+            with span("pointdsc.kernels.build"):
+                _finish_build(name, *started)
+        with span("pointdsc.kernels.load"):
+            lib = ctypes.CDLL(_lib_path(name))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        loads += 1
         _loaded[name] = lib
     return lib
 

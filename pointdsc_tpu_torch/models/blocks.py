@@ -26,6 +26,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from pointdsc_tpu_torch.utils.trace import span
+
 _NEG_INF = -1e9
 
 
@@ -206,11 +208,12 @@ class NonLocalBlock(nn.Module):
         q = dense(self.projection_q, feat, cdt)
         k = dense(self.projection_k, feat, cdt)
         v = dense(self.projection_v, feat, cdt)
-        if attention_fn is not None:
-            # the kernels take f32 or bf16 streams and return f32
-            message = attention_fn(q, k, v, mask)
-        else:
-            message = dense_sc_attention(q, k, v, compat, mask)
+        with span("pointdsc.model.attention"):
+            if attention_fn is not None:
+                # the kernels take f32 or bf16 streams and return f32
+                message = attention_fn(q, k, v, mask)
+            else:
+                message = dense_sc_attention(q, k, v, compat, mask)
         message = F.relu(self.fc_message_bn0(dense(self.fc_message_0, message, cdt), mask,
                                              update_stats))
         message = F.relu(self.fc_message_bn1(dense(self.fc_message_1, message, cdt), mask,
@@ -260,7 +263,8 @@ class NonLocalNet(nn.Module):
         x = self.layer0(corr_feat)
         if fused_layer_fn is not None:
             for i in range(self.num_layers):
-                x = fused_layer_fn(x, *self.layer_params(i))
+                with span("pointdsc.model.layer"):
+                    x = fused_layer_fn(x, *self.layer_params(i))
             return x
         for i in range(self.num_layers):
             pcn = getattr(self, f"PointCN_layer_{i}")

@@ -85,6 +85,7 @@ from pointdsc_tpu_torch.ops.knn import seed_knn_sorted
 from pointdsc_tpu_torch.ops.nms import pick_seeds_nms, pick_seeds_topk
 from pointdsc_tpu_torch.ops.procrustes import weighted_procrustes
 from pointdsc_tpu_torch.ops.se3 import transform
+from pointdsc_tpu_torch.utils.trace import span
 
 # The JAX model's gates of two kernels (pointdsc_tpu/models/pointdsc.py:242,
 # :334), with its constant: outside them it runs plain math, and so does the
@@ -200,100 +201,110 @@ class PointDSC(nn.Module):
         row-sharded over a mesh): no compat matrix or cache is built and the
         seed NMS runs from the coordinates, as in JAX
         (``pointdsc_tpu/models/pointdsc.py:119-124,209-210``)."""
-        train = self.training
-        corr_pos = corr_pos.float().contiguous()
-        src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
-        tgt_keypts = tgt_keypts.detach().float().contiguous()
-        bs, num_corr = corr_pos.shape[:2]
-        num_seeds = max(1, int(num_corr * self.ratio))
-        mask_arg = mask
-        if mask is None:
-            mask = torch.ones((bs, num_corr), dtype=torch.bool, device=corr_pos.device)
+        with span("pointdsc.model.forward"):
+            train = self.training
+            corr_pos = corr_pos.float().contiguous()
+            src_keypts = src_keypts.detach().float().contiguous()  # geometry has no gradient
+            tgt_keypts = tgt_keypts.detach().float().contiguous()
+            bs, num_corr = corr_pos.shape[:2]
+            num_seeds = max(1, int(num_corr * self.ratio))
+            mask_arg = mask
+            if mask is None:
+                mask = torch.ones((bs, num_corr), dtype=torch.bool, device=corr_pos.device)
 
-        # ---- Step 1: spatial consistency, shared by all attention layers
-        attention_fn, fused_layer_fn = None, None
-        compat, src_dist = None, None
-        if precomputed_features is not None:
-            pass  # the encoder ran outside: nothing [N, N] here, NMS from coordinates
-        elif fused and not train and self.fused_cache_compat:
-            cache = build_compat_cache_int8(src_keypts, tgt_keypts, self.sigma_d, mask=mask_arg)
-            offset = self.offset_softmax
+            # ---- Step 1: spatial consistency, shared by all attention layers
+            attention_fn, fused_layer_fn = None, None
+            compat, src_dist = None, None
+            if precomputed_features is not None:
+                pass  # the encoder ran outside: nothing [N, N] here, NMS from coordinates
+            elif fused and not train and self.fused_cache_compat:
+                with span("pointdsc.model.cache"):
+                    cache = build_compat_cache_int8(src_keypts, tgt_keypts, self.sigma_d,
+                                                    mask=mask_arg)
+                offset = self.offset_softmax
 
-            def attention_fn(q, k, v, _mask):
-                return fused_sc_attention_cached(q.contiguous(), k.contiguous(),
-                                                 v.contiguous(), cache, src_keypts,
-                                                 tgt_keypts, mask=mask_arg,
-                                                 offset_softmax=offset)
+                def attention_fn(q, k, v, _mask):
+                    return fused_sc_attention_cached(q.contiguous(), k.contiguous(),
+                                                     v.contiguous(), cache, src_keypts,
+                                                     tgt_keypts, mask=mask_arg,
+                                                     offset_softmax=offset)
 
-            # the whole-layer kernels implement only the offset softmax in
-            # f32 activations; the other configurations keep the encoder op
-            # by op around the attention kernel
-            if offset and not self.half_precision and not self.remat:
-                fused_layer_fn = make_fused_layer_fn(cache, mask=mask_arg,
-                                                     fold_cache=self._fold_cache)
-        elif fused and train:
-            geom = pack_geometry(src_keypts, tgt_keypts, mask_arg)
-            sigma_d = self.sigma_d
+                # the whole-layer kernels implement only the offset softmax in
+                # f32 activations; the other configurations keep the encoder op
+                # by op around the attention kernel
+                if offset and not self.half_precision and not self.remat:
+                    fused_layer_fn = make_fused_layer_fn(cache, mask=mask_arg,
+                                                         fold_cache=self._fold_cache)
+            elif fused and train:
+                geom = pack_geometry(src_keypts, tgt_keypts, mask_arg)
+                sigma_d = self.sigma_d
 
-            def attention_fn(q, k, v, _mask):
-                return sc_attention_trainable(q.float(), k.float(), v.float(), geom, sigma_d)
-        elif fused:
-            sigma_d = self.sigma_d
+                def attention_fn(q, k, v, _mask):
+                    return sc_attention_trainable(q.float(), k.float(), v.float(), geom, sigma_d)
+            elif fused:
+                sigma_d = self.sigma_d
 
-            def attention_fn(q, k, v, _mask):
-                return fused_sc_attention(q, k, v, src_keypts, tgt_keypts, sigma_d,
-                                          mask=mask_arg)
-        else:
-            compat, src_dist = spatial_consistency(src_keypts, tgt_keypts, self.sigma_d,
-                                                   mask=mask)
+                def attention_fn(q, k, v, _mask):
+                    return fused_sc_attention(q, k, v, src_keypts, tgt_keypts, sigma_d,
+                                              mask=mask_arg)
+            else:
+                compat, src_dist = spatial_consistency(src_keypts, tgt_keypts, self.sigma_d,
+                                                       mask=mask)
 
-        if precomputed_features is not None:
-            corr_features = precomputed_features
-        else:
-            corr_features = self.encoder(
-                corr_pos, compat, mask=mask, attention_fn=attention_fn,
-                fused_layer_fn=fused_layer_fn,
-                compute_dtype=torch.bfloat16 if self.half_precision else None,
-                remat=self.remat)
-        feat_sq = torch.sum(corr_features * corr_features, dim=-1, keepdim=True)
-        normed_features = corr_features / torch.sqrt(feat_sq + 1e-12)
-        # a half-precision encoder hands on bf16; everything after it is f32
-        corr_features, normed_features = corr_features.float(), normed_features.float()
+            if precomputed_features is not None:
+                corr_features = precomputed_features
+            else:
+                with span("pointdsc.model.encoder"):
+                    corr_features = self.encoder(
+                        corr_pos, compat, mask=mask, attention_fn=attention_fn,
+                        fused_layer_fn=fused_layer_fn,
+                        compute_dtype=torch.bfloat16 if self.half_precision else None,
+                        remat=self.remat)
+            feat_sq = torch.sum(corr_features * corr_features, dim=-1, keepdim=True)
+            normed_features = corr_features / torch.sqrt(feat_sq + 1e-12)
+            # a half-precision encoder hands on bf16; everything after it is f32
+            corr_features, normed_features = corr_features.float(), normed_features.float()
 
-        # ---- feature-similarity matrix, the dense SM loss's input
-        M = None
-        if not (testing or skip_M):
-            M = feature_similarity(normed_features, self.sigma, mask=mask)
+            # ---- feature-similarity matrix, the dense SM loss's input
+            M = None
+            if not (testing or skip_M):
+                M = feature_similarity(normed_features, self.sigma, mask=mask)
 
-        # ---- Step 2: confidence head + seeds
-        head = [t for layer in (self.classification_0, self.classification_1,
-                                self.classification_2) for t in (layer.weight, layer.bias)]
-        if use_confidence_kernel(fused, testing, self.num_channels):
-            confidence = confidence_head(corr_features,
-                                         packed_head_weights(head, self._head_cache))
-        else:
-            confidence = confidence_head_plain(corr_features, *head)
+            # ---- Step 2: confidence head + seeds
+            with span("pointdsc.model.head"):
+                head = [t for layer in (self.classification_0, self.classification_1,
+                                        self.classification_2) for t in (layer.weight, layer.bias)]
+                if use_confidence_kernel(fused, testing, self.num_channels):
+                    confidence = confidence_head(corr_features,
+                                                 packed_head_weights(head, self._head_cache))
+                else:
+                    confidence = confidence_head_plain(corr_features, *head)
 
-        if not testing:
-            seeds = pick_seeds_topk(confidence.detach(), num_seeds, mask=mask)
-        elif src_dist is None:  # the fused path, or an encoder run outside
-            seeds = pick_seeds_nms_prefiltered(src_keypts, confidence, self.nms_radius,
-                                               num_seeds, mask=mask)
-        else:
-            seeds = pick_seeds_nms(src_dist, confidence, self.nms_radius, num_seeds, mask=mask)
+            with span("pointdsc.model.nms"):
+                if not testing:
+                    seeds = pick_seeds_topk(confidence.detach(), num_seeds, mask=mask)
+                elif src_dist is None:  # the fused path, or an encoder run outside
+                    seeds = pick_seeds_nms_prefiltered(src_keypts, confidence, self.nms_radius,
+                                                       num_seeds, mask=mask)
+                else:
+                    seeds = pick_seeds_nms(src_dist, confidence, self.nms_radius, num_seeds,
+                                           mask=mask)
 
-        # ---- Steps 3-4: NSM per seed -> weighted Procrustes -> best hypothesis
-        seed_trans, seed_fitness, final_trans, final_labels = self._seed_transforms(
-            seeds, normed_features, src_keypts, tgt_keypts, mask, fused, testing)
+            # ---- Steps 3-4: NSM per seed -> weighted Procrustes -> best hypothesis
+            with span("pointdsc.model.seeds"):
+                seed_trans, seed_fitness, final_trans, final_labels = self._seed_transforms(
+                    seeds, normed_features, src_keypts, tgt_keypts, mask, fused, testing)
 
-        if testing:
-            # ---- Step 5: post refinement; the labels stay those of the
-            # pre-refinement winner, as in the reference (PointDSC.py:182-193)
-            final_trans = self.post_refinement(final_trans, src_keypts, tgt_keypts, mask, fused)
-        else:
-            final_labels = confidence  # the classification loss's logits
-        return PointDSCOutput(final_trans, final_labels, seed_trans, seed_fitness,
-                              confidence, normed_features, seeds, M, self.sigma)
+            if testing:
+                # ---- Step 5: post refinement; the labels stay those of the
+                # pre-refinement winner, as in the reference (PointDSC.py:182-193)
+                with span("pointdsc.model.refine"):
+                    final_trans = self.post_refinement(final_trans, src_keypts, tgt_keypts, mask,
+                                                       fused)
+            else:
+                final_labels = confidence  # the classification loss's logits
+            return PointDSCOutput(final_trans, final_labels, seed_trans, seed_fitness,
+                                  confidence, normed_features, seeds, M, self.sigma)
 
     def _seed_transforms(self, seeds, feats, src_keypts, tgt_keypts, mask, fused, testing):
         bs, num_corr, c = feats.shape
