@@ -251,6 +251,10 @@ OPS_PER_POWER_ENTRY = 2  # one multiply-add of M v per entry of M, per power ste
 HYP_ITERS = 10
 OPS_PER_LABEL_POINT = 25  # three 4-term rows (18), residual (3), norm (4)
 OPS_PER_ATTN_PAIR_EXTRA = 8  # scale, compat multiply, bias add, max, exp, sum per (q, k)
+# the running-max cached attention: the cells' sizes beside N, and the name
+# its kernels share (the attention's and the merge of split query tiles)
+ATTENTION_SIZES = (12288, 20480)
+ATTENTION_KERNEL = "sc_attention_cached_kernel"
 OPS_PER_CONF_ROW = 2 * (128 * 32 + 32 * 32 + 32) + 2 * 32 + 1  # three layers, biases, ReLUs
 OPS_PER_KNN_PAIR = 2 * C + 1  # the 128-term dot product and one compare of the selection
 OPS_PER_REFINE_POINT = 63  # warp (18), residual (5), test and weight (5), Gram terms (35)
@@ -905,6 +909,48 @@ def kernel_row(name, source, replaces, err, fn, plain_fn, bytes_moved, ops, tens
                 bound_ms=b, bound_by=o, library_ms=None, **extra)
 
 
+def kernel_only_ms(fn, name: str, calls: int = 20):
+    """Device time per call of fn's operations whose name holds ``name``
+    (``torch.profiler`` over ``calls`` calls), or "not measured"."""
+    from pointdsc_tpu_torch.tools.profile_forward import _device_profile
+
+    prof = _device_profile(fn, forwards=calls)
+    if prof["device_ms_per_forward"] == "not measured":
+        return "not measured"
+    return sum(op["ms_per_forward"] for op in prof["top_ops"] if name in op["name"])
+
+
+def cached_attention_row(torch, katt, dev, n: int) -> dict:
+    """The running-max cached attention's row at N = n: one synthetic pair
+    (the last 5% padded) and the kernel's own cache, f32 q, k, v rounded by
+    the wrapper, held to the plain version of the bf16 inputs at atol = rtol
+    = 2e-3 (as at N); wrapper, kernel-only and plain times, the bound."""
+    from pointdsc_tpu_torch.data import SyntheticPairDataset
+
+    ex = SyntheticPairDataset(num_pairs=1, num_corr=n, inlier_ratio=0.4, seed=1)[0]
+    src, tgt = (torch.as_tensor(ex[key])[None].to(dev) for key in ("src_keypts", "tgt_keypts"))
+    mask = (torch.arange(n) < n - int(n * PAD_FRACTION))[None].to(dev)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, n, C), generator=gen).to(dev) for _ in range(3))
+    qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    cache = katt.build_compat_cache_int8(src, tgt, 0.1, mask=mask)
+    bias = katt.key_bias(mask, 1, n, dev)
+    attn = lambda: katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,  # noqa: E731
+                                                  offset_softmax=False)
+    out = attn()
+    ref = katt.sc_attention_cached_plain(qh, kh, vh, cache, bias)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=2e-3, rtol=2e-3), f"attention at {n}: max err {err}")
+    del ref
+    return kernel_row(f"sc_attention_cached_{n}", "sc_attention_cached.cu", "sc_attention.py:417",
+                      err, attn, lambda: katt.sc_attention_cached_plain(qh, kh, vh, cache, bias),
+                      3 * n * C * 4 + n * n + n * 4 + n * C * 4,
+                      4.0 * n * n * C + OPS_PER_ATTN_PAIR_EXTRA * n * n,
+                      tensor_ops=4.0 * n * n * C, reps=10, n=n,
+                      kernel_ms=kernel_only_ms(attn, ATTENTION_KERNEL),
+                      splits=katt.fused_sc_attention_cached.plan.splits)
+
+
 def kernel_inputs(torch, dev):
     """Inputs at the main path's shapes: one synthetic pair's geometry, the
     last 5% of points padded, features/scores/weights from a seeded
@@ -1215,11 +1261,14 @@ def check_kernels(torch, dev) -> list[dict]:
           "running-max attention: f32 inputs are not the bf16 inputs' result")
     attn_bytes = 3 * N * C * 4 + N * N + N * 4 + N * C * 4
     attn_ops = 4.0 * N * N * C + OPS_PER_ATTN_PAIR_EXTRA * N * N
-    row("sc_attention_cached", "sc_attention.cu", "sc_attention.py:417", err,
-        lambda: katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
-                                               offset_softmax=False),
+    attn = lambda: katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,  # noqa: E731
+                                                  offset_softmax=False)
+    row("sc_attention_cached", "sc_attention_cached.cu", "sc_attention.py:417", err, attn,
         lambda: katt.sc_attention_cached_plain(qh, kh, vh, cache, bias), attn_bytes, attn_ops,
-        tensor_ops=4.0 * N * N * C)
+        tensor_ops=4.0 * N * N * C, kernel_ms=kernel_only_ms(attn, ATTENTION_KERNEL),
+        splits=katt.fused_sc_attention_cached.plan.splits)
+    # the same at the cells' sizes (KITTI 12288, Redwood 20480), held alike
+    rows.extend(cached_attention_row(torch, katt, dev, n) for n in ATTENTION_SIZES)
 
     # -- offset attention on the same cache, at the shapes and types the
     # half-precision path gives it: bf16 q, k, v, and p rounded to bf16 before

@@ -35,7 +35,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("compat_cache", "sc_attention", "sc_attention_train", "encoder_layer", "conf_mlp",
-           "nms", "seed_knn", "scoring", "refine", "sm_loss", "nn_search", "compat_cache_sym")
+           "nms", "seed_knn", "scoring", "refine", "sm_loss", "nn_search", "compat_cache_sym",
+           "sc_attention_cached")
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_FLAGS = (*COMPILE_FLAGS, "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,7 +45,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "compat_cache": {"compat_cache_int8": [P, P, P, I, I, F, P],
                      "compat_cache_int8_rect": [P] * 5 + [I, I, I, F, P]},
-    "sc_attention": {"sc_attention_cached": [P] * 6 + [I, I, I, F, P],
+    "sc_attention": {"sc_attention_cached_wide": [P] * 6 + [I, I, I, F, P],
                      "sc_attention_cached_offset": [P] * 7 + [I, I, I, F, P],
                      "sc_attention_cached_rect": [P] * 7 + [I, I, I, I, F, I, P],
                      "sc_attention_nocache": [P] * 5 + [I, I, I, F, F, P]},
@@ -67,6 +68,7 @@ SIGNATURES = {
     "refine": {"fused_post_refinement": [P] * 6 + [I, I, F, I, P]},
     "nn_search": {"nearest_neighbors": [P] * 6 + [I] * 7 + [P]},
     "compat_cache_sym": {"compat_cache_sym": [P, P, P, I, I, P, I, I, F, P]},
+    "sc_attention_cached": {"sc_attention_cached128": [P] * 10 + [I] * 5 + [F, P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

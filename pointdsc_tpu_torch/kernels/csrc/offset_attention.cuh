@@ -5,7 +5,9 @@
 // its kernels: _make_kernel (:109), _make_attn_mlp_kernel (:326) and
 // _sc_attention_cached_offset_kernel (pointdsc_tpu/kernels/sc_attention.py:472).
 // Its running-max form is _sc_attention_cached_kernel (sc_attention.py:417)
-// and, with the geometry as its compat source, _sc_attention_kernel (:82).
+// for wider models (C > 128) and row shards, and, with the geometry as its
+// compat source, _sc_attention_kernel (:82). The square running-max cached
+// call at C = 128 does not run it: sc_attention_cached.cu has its own kernel.
 //
 // Offset softmax (attention_rows<false>, the default):
 //   o_i  = ||q_i|| * kscale               kscale = max_j ||k_j|| / sqrt(C)

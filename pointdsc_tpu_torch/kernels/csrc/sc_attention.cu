@@ -1,34 +1,34 @@
 // Spatial-consistency attention, CUDA C++ for sm_90a: over the int8 cache
-// the running-max (flash) kernel and, further down, the offset-softmax
-// kernel; at the end of the file the running-max kernel without a cache,
-// which computes the compat tile from the geometry. All three run the loop of
-// offset_attention.cuh: the two N^2 C products on the bf16 tensor cores
-// (mma.sync), the cache stream read once where there is one.
+// the running-max (flash) kernel of wider models and, further down, the
+// offset-softmax kernel; then the running-max kernel without a cache, which
+// computes the compat tile from the geometry, and the row-shard forms. All
+// run the loop of offset_attention.cuh: the two N^2 C products on the bf16
+// tensor cores (mma.sync), the cache stream read once where there is one.
+// The running-max cached kernel at C = 128 is sc_attention_cached.cu's.
 //
 // Replaces the TPU kernel pointdsc_tpu/kernels/sc_attention.py:417
 // (_sc_attention_cached_kernel, pallas_call at :590), the
-// fused_sc_attention_cached(offset_softmax=False) path:
+// fused_sc_attention_cached(offset_softmax=False) path, for C > 128:
 //
 //   out = softmax_j(compat_ij / 127 * q_i.k_j / sqrt(C) + bias_j) v_j
 //
-// q, k, v [B, N, 128] bf16, compat [B, N, N] int8, bias [B, N] (0 valid,
-// -1e9 padded), out [B, N, 128] f32 (a wider model: [B, N, 128 m], run by
-// the wide kernel just below, at the cost of m^2 Q K^T passes). The
-// 1/sqrt(C)/127 decode is folded into one qk scale; m starts at -1e9, p is
-// rounded to bf16 before p v (l is summed from the f32 p) and the result is
-// acc / (l + 1e-30), as on the TPU,
-// where the JAX wrapper rounds q, k, v to bf16 (sc_attention.py:631) and the
-// kernel rounds p to its v's type (:460).
+// q, k, v [B, N, 128 m] bf16 (a wider model zero-padded to m chunks),
+// compat [B, N, N] int8, bias [B, N] (0 valid, -1e9 padded), out
+// [B, N, 128 m] f32, at the cost of m^2 Q K^T passes. The 1/sqrt(C)/127
+// decode is folded into one qk scale; m starts at -1e9, p is rounded to bf16
+// before p v (l is summed from the f32 p) and the result is acc / (l +
+// 1e-30), as on the TPU, where the JAX wrapper rounds q, k, v to bf16
+// (sc_attention.py:631) and the kernel rounds p to its v's type (:460).
 //
 // A TPU grid carries m, l and acc in scratch across sequential key steps; a
 // CUDA block cannot, so the key loop is the block's own: a block owns 32
 // query rows and walks all key tiles of 64 rows, keeping acc in mma
 // fragments and m, l per row (attention_rows<true>).
 //
-// Bound on the H100: per layer at N = 5120 the kernel must read the 26.2 MB
-// cache and do 4 N^2 C = 13.4 GFLOP of products on bf16 operands: 14 us on
-// the tensor cores (0.20 ms on the f32 CUDA cores); the K and V re-reads of
-// the 32-row blocks come from L2.
+// Bound on the H100: per layer at N = 5120 and C = 256 the kernel must read
+// the 26.2 MB cache and do 4 N^2 C = 26.8 GFLOP of products on bf16
+// operands: 27 us on the tensor cores; the K and V re-reads of the 32-row
+// blocks come from L2.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,51 +96,15 @@ int launch_wide(const void* q, const void* k, const void* v, const void* compat,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(oa::THREADS, 2)
-sc_attention_cached_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const int8_t* __restrict__ compat, const float* __restrict__ bias,
-                           float* __restrict__ out, int n, float qk_scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * oa::BQ;
-  const size_t base = static_cast<size_t>(b) * n;
-  float acc[4][4];
-  oa::attention_rows<true>(q + base * oa::C, k + base * oa::C, v + base * oa::C,
-                           compat + base * n, bias + base, 0.f, n, q0, qk_scale, smem, acc);
-  const int ry = threadIdx.x >> 5, cx = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = 4 * ry + r;
-    if (q0 + row >= n) continue;
-    const float l = smem[oa::OFF_L + row] + 1e-30f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[(base + q0 + row) * oa::C + cx + 32 * j] = acc[r][j] / l;
-  }
-}
-
 }  // namespace
 
-// ld: the row width of q, k, v and out (128, or a wider model's 128 m)
-extern "C" int sc_attention_cached(const void* q, const void* k, const void* v,
-                                   const void* compat, const void* bias, void* out, int batch,
-                                   int n, int ld, float qk_scale, void* stream) {
-  if (ld != oa::C)
-    return launch_wide<true, oa::kCacheInt8>(q, k, v, compat, bias, nullptr, nullptr, out, batch,
-                                             n, ld, 0.f, qk_scale, stream);
-  // per call: the attribute belongs to the current device
-  const cudaError_t err = cudaFuncSetAttribute(
-      sc_attention_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(oa::SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + oa::BQ - 1) / oa::BQ, batch);
-  sc_attention_cached_kernel<<<grid, oa::THREADS, oa::SMEM_BYTES,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(compat),
-      static_cast<const float*>(bias), static_cast<float*>(out), n, qk_scale);
-  return static_cast<int>(cudaGetLastError());
+// ld: the row width of q, k, v and out, a wider model's 128 m (m > 1)
+extern "C" int sc_attention_cached_wide(const void* q, const void* k, const void* v,
+                                        const void* compat, const void* bias, void* out,
+                                        int batch, int n, int ld, float qk_scale, void* stream) {
+  if (ld == oa::C) return static_cast<int>(cudaErrorInvalidValue);  // sc_attention_cached.cu
+  return launch_wide<true, oa::kCacheInt8>(q, k, v, compat, bias, nullptr, nullptr, out, batch,
+                                           n, ld, 0.f, qk_scale, stream);
 }
 
 // ---------------------------------------------------------------------------

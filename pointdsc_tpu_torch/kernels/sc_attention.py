@@ -1,6 +1,7 @@
 """Spatial-consistency attention kernels (PyTorch wrappers of
 ``csrc/compat_cache.cu``, ``csrc/compat_cache_sym.cu``,
-``csrc/sc_attention.cu`` and ``csrc/sc_attention_train.cu``; counterparts of
+``csrc/sc_attention_cached.cu``, ``csrc/sc_attention.cu`` and
+``csrc/sc_attention_train.cu``; counterparts of
 ``pointdsc_tpu/kernels/sc_attention.py``).
 
 Eval: the 12 encoder layers share one compat matrix, built once as int8
@@ -19,6 +20,7 @@ on a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -297,14 +299,92 @@ def sc_attention_cached_plain(q, k, v, compat, key_bias, c=None):
     return torch.einsum("bnm,bmc->bnc", p, v) / (l + 1e-30)
 
 
+# The running-max cached kernel at C = 128 (csrc/sc_attention_cached.cu): a
+# work item is a query tile of ATTN_ROWS rows over a run of key tiles of
+# ATTN_KEYS keys; one block an SM (its shared memory leaves room for no second).
+ATTN_ROWS = ATTN_KEYS = 128
+ATTN_WIDTH = 128  # the channels it takes (a wider model runs the wide kernel)
+
+
+class AttentionPlan(NamedTuple):
+    """The work of the running-max cached kernel at C = 128 for one shape
+    (``cached_attention_plan``)."""
+
+    items: tuple  # (sample, query tile, first key tile, key tiles, slot; -1: writes out)
+    first: tuple  # block i runs items first[i] .. first[i + 1] - 1
+    merges: tuple  # the split query tiles: (sample, query tile, first slot, slots)
+    slots: int  # the workspace's (m, l, acc) slots, one a split item
+    splits: int  # query tiles whose keys more than one block walks
+
+
+def cached_attention_plan(batch: int, n: int, sms: int) -> AttentionPlan:
+    """Work items of the running-max cached kernel at N = n: the (sample,
+    query tile, key tile) sequence cut into min(sms, its length) runs of
+    equal length (within one key tile), one a block, so the launch is one
+    wave, every SM busy alike. A run is cut at its query tiles' edges into
+    items; a query tile that more than one item walks is split, each of its
+    items writing a workspace slot, which the merge launch combines."""
+    tiles, keys = -(-n // ATTN_ROWS), -(-n // ATTN_KEYS)
+    total = batch * tiles * keys
+    blocks = min(sms, total)
+    items, first = [], [0]
+    for i in range(blocks):
+        pos, end = i * total // blocks, (i + 1) * total // blocks
+        while pos < end:
+            row, k0 = divmod(pos, keys)
+            count = min(keys - k0, end - pos)
+            items.append([row // tiles, row % tiles, k0, count, -1])
+            pos += count
+        first.append(len(items))
+    merges, slots, i = [], 0, 0
+    while i < len(items):  # a query tile's items are consecutive
+        j = i + 1
+        while j < len(items) and items[j][:2] == items[i][:2]:
+            j += 1
+        if j - i > 1:
+            merges.append((items[i][0], items[i][1], slots, j - i))
+            for item in items[i:j]:
+                item[4] = slots
+                slots += 1
+        i = j
+    return AttentionPlan(tuple(map(tuple, items)), tuple(first), tuple(merges), slots,
+                         len(merges))
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_plan_on(batch: int, n: int, device: torch.device):
+    """``cached_attention_plan`` for ``device``'s SMs and as the kernel reads
+    it (made once a shape: read-only tables): the plan, items [I, 8],
+    first [blocks + 1] and merges [M, 4] int32 on ``device``."""
+    plan = cached_attention_plan(batch, n,
+                                 torch.cuda.get_device_properties(device).multi_processor_count)
+    items = [list(item) + [0, 0, 0] for item in plan.items]
+    return (plan, torch.tensor(items, dtype=torch.int32, device=device),
+            torch.tensor(plan.first, dtype=torch.int32, device=device),
+            torch.tensor(plan.merges or [(0, 0, 0, 0)], dtype=torch.int32, device=device))
+
+
 def _launch_sc_attention(q, k, v, compat, key_bias, c):
     """q, k, v bf16 [B, N, W] (W = ``padded_width(c)``), contiguous; c the
-    model's width."""
+    model's width. W = 128: the kernel of sc_attention_cached.cu on the
+    shape's plan (its split query tiles merged by a second launch); wider:
+    sc_attention.cu's wide kernel."""
     b, n, w = q.shape
     out = torch.empty((b, n, w), dtype=torch.float32, device=q.device)
-    _build.launch("sc_attention", "sc_attention_cached", q.device,
+    if w != ATTN_WIDTH:
+        _build.launch("sc_attention", "sc_attention_cached_wide", q.device,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
+                      key_bias.data_ptr(), out.data_ptr(), b, n, w, qk_scale(c))
+        return out
+    plan, items, first, merges = _attention_plan_on(b, n, q.device)
+    fused_sc_attention_cached.plan = plan
+    part = torch.empty(max(plan.slots, 1) * (ATTN_ROWS * ATTN_WIDTH + 2 * ATTN_ROWS),
+                       dtype=torch.float32, device=q.device)
+    _build.launch("sc_attention_cached", "sc_attention_cached128", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), compat.data_ptr(),
-                  key_bias.data_ptr(), out.data_ptr(), b, n, w, qk_scale(c))
+                  key_bias.data_ptr(), out.data_ptr(), part.data_ptr(), items.data_ptr(),
+                  first.data_ptr(), merges.data_ptr(), len(plan.first) - 1, len(plan.merges),
+                  plan.slots, b, n, qk_scale(c))
     return out
 
 
@@ -449,9 +529,11 @@ def sc_attention_cached_offset(q, k, v, compat, src, tgt, mask=None):
     return fused_sc_attention_cached(q, k, v, compat, src, tgt, mask=mask, offset_softmax=True)
 
 
-# launches of the running-max kernel and of the offset kernel
+# launches of the running-max kernel and of the offset kernel; the running
+# max's last plan at C = 128 (its ``splits``: the query tiles it merged)
 fused_sc_attention_cached.launches = 0
 sc_attention_cached_offset.launches = 0
+fused_sc_attention_cached.plan = None
 
 
 # ---------------------------------------------------------------------------

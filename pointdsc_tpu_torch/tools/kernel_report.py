@@ -58,7 +58,7 @@ from pointdsc_tpu_torch.kernels.sc_attention import SYM_BAND, SYM_COLS, symmetri
 
 SOURCES = ("sc_attention", "encoder_layer", "seed_knn", "refine", "compat_cache", "nms",
            "scoring", "sc_attention_train", "sm_loss", "conf_mlp", "nn_search",
-           "compat_cache_sym")
+           "compat_cache_sym", "sc_attention_cached")
 CACHE_COLUMNS = 16  # entries a thread computes in one pass of the cache kernel's row loop
 FLOOR_SIZES = (5120, 12288, 20480)
 SYM_WARPS = 4  # the symmetric kernel's warps a block (128 threads)

@@ -66,19 +66,38 @@ def test_compat_cache(dev, n):
     assert float((diff == 1).float().mean()) <= 1e-3
 
 
-@pytest.mark.parametrize("n", [1000, 2048])
-def test_sc_attention(dev, n):
-    """The running-max kernel on the same cache, ragged (N = 1000) and with
-    masked keys (the second pair's last 10%). It takes bf16 q, k, v and
-    rounds p to bf16 before p v, as the JAX wrapper and the TPU kernel do
-    off the CPU, so it is held to the plain version of the bf16 inputs at
-    the offset kernel's atol = rtol = 2e-3 (was 1e-4 while it ran f32): a p
-    on a bf16 rounding boundary may round either way (the kernel rounds p
-    against each tile's running max, the plain version against the row's
-    maximum), each flip moving one of ~n terms by 2^-9 relative. f32 inputs
-    are rounded by the wrapper: the bf16 inputs' result bit for bit. Masked
-    keys carry exactly zero weight."""
+@pytest.mark.parametrize("n,tail", [(1000, "tenth"), (2048, "tenth"), (5120, "tenth"),
+                                    (12288, "tenth"), (12289, "tenth"), (20480, "tenth"),
+                                    (4096, "split")])
+def test_sc_attention(dev, n, tail):
+    """The running-max kernel on the same cache, ragged (N = 1000, and 12289:
+    not a multiple of the 128-row tiles, nor of the 16 bytes TMA takes, so the
+    producer stages the compat bytes) and with masked keys: the second pair's
+    last 10% ("tenth"), or ("split") its keys from the start of a split that
+    the plan gives a block whole, so that split's (m, l, acc) must merge with
+    weight exactly 0. The sizes of the cells (12288, 20480) and of 3DMatch
+    (5120) split query tiles across blocks. It takes bf16 q, k, v and rounds
+    p to bf16 before p v, as the JAX wrapper and the TPU kernel do off the
+    CPU, so it is held to the plain version of the bf16 inputs at the offset
+    kernel's atol = rtol = 2e-3 (was 1e-4 while it ran f32): a p on a bf16
+    rounding boundary may round either way (the kernel rounds p against each
+    tile's running max, the plain version against the row's maximum), each
+    flip moving one of ~n terms by 2^-9 relative. f32 inputs are rounded by
+    the wrapper: the bf16 inputs' result bit for bit. Masked keys carry
+    exactly zero weight: v = 1e6 on them changes nothing."""
     src, tgt, mask, _ = pair(n, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = katt.cached_attention_plan(B, n, sms)
+    first_masked = n - n // 10
+    if tail == "split":
+        # the second sample's split items that end at the last key tile
+        keys = -(-n // katt.ATTN_KEYS)
+        tails = [it for it in plan.items if it[0] == 1 and it[4] >= 0 and it[2] > 0
+                 and it[2] + it[3] == keys]
+        assert tails, "the plan has no split to mask"
+        first_masked = max(it[2] for it in tails) * katt.ATTN_KEYS
+        mask = torch.ones((B, n), dtype=torch.bool, device=dev)
+        mask[1, first_masked:] = False
     gen = torch.Generator().manual_seed(1)
     q, k, v = (torch.randn((B, n, 128), generator=gen).to(dev) for _ in range(3))
     qh, kh, vh = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -86,28 +105,31 @@ def test_sc_attention(dev, n):
     cache = katt.compat_cache_plain(geom, katt.cache_coef(0.1))
     out = katt.fused_sc_attention_cached(qh, kh, vh, cache, src, tgt, mask=mask,
                                          offset_softmax=False)
+    assert katt.fused_sc_attention_cached.plan == plan
     ref = katt.sc_attention_cached_plain(qh, kh, vh, cache, geom[:, 8].contiguous())
     torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
     assert torch.equal(katt.fused_sc_attention_cached(q, k, v, cache, src, tgt, mask=mask,
                                                       offset_softmax=False), out)
     v2 = vh.clone()
-    v2[1, n - n // 10:] = 1e6
+    v2[1, first_masked:] = 1e6
     out2 = katt.fused_sc_attention_cached(qh, kh, v2, cache, src, tgt, mask=mask,
                                           offset_softmax=False)
     assert torch.equal(out2, out)
 
 
-def test_sc_attention_growing_maxima(dev):
-    """Row maxima that grow with the key index, so that every key tile raises
-    the running max and rescales the accumulator (alpha < 1 in each of the 16
-    tiles): a full cache, q_i = 4 u + noise and k_j = 40 (j / n) u + noise for
-    a unit u, so the logits rise by ~0.9 nats a tile. Tolerance as
+@pytest.mark.parametrize("n", [1000, 12288])
+def test_sc_attention_growing_maxima(dev, n):
+    """Row maxima that grow with the key index, so that every key tile of the
+    kernel (ATTN_KEYS keys) raises the running max and rescales the
+    accumulator (alpha < 1 in each tile): a full cache, q_i = 4 u + noise and
+    k_j = (40 * 64 / ATTN_KEYS) (j / 1000) u + noise for a unit u, so the
+    logits rise by ~0.9 nats a tile. At N = 12288 the plan splits the query
+    tiles' keys, so the merge meets the same rising maxima. Tolerance as
     ``test_sc_attention``."""
-    n = 1000
     src, tgt, mask, _ = pair(n, dev)
     gen = torch.Generator().manual_seed(2)
     u = torch.nn.functional.normalize(torch.randn(128, generator=gen), dim=0)
-    ramp = 40.0 * torch.arange(n, dtype=torch.float32)[:, None] / n
+    ramp = 40.0 * 64 / katt.ATTN_KEYS * torch.arange(n, dtype=torch.float32)[:, None] / 1000
     q = 4.0 * u + 0.1 * torch.randn((B, n, 128), generator=gen)
     k = ramp * u + 0.1 * torch.randn((B, n, 128), generator=gen)
     v = torch.randn((B, n, 128), generator=gen)
@@ -121,7 +143,8 @@ def test_sc_attention_growing_maxima(dev):
     # the premise: each tile's largest logit exceeds every earlier tile's
     s = torch.einsum("bnc,bmc->bnm", q.float(), k.float()) * katt.qk_scale(128) + bias[:, None]
     n_valid = n - n // 10  # the second pair's keys past it are masked
-    tiles = s[:, :, :n_valid - n_valid % 64].unflatten(-1, (-1, 64)).amax(-1)
+    width = katt.ATTN_KEYS
+    tiles = s[:, :, :n_valid - n_valid % width].unflatten(-1, (-1, width)).amax(-1)
     assert bool((tiles[..., 1:] > tiles[..., :-1]).all())
 
 
@@ -1970,10 +1993,13 @@ def test_rect_sc_attention(dev, nq, nk, b, c, offset):
 
 @pytest.mark.parametrize("offset", [True, False])
 def test_rect_rows_are_square_rows(dev, offset):
-    """The square calls are unchanged: at nq = nk the wrapper launches the
-    square kernel; a row shard of the same inputs through the rectangular
-    kernel gives the square call's rows (within 1e-6: the same loop on the
-    same rows)."""
+    """A row shard through the rectangular kernel gives the rows of the same
+    loop over the whole cloud (within 1e-6: the same loop on the same rows),
+    and those are the square call's rows: within 1e-6 for the offset form
+    (the square call runs the same loop); for the running max, whose square
+    call at C = 128 runs its own kernel (sc_attention_cached.cu: another
+    summation order, p rounded against another running max), within that
+    kernel's atol = rtol = 2e-3 (test_sc_attention)."""
     n, lo, nq = 2048, 640, 512
     src, tgt, mask, _ = pair(n, dev)
     gen = torch.Generator().manual_seed(6)
@@ -1984,4 +2010,8 @@ def test_rect_rows_are_square_rows(dev, offset):
     part = katt.fused_sc_attention_cached(q[:, lo:lo + nq].contiguous(), k, v,
                                           cache[:, lo:lo + nq].contiguous(), src, tgt,
                                           mask=mask, offset_softmax=offset)
-    torch.testing.assert_close(part, full[:, lo:lo + nq], atol=1e-6, rtol=1e-6)
+    whole = katt._launch_sc_attention_rect(q, k, v, cache, katt.key_bias(mask, B, n, dev), 128,
+                                           offset)
+    torch.testing.assert_close(part, whole[:, lo:lo + nq], atol=1e-6, rtol=1e-6)
+    tol = 1e-6 if offset else 2e-3
+    torch.testing.assert_close(full, whole, atol=tol, rtol=tol)
